@@ -1,0 +1,364 @@
+"""Fused SDF-MLP kernels: CUDA wrappers and their plain PyTorch versions
+(counterpart of nefii_tpu/ops/pallas/fused_mlp.py).
+
+Two kernels, both in `csrc/fused_mlp.cu` (built by `build.py`, bound with
+ctypes):
+
+  * `fused_hidden` (K1) replaces the Pallas `_kernel`: the value-only hidden
+    chain of the SDF MLP, fp32 or bf16 storage with fp32 accumulation. It
+    answers every SDF query of the tracers (`build_fused_sdf`).
+  * `fused_fwd_bwd` (K2) replaces the Pallas `_kernel_fwd_bwd`: the forward
+    plus the input-space backward of the sdf column, fp32. It gives sdf,
+    feature and normal at every shading point and secondary hit
+    (`build_fused_sdf_feature_grad`).
+
+`prepare_weights` resolves weight norm, pads and folds the skip layer's
+1/sqrt(2) into split weights once per call, into one packed buffer that the
+kernels and the plain versions share. The final linear and the positional
+encoding's backward stay outside the kernels, as in the JAX package.
+
+A wrapper given a CUDA tensor launches its kernel or raises; the plain
+version (`*_plain`) runs only for tensors on the CPU, and it is what the
+kernels are compared against. Each wrapper counts its launches in
+`LAUNCHES`. Nothing here imports triton or needs nvcc at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# launches of each CUDA kernel; a wrapper adds one where it launches, nowhere else
+LAUNCHES: Dict[str, int] = {"fused_sdf_hidden": 0, "fused_sdf_fwd_bwd": 0}
+
+KERNEL_WIDTH = 512    # hidden width the CUDA kernels take (WIDTH in csrc/fused_mlp.cu)
+BLOCK_ROWS = 32       # rows per block tile (BM)
+BLOCKS_PER_SM = 2     # resident blocks per SM: the grid is persistent
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclass
+class FusedLayer:
+    """Views into FusedWeights.buf for one fused layer."""
+    w: torch.Tensor             # [k_h, width]   h part (layer 0: the embedded input)
+    wx: Optional[torch.Tensor]  # [k_x, width]   skip layers' x part
+    b: torch.Tensor             # [width]
+    k_h: int
+    k_x: int
+
+
+@dataclass
+class FusedWeights:
+    buf: torch.Tensor        # packed weights, biases and transposes, working dtype
+    desc: List[int]          # per layer: w, wx, b, wt, wxt offsets (elements), k_h, k_x
+    layers: List[FusedLayer]
+    width: int               # padded width of every fused layer's output
+    x_cols: int              # padded embedding width
+    emb_dim: int             # real embedding width
+    real_width: int          # real width of the last hidden layer
+    w_last: torch.Tensor     # [real_width, d_out (+F)] fp32, the final linear
+    b_last: torch.Tensor
+    wlast_col: torch.Tensor  # [width] fp32: sdf column of w_last, zero padded
+    multires: int
+    d_in: int
+    embed_fn: object
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.buf.dtype
+
+
+@torch.no_grad()
+def prepare_weights(network, dtype: torch.dtype = torch.float32) -> FusedWeights:
+    """Resolve weight norm + padding + skip folding into the packed buffer.
+
+    Every fused layer (all but the final linear) is padded to one output
+    width; input widths are padded to multiples of 16 and the embedding to
+    x_cols. Padded weight rows/columns and biases are zero, so padded
+    features never reach a real output (forward) or gradient (backward).
+    """
+    dims, embed_fn = network._layer_dims()
+    n = len(dims)
+    d_emb = dims[0]
+    x_cols = _round_up(d_emb, 16)
+    ws = [network.layers[l].effective_weight().t() for l in range(n - 2)]  # [in, out]
+    width = _round_up(max(w.shape[1] for w in ws), 16)
+
+    blocks: List[torch.Tensor] = []
+    offset = 0
+
+    def put(t: torch.Tensor) -> int:
+        nonlocal offset
+        start = offset
+        blocks.append(t.reshape(-1))
+        offset += t.numel()
+        return start
+
+    desc: List[int] = []
+    shapes = []
+    for l, w in enumerate(ws):
+        in_dim, out_dim = w.shape
+        w = F.pad(w, (0, width - out_dim))
+        b = F.pad(network.layers[l].b, (0, width - out_dim))
+        if l in network.skip_in:
+            h_dim = in_dim - d_emb
+            k_h, k_x = _round_up(h_dim, 16), x_cols
+            scale = 1.0 / np.sqrt(2.0)
+            wa = F.pad(w[:h_dim] * scale, (0, 0, 0, k_h - h_dim))
+            wb = F.pad(w[h_dim:] * scale, (0, 0, 0, x_cols - d_emb))
+        else:
+            k_h, k_x = (x_cols if l == 0 else _round_up(in_dim, 16)), 0
+            wa = F.pad(w, (0, 0, 0, k_h - in_dim))
+            wb = None
+        o_w = put(wa)
+        o_wx = put(wb) if wb is not None else -1
+        o_b = put(b)
+        o_wt = put(wa.t().contiguous())
+        o_wxt = put(wb.t().contiguous()) if wb is not None else -1
+        desc += [o_w, o_wx, o_b, o_wt, o_wxt, k_h, k_x]
+        shapes.append((o_w, o_wx, o_b, k_h, k_x))
+    buf = torch.cat(blocks).to(dtype).contiguous()
+
+    layers = []
+    for o_w, o_wx, o_b, k_h, k_x in shapes:
+        layers.append(FusedLayer(
+            w=buf[o_w:o_w + k_h * width].view(k_h, width),
+            wx=buf[o_wx:o_wx + k_x * width].view(k_x, width) if k_x else None,
+            b=buf[o_b:o_b + width], k_h=k_h, k_x=k_x,
+        ))
+
+    last = network.layers[n - 2]
+    w_last = last.effective_weight().t().float().contiguous()
+    real_width = dims[-2]
+    wlast_col = F.pad(w_last[:, 0], (0, width - real_width)).contiguous()
+    return FusedWeights(
+        buf=buf, desc=desc, layers=layers, width=width, x_cols=x_cols, emb_dim=d_emb,
+        real_width=real_width, w_last=w_last, b_last=last.b.detach().float(),
+        wlast_col=wlast_col, multires=network.multires, d_in=network.d_in,
+        embed_fn=embed_fn,
+    )
+
+
+def embed_padded(pts: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
+    """[N, 3] points -> kernel-ready [N, x_cols] embedding in the working dtype."""
+    x = fw.embed_fn(pts) if fw.multires > 0 else pts
+    x = F.pad(x.float(), (0, fw.x_cols - x.shape[-1]))
+    return x.to(fw.dtype).contiguous()
+
+
+def _softplus100(z: torch.Tensor) -> torch.Tensor:
+    t = z * 100.0
+    return (F.relu(t) + torch.log1p(torch.exp(-t.abs()))) * 0.01
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (CPU path and the kernels' reference)
+# ---------------------------------------------------------------------------
+
+def fused_hidden_plain(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
+    """K1 in plain PyTorch: operands in the working dtype, fp32 accumulation,
+    h rounded to the working dtype after every layer."""
+    xf = x.float()
+    h = xf
+    for L in fw.layers:
+        z = h[:, :L.k_h] @ L.w.float()
+        if L.wx is not None:
+            z = z + xf @ L.wx.float()
+        h = _softplus100(z + L.b.float())
+        if fw.dtype != torch.float32:
+            h = h.to(fw.dtype).float()
+    return h.to(fw.dtype)
+
+
+def fused_fwd_bwd_plain(x: torch.Tensor, fw: FusedWeights):
+    """K2 in plain PyTorch (fp32): (last hidden [N, width], d sdf/d x [N, x_cols])."""
+    xf = x.float()
+    h = xf
+    zs = []
+    for L in fw.layers:
+        z = h[:, :L.k_h] @ L.w.float()
+        if L.wx is not None:
+            z = z + xf @ L.wx.float()
+        z = z + L.b.float()
+        zs.append(z)
+        h = _softplus100(z)
+    g = fw.wlast_col.expand(x.shape[0], fw.width)
+    gx = torch.zeros_like(xf)
+    for L, z in zip(reversed(fw.layers), reversed(zs)):
+        gz = g * torch.sigmoid(z * 100.0)
+        if L.wx is not None:
+            gx = gx + gz @ L.wx.float().t()
+        g = F.pad(gz @ L.w.float().t(), (0, fw.width - L.k_h))
+    return h, gx + g[:, :fw.x_cols]
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _lib() -> ctypes.CDLL:
+    from nefii_tpu_torch.ops.kernels import build
+
+    lib = build.load("fused_mlp")
+    if not getattr(lib, "_nefii_typed", False):
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        pll = ctypes.POINTER(ctypes.c_longlong)
+        lib.nefii_sdf_hidden.argtypes = [vp, vp, pll, i, i, vp, ll, i, i, vp]
+        lib.nefii_sdf_hidden.restype = i
+        lib.nefii_sdf_fwd_bwd.argtypes = [vp, vp, pll, i, i, vp, vp, vp, vp, ll, i, vp]
+        lib.nefii_sdf_fwd_bwd.restype = i
+        lib.nefii_error_string.argtypes = [i]
+        lib.nefii_error_string.restype = ctypes.c_char_p
+        lib.nefii_fused_mlp_config.argtypes = [ctypes.POINTER(i)] * 3
+        width, rows, threads = i(), i(), i()
+        lib.nefii_fused_mlp_config(ctypes.byref(width), ctypes.byref(rows), ctypes.byref(threads))
+        if (width.value, rows.value) != (KERNEL_WIDTH, BLOCK_ROWS):
+            raise RuntimeError(f"fused_mlp library takes width {width.value}, rows "
+                               f"{rows.value}; the wrapper expects {KERNEL_WIDTH}, {BLOCK_ROWS}")
+        lib._nefii_typed = True
+    return lib
+
+
+def _grid(n_rows: int, device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return max(1, min(-(-n_rows // BLOCK_ROWS), _SM_COUNT[idx] * BLOCKS_PER_SM))
+
+
+def _check_cuda(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {x.device} are not supported")
+    if fw.buf.device != x.device:
+        raise ValueError(f"{name}: weights on {fw.buf.device}, input on {x.device}")
+    if fw.width != KERNEL_WIDTH:
+        raise ValueError(f"{name}: the CUDA kernel takes hidden width {KERNEL_WIDTH}, "
+                         f"this network has {fw.width}")
+    if x.dim() != 2 or x.shape[1] != fw.x_cols:
+        raise ValueError(f"{name}: input must be [N, {fw.x_cols}], got {tuple(x.shape)}")
+    if x.dtype != fw.dtype:
+        raise ValueError(f"{name}: input is {x.dtype}, weights are {fw.dtype}")
+    if not x.is_contiguous() or not fw.buf.is_contiguous():
+        raise ValueError(f"{name}: input and weights must be contiguous")
+    if x.data_ptr() % 16 or fw.buf.data_ptr() % 16:
+        raise ValueError(f"{name}: input and weights must be 16-byte aligned")
+
+
+def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:
+    if err != 0:
+        msg = lib.nefii_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def fused_hidden(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
+    """K1: embedded points [N, x_cols] -> last hidden state [N, width], both in
+    the working dtype (fp32 or bf16)."""
+    if x.device.type == "cpu":
+        return fused_hidden_plain(x, fw)
+    _check_cuda(x, fw, "fused_hidden")
+    if fw.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_hidden: dtype {fw.dtype} is not supported")
+    n = x.shape[0]
+    out = torch.empty(n, fw.width, dtype=fw.dtype, device=x.device)
+    if n == 0:
+        return out
+    lib = _lib()
+    desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
+    err = lib.nefii_sdf_hidden(
+        x.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, out.data_ptr(),
+        n, _grid(n, x.device), int(fw.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "fused_hidden", lib)
+    LAUNCHES["fused_sdf_hidden"] += 1
+    return out
+
+
+def fused_fwd_bwd(x: torch.Tensor, fw: FusedWeights):
+    """K2: embedded points [N, x_cols] fp32 -> (last hidden [N, width],
+    d sdf / d x [N, x_cols]), fp32."""
+    if x.device.type == "cpu":
+        return fused_fwd_bwd_plain(x, fw)
+    _check_cuda(x, fw, "fused_fwd_bwd")
+    if fw.dtype != torch.float32:
+        raise ValueError("fused_fwd_bwd: the forward+backward kernel is fp32 only")
+    n = x.shape[0]
+    h = torch.empty(n, fw.width, dtype=torch.float32, device=x.device)
+    dx = torch.empty(n, fw.x_cols, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return h, dx
+    lib = _lib()
+    grid = _grid(n, x.device)
+    # pre-activation scratch: one slot per resident block, not per row
+    zbuf = torch.empty(grid * len(fw.layers) * BLOCK_ROWS * fw.width,
+                       dtype=torch.float32, device=x.device)
+    wlast = fw.wlast_col.to(x.device).contiguous()
+    desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
+    err = lib.nefii_sdf_fwd_bwd(
+        x.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, wlast.data_ptr(),
+        h.data_ptr(), dx.data_ptr(), zbuf.data_ptr(), n, grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "fused_fwd_bwd", lib)
+    LAUNCHES["fused_sdf_fwd_bwd"] += 1
+    return h, dx
+
+
+# ---------------------------------------------------------------------------
+# network-level closures (counterparts of build_fused_sdf / _feature_grad)
+# ---------------------------------------------------------------------------
+
+def pe_backward(dx_emb: torch.Tensor, pts: torch.Tensor, multires: int) -> torch.Tensor:
+    """VJP of the positional encoding: [N, d(1+2m)] cotangent -> [N, d]."""
+    d = pts.shape[-1]
+    dp = dx_emb[:, :d]
+    for k in range(multires):
+        f = float(2.0 ** k)
+        s = d + 2 * k * d
+        c = d + (2 * k + 1) * d
+        dp = dp + f * (torch.cos(pts * f) * dx_emb[:, s:s + d]
+                       - torch.sin(pts * f) * dx_emb[:, c:c + d])
+    return dp
+
+
+def build_fused_sdf(network, dtype: torch.dtype = torch.float32):
+    """fn(pts [N,3]) -> sdf [N]: K1's hidden chain + the sdf column in fp32."""
+    fw = prepare_weights(network, dtype)
+
+    def fn(pts: torch.Tensor) -> torch.Tensor:
+        h = fused_hidden(embed_padded(pts, fw), fw)[:, :fw.real_width].float()
+        return (h @ fw.w_last[:, :1])[:, 0] + fw.b_last[0]
+
+    return fn
+
+
+def build_fused_sdf_feature_grad(network):
+    """fn(pts [N,3]) -> (sdf [N], feature [N,F], grad [N,3]), value-only (K2)."""
+    assert network.d_out == 1, "the gradient kernel assumes a single sdf output"
+    fw = prepare_weights(network, torch.float32)
+
+    def fn(pts: torch.Tensor):
+        pts = pts.detach()
+        h, dx = fused_fwd_bwd(embed_padded(pts, fw), fw)
+        h = h[:, :fw.real_width]
+        dx = dx[:, :fw.emb_dim]
+        fin = h @ fw.w_last + fw.b_last
+        feature = h if network.use_last_as_f else fin[:, 1:]
+        grad = pe_backward(dx, pts, fw.multires) if fw.multires > 0 else dx[:, :fw.d_in]
+        return fin[:, 0], feature, grad
+
+    return fn

@@ -1,0 +1,211 @@
+"""Novel-view rendering with the PyTorch + CUDA port (counterpart of
+nefii_tpu/scripts/render.py).
+
+Restores a checkpoint written in the JAX package's `.npz` layout, renders
+the test split at full resolution with multi-ray anti-aliasing
+(`--num_rays`), and writes per view the EXRs gt, rerender_rgb, diffuse_rgb,
+specular_rgb, diffuse_albedo, roughness and specular_reflection, a stacked
+preview PNG, and envmap.exr once.
+
+    python -m nefii_tpu_torch.scripts.render --conf confs/conf.conf \
+        --data_split_dir <scene_test> --old_expdir exps/robot \
+        --timestamp latest --num_rays 256 [--device cuda]
+
+Rays go through the model in chunks of pixels_per_chunk(memory_capacity_level,
+num_rays) pixels. Each view draws its Monte-Carlo samples from a
+torch.Generator seeded with the view index. TF32 is off for matmuls and
+convolutions, so the plain MLPs run in full fp32.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+OUTPUT_KEYS = (
+    "idr_rgb_values", "sg_rgb_values", "normal_values", "sg_diffuse_rgb_values",
+    "sg_diffuse_albedo_values", "sg_specular_rgb_values", "sg_roughness_values",
+    "sg_specular_reflection_values", "network_object_mask", "points",
+)
+
+
+def add_argument(parser):
+    from nefii_tpu.training.exp_runner import add_argument as base_args
+
+    parser = base_args(parser)
+    parser.add_argument("--num_rays", type=int, default=64, help="anti-aliasing rays per pixel")
+    parser.add_argument("--no_auto_budget", action="store_true",
+                        help="accepted for compatibility; no effect: the port renders dense, "
+                             "without compaction budgets")
+    parser.add_argument("--out_dir", type=str, default="")
+    parser.add_argument("--max_views", type=int, default=-1)
+    parser.add_argument("--envmap_size", type=int, nargs=2, default=[256, 512])
+    parser.add_argument("--export_mesh_resolution", type=int, default=0,
+                        help="mesh export is not ported yet; must stay 0")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to render on (cuda raises if CUDA is absent)")
+    return parser
+
+
+class RenderRunner:
+    def __init__(self, **kwargs):
+        from nefii_tpu_torch.config import ConfigFactory, ConfigTree, get_class
+        from nefii_tpu_torch.utils import checkpoints as ckpt
+
+        # full-fp32 matmuls and convolutions (no TF32) for the plain MLPs
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.device = torch.device(kwargs.get("device", "cuda"))
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
+        if kwargs.get("export_mesh_resolution", 0) > 0:
+            raise NotImplementedError("--export_mesh_resolution is not ported yet")
+
+        conf = kwargs["conf"]
+        self.conf = conf if isinstance(conf, ConfigTree) else ConfigFactory.parse_file(conf)
+        self.num_rays = kwargs.get("num_rays", 64)
+        self.memory_capacity_level = kwargs.get("memory_capacity_level", 18)
+        self.coordinate_type = kwargs.get("coordinate_type", "mitsuba")
+
+        dataset_class = get_class(self.conf.get_string("train.dataset_class"))
+        self.dataset = dataset_class(
+            kwargs.get("gamma", 1.0), kwargs["data_split_dir"], False,
+            kwargs.get("subsample", 1), wo_mask=kwargs.get("wo_mask", False))
+
+        model_class = get_class(self.conf.get_string("train.model_class"))
+        self.model = model_class.from_conf(self.conf.get_config("model"), device=self.device)
+        self.model.eval()
+
+        expdir = kwargs.get("old_expdir") or os.path.join(
+            kwargs.get("exps_folder_name", "exps"),
+            kwargs.get("expname") or self.conf.get_string("train.expname", default="default"))
+        timestamp = kwargs.get("timestamp", "latest")
+        if timestamp == "latest" and os.path.isdir(expdir):
+            timestamp = sorted(os.listdir(expdir))[-1]
+        ckdir = os.path.join(expdir, timestamp, "checkpoints")
+        flat, _ = ckpt.load_collection(ckdir, ckpt.MODEL, kwargs.get("checkpoint", "latest"))
+        ckpt.params_from_jax(self.model, flat)
+        print(f"restored checkpoint from {ckdir}")
+
+        self.out_dir = kwargs.get("out_dir") or os.path.join(expdir, timestamp, "renders")
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.envmap_size = tuple(kwargs.get("envmap_size", (256, 512)))
+        self.max_views = kwargs.get("max_views", -1)
+        # per view: seconds, pixels, rays, executed SDF evaluations, hit fraction
+        self.stats = []
+
+    # ------------------------------------------------------------------
+    def render_view(self, img_idx: int):
+        """Full-resolution render of one view with multi-ray AA."""
+        from nefii_tpu.utils import general as utils
+
+        ds = self.dataset
+        ds.sampling_idx = None
+        ds.change_sampling_rays(self.num_rays if self.num_rays > 1 else -1,
+                                np.random.default_rng(img_idx))
+        idx, model_input, ground_truth = ds[img_idx]
+        _, model_input, ground_truth = ds.collate([(idx, model_input, ground_truth)])
+        ds.change_sampling_rays(-1)
+
+        total = ds.total_pixels
+        rays_per_px = max(self.num_rays, 1)
+        n_pix = min(utils.pixels_per_chunk(self.memory_capacity_level, rays_per_px), total)
+        gen = torch.Generator(device=self.device).manual_seed(img_idx)
+        dev = self.device
+        evals = []
+
+        def forward(chunk):
+            batch = {
+                "uv": torch.as_tensor(np.asarray(chunk["uv"], np.float32), device=dev),
+                "object_mask": torch.as_tensor(np.asarray(chunk["object_mask"]), device=dev),
+                "intrinsics": torch.as_tensor(np.asarray(chunk["intrinsics"], np.float32),
+                                              device=dev),
+                "pose": torch.as_tensor(np.asarray(chunk["pose"], np.float32), device=dev),
+            }
+            out = self.model.forward_with_uv(batch, gen)
+            evals.append(int(out["n_sdf_evals"]))
+            return {k: out[k].cpu().numpy() for k in OUTPUT_KEYS}
+
+        t0 = time.perf_counter()
+        out = utils.chunked_forward(forward, model_input, total, n_pix)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        out["gt"] = np.asarray(ground_truth["rgb"][0])
+        self.stats.append(dict(
+            view=img_idx, seconds=seconds, pixels=total, rays=total * rays_per_px,
+            sdf_evals=sum(evals), hit_fraction=float(out["network_object_mask"].mean())))
+        return out
+
+    def write_view(self, img_idx: int, out):
+        from nefii_tpu.utils import exr as exr_io
+        from nefii_tpu_torch.utils.png import write_png
+
+        H, W = self.dataset.img_res
+
+        def img(key):
+            v = out[key]
+            if v.ndim == 1 or v.shape[-1] == 1:
+                v = np.tile(v.reshape(H, W, 1), (1, 1, 3))
+            return v.reshape(H, W, 3)
+
+        panels = {
+            "gt": img("gt"),
+            "rerender_rgb": img("sg_rgb_values"),
+            "diffuse_rgb": img("sg_diffuse_rgb_values"),
+            "specular_rgb": img("sg_specular_rgb_values"),
+            "diffuse_albedo": img("sg_diffuse_albedo_values"),
+            "roughness": img("sg_roughness_values"),
+            "specular_reflection": img("sg_specular_reflection_values"),
+        }
+        for name, data in panels.items():
+            exr_io.write(os.path.join(self.out_dir, f"{name}_{img_idx:03d}.exr"), data)
+        stack = np.concatenate(
+            [np.clip(panels[k], 0, 1) for k in
+             ("gt", "rerender_rgb", "diffuse_rgb", "specular_rgb", "diffuse_albedo",
+              "roughness")], axis=1)
+        write_png(os.path.join(self.out_dir, f"render_{img_idx:03d}.png"),
+                  (stack * 255).astype(np.uint8))
+
+    @torch.no_grad()
+    def write_envmap(self):
+        from nefii_tpu.utils import exr as exr_io
+        from nefii_tpu_torch.ops.sg import compute_envmap
+
+        em = self.model.envmap_material_network
+        if em.light_type != "sg":
+            raise NotImplementedError("envmap.exr of a constant light is not ported yet")
+        env = compute_envmap(em.get_lgtSGs(), *self.envmap_size,
+                             coordinate_type=self.coordinate_type)
+        exr_io.write(os.path.join(self.out_dir, "envmap.exr"), env.cpu().numpy())
+
+    def run(self):
+        n = len(self.dataset)
+        if self.max_views > 0:
+            n = min(n, self.max_views)
+        for i in range(n):
+            out = self.render_view(i)
+            self.write_view(i, out)
+            s = self.stats[-1]
+            print(f"rendered view {i + 1}/{n}: {s['seconds']:.3f} s, "
+                  f"{s['pixels'] / s['seconds']:.1f} px/s, {s['sdf_evals']} SDF evals, "
+                  f"hit fraction {s['hit_fraction']:.3f}")
+        self.write_envmap()
+        print("outputs in", self.out_dir)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser = add_argument(parser)
+    opt = parser.parse_args(argv)
+    runner = RenderRunner(**vars(opt))
+    runner.run()
+    return runner
+
+
+if __name__ == "__main__":
+    main()

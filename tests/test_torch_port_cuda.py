@@ -1,0 +1,80 @@
+"""The port's CUDA kernels on the card (marked `cuda`; they skip where
+torch.cuda.is_available() is False). This file imports no JAX, so it runs on
+a machine that has only PyTorch:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
+
+Tolerances, kernel against its plain PyTorch version on the same CUDA
+tensors: fp32 within 1e-4 absolute (FMA chain vs cuBLAS summation order over
+8 layers of 512-long dot products); bf16 within 1e-2 of the largest value
+(one bf16 rounding of h flipped by the order propagates); the input gradient
+within 1e-3 of its largest value.
+"""
+
+import pytest
+import torch
+
+from nefii_tpu_torch.models.implicit import ImplicitNetwork
+from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+
+pytestmark = pytest.mark.cuda
+
+
+def _flagship():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = ImplicitNetwork(feature_vector_size=512, dims=(512,) * 8, skip_in=(4,), multires=6,
+                          use_last_as_f=True, bias=0.6, device="cuda")
+    net.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+    pts = torch.randn(5000, 3, generator=torch.Generator(device="cuda").manual_seed(1),
+                      device="cuda") * 0.5
+    return net, pts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@torch.no_grad()
+def test_k1_kernel_matches_plain(dtype):
+    net, pts = _flagship()
+    fw = fm.prepare_weights(net, dtype)
+    x = fm.embed_padded(pts, fw)
+    fm.reset_launch_counts()
+    h = fm.fused_hidden(x, fw).float()
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_sdf_hidden"] == 1
+    ref = fm.fused_hidden_plain(x, fw).float()
+    bound = 1e-4 if dtype == torch.float32 else 1e-2 * ref.abs().max().item()
+    assert (h - ref).abs().max().item() <= bound
+
+
+@torch.no_grad()
+def test_k2_kernel_matches_plain():
+    net, pts = _flagship()
+    fw = fm.prepare_weights(net)
+    x = fm.embed_padded(pts, fw)
+    fm.reset_launch_counts()
+    h, dx = fm.fused_fwd_bwd(x, fw)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_sdf_fwd_bwd"] == 1
+    h_r, dx_r = fm.fused_fwd_bwd_plain(x, fw)
+    assert (h - h_r).abs().max().item() <= 1e-4
+    assert (dx - dx_r).abs().max().item() <= 1e-3 * dx_r.abs().max().item()
+
+
+@torch.no_grad()
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    net, pts = _flagship()
+    fw = fm.prepare_weights(net)
+    x = fm.embed_padded(pts, fw)
+    fm.reset_launch_counts()
+    assert fm.fused_hidden(x[:0], fw).shape == (0, fw.width)  # N = 0: no launch
+    with pytest.raises(ValueError):
+        fm.fused_hidden(x[:, :-1], fw)  # wrong width
+    with pytest.raises(ValueError):
+        fm.fused_hidden(x.to(torch.bfloat16), fw)  # dtype differs from the weights
+    with pytest.raises(ValueError):
+        fm.fused_hidden(x.t().contiguous().t(), fw)  # not contiguous
+    with pytest.raises(ValueError):
+        fm.fused_fwd_bwd(fm.embed_padded(pts, fm.prepare_weights(net, torch.bfloat16)),
+                         fm.prepare_weights(net, torch.bfloat16))  # K2 is fp32 only
+    assert fm.LAUNCHES == {"fused_sdf_hidden": 0, "fused_sdf_fwd_bwd": 0}

@@ -1,0 +1,150 @@
+"""The fused SDF-MLP kernels of the PyTorch port: their plain PyTorch
+versions (the CPU path, and the reference the CUDA kernels are held against
+on the card) against the JAX package's Pallas kernels run in interpret mode,
+on the same weights and points.
+
+Tolerances:
+  * fp32 sdf and hidden state within 2e-5, sdf-feature within 2e-5, spatial
+    gradient within 1e-4: both sides are fp32 and differ in summation order
+    (the fp32 network gates of the parity suite);
+  * bf16 within 1e-2 relative to the largest value: h is rounded to bf16
+    after every layer on both sides, and one rounding flipped by a different
+    summation order propagates (the JAX package's bf16 bound,
+    fused_mlp.py:177-179).
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nefii_tpu.models.implicit import ImplicitNetwork as JImplicit
+from nefii_tpu.ops.pallas import fused_mlp as jfm
+from nefii_tpu.utils.checkpoints import flatten_tree
+from nefii_tpu_torch.models.implicit import ImplicitNetwork
+from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+from nefii_tpu_torch.utils.checkpoints import params_from_jax
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FP32_TOL = 2e-5
+GRAD_TOL = 1e-4
+BF16_REL = 1e-2
+
+NETS = {
+    "small-4x64": dict(feature_vector_size=64, dims=(64,) * 4, skip_in=(2,), multires=4,
+                       use_last_as_f=True, bias=0.6),
+    "flagship-8x512": dict(feature_vector_size=512, dims=(512,) * 8, skip_in=(4,), multires=6,
+                           use_last_as_f=True, bias=0.6),
+    "narrow-no-lastf": dict(feature_vector_size=256, dims=(256,) * 4, skip_in=(2,), multires=4,
+                            use_last_as_f=False, bias=0.5),
+    "tiny-no-pe": dict(feature_vector_size=64, dims=(64,) * 3, skip_in=(1,), multires=0,
+                       use_last_as_f=True, bias=0.5),
+}
+
+
+def _nets(name, seed=0):
+    cfg = dict(d_in=3, d_out=1, geometric_init=True, weight_norm=True, **NETS[name])
+    jnet = JImplicit(**cfg)
+    params = jnet.init_params(jax.random.PRNGKey(seed))
+    return jnet, params, params_from_jax(ImplicitNetwork(**cfg), flatten_tree(params))
+
+
+def _pts(n, seed=1):
+    return (np.random.RandomState(seed).randn(n, 3) * 0.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["small-4x64", "flagship-8x512"])
+def test_k1_plain_matches_pallas_fp32(name):
+    jnet, params, net = _nets(name)
+    pts = _pts(300)
+    width = jnet.dims[-1]
+    sdf_j = np.asarray(jfm.build_fused_sdf(jnet, params, tile=128, interpret=True)(pts))
+    h_j = np.asarray(jfm.build_fused_hidden(jnet, params, tile=128, interpret=True)(pts))
+    np.testing.assert_allclose(sdf_j, np.asarray(jnet.sdf(params, pts)), atol=FP32_TOL)
+
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        pt = torch.from_numpy(pts)
+        sdf_t = fm.build_fused_sdf(net)(pt).numpy()
+        fw = fm.prepare_weights(net)
+        h_t = fm.fused_hidden(fm.embed_padded(pt, fw), fw).numpy()
+    assert fm.LAUNCHES == {"fused_sdf_hidden": 0, "fused_sdf_fwd_bwd": 0}
+    np.testing.assert_allclose(sdf_t, sdf_j, atol=FP32_TOL)
+    np.testing.assert_allclose(h_t[:, :width], h_j[:, :width], atol=FP32_TOL)
+
+
+def test_k1_plain_matches_pallas_bf16():
+    jnet, params, net = _nets("flagship-8x512")
+    pts = _pts(256)
+    sdf_j = np.asarray(jfm.build_fused_sdf(jnet, params, tile=128, interpret=True,
+                                           dtype=jnp.bfloat16)(pts))
+    h_j = np.asarray(jfm.build_fused_hidden(jnet, params, tile=128, interpret=True,
+                                            dtype=jnp.bfloat16)(pts)).astype(np.float32)
+    with torch.no_grad():
+        pt = torch.from_numpy(pts)
+        sdf_t = fm.build_fused_sdf(net, torch.bfloat16)(pt).numpy()
+        fw = fm.prepare_weights(net, torch.bfloat16)
+        h_t = fm.fused_hidden(fm.embed_padded(pt, fw), fw).float().numpy()
+    assert h_t.dtype == np.float32 and fw.buf.dtype == torch.bfloat16
+    np.testing.assert_allclose(sdf_t, sdf_j, atol=BF16_REL * np.abs(sdf_j).max())
+    np.testing.assert_allclose(h_t[:, :512], h_j[:, :512], atol=BF16_REL * np.abs(h_j).max())
+
+
+@pytest.mark.parametrize("name", ["flagship-8x512", "narrow-no-lastf", "tiny-no-pe"])
+def test_k2_plain_matches_pallas(name):
+    jnet, params, net = _nets(name)
+    pts = _pts(300)
+    sdf_j, feat_j, grad_j = (np.asarray(a) for a in jfm.build_fused_sdf_feature_grad(
+        jnet, params, tile=128, interpret=True)(pts))
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        sdf_t, feat_t, grad_t = (a.numpy() for a in
+                                 fm.build_fused_sdf_feature_grad(net)(torch.from_numpy(pts)))
+    assert fm.LAUNCHES["fused_sdf_fwd_bwd"] == 0
+    np.testing.assert_allclose(sdf_t, sdf_j, atol=FP32_TOL)
+    np.testing.assert_allclose(feat_t, feat_j, atol=FP32_TOL)
+    np.testing.assert_allclose(grad_t, grad_j, atol=GRAD_TOL)
+
+
+def test_wrappers_cpu_plain_empty_and_other_devices_raise():
+    """CPU tensors take the plain path (no launch, N=0 allowed); a tensor on
+    any device other than the CPU must launch the CUDA kernel or raise."""
+    _, _, net = _nets("small-4x64")
+    fm.reset_launch_counts()
+    fw = fm.prepare_weights(net)
+    assert fw.x_cols % 16 == 0 and fw.width % 16 == 0
+    h = fm.fused_hidden(torch.zeros(0, fw.x_cols), fw)
+    h2, dx = fm.fused_fwd_bwd(torch.zeros(0, fw.x_cols), fw)
+    assert h.shape == (0, fw.width) and h2.shape == (0, fw.width) and dx.shape == (0, fw.x_cols)
+    meta = torch.empty(4, fw.x_cols, device="meta")
+    with pytest.raises(ValueError):
+        fm.fused_hidden(meta, fw)
+    with pytest.raises(ValueError):
+        fm.fused_fwd_bwd(meta, fw)
+    assert fm.LAUNCHES == {"fused_sdf_hidden": 0, "fused_sdf_fwd_bwd": 0}
+
+
+def test_import_needs_no_nvcc_or_triton():
+    """The kernel module imports (and its plain path runs) with no nvcc on
+    PATH and no triton package; nothing is built at import time."""
+    code = (
+        "import sys; sys.modules['triton'] = None\n"
+        "import torch\n"
+        "from nefii_tpu_torch.ops.kernels import build, fused_mlp as fm\n"
+        "from nefii_tpu_torch.models.implicit import ImplicitNetwork\n"
+        "net = ImplicitNetwork(feature_vector_size=32, dims=(32, 32), multires=2,"
+        " use_last_as_f=True)\n"
+        "net.reset_parameters(torch.Generator().manual_seed(0))\n"
+        "assert fm.build_fused_sdf(net)(torch.zeros(5, 3)).shape == (5,)\n"
+        "assert not build._LIBS and not build.BUILD_LOG\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PATH="", PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         cwd=ROOT, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
