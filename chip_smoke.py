@@ -4,25 +4,44 @@
 Phases, each of which raises on failure (exit code != 0):
 
 1. device: require CUDA; print `nvidia-smi --query-gpu=name,power.limit`.
-2. build: compile the fused SDF-MLP kernels from csrc/ with nvcc.
+2. build: compile the kernel sources of csrc/ with nvcc, one process each,
+   all started together.
 3. kernels: on the full-width confs/conf.conf SDF net (8x512, skip at 4,
    multires 6), run K1 (fp32 and bf16) and K2 (fp32) at 262,144 points and
    hold each against its plain PyTorch version on the same inputs, in the
    working type; time both with CUDA events.
-4. reference: a 16x16-ray render of confs/conf.conf (trace switched to fp32)
+4. trace-kernel: K3, the whole sphere trace, on 262,144 rays of one 512x512
+   view of the seeded-init sphere (camera rays, and random pixels in random
+   order) against its plain version; the port's gathered tracer through K1
+   fp32 is timed beside them, and its count of the evaluations the rays need
+   gives K3's bound.
+5. reference: a 16x16-ray render of confs/conf.conf (trace switched to fp32)
    through the kernels on the card against the same render through the plain
    versions on the CPU, on what no Monte-Carlo sample touches (hit mask,
    points, normals, IDR radiance, albedo, roughness).
-5. render: build confs/conf.conf unchanged with the port's seeded geometric
+6. train-reference: one frozen-geometry training step of confs/conf.conf
+   (fp32, K3 on) on 64 pixels x 4 rays through the kernels on the card
+   against the plain versions on the CPU, with injected directions and
+   min-SDF vector: the loss and each parameter group's gradient.
+7. render: build confs/conf.conf unchanged with the port's seeded geometric
    init, save the checkpoint in the JAX package's .npz layout, and render two
    128x128 views with 16 rays per pixel through
    nefii_tpu_torch.scripts.render.main. Checks finite outputs, a hit fraction
    above 0 and that both kernels were launched by the render.
+8. train: Step-2 training of confs/conf.conf with use_fused_trace at full
+   width (2048 px x 64 rays a step) through
+   nefii_tpu_torch.training.exp_runner.main, four steps on a synthetic 4-view
+   128x128 sphere scene from a checkpoint of the seeded geometry, a secondary
+   distillation step after each. Checks finite losses, a frozen geometry,
+   trained rendering and material nets, a checkpoint the render CLI reads,
+   and launches of K1, K2 and K3; prints s/step, rays/s and peak memory.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernels' JSON record (launches from the
+training run); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
+
+Profiling the training steps is nefii_tpu_torch/scripts/profile_train.py.
 """
 
 from __future__ import annotations
@@ -66,21 +85,45 @@ def phase_build():
     from nefii_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
-    build.load("fused_mlp")
-    print(f"[build] fused_mlp in {time.perf_counter() - t0:.2f} s", flush=True)
-    log = build.BUILD_LOG.get("fused_mlp", "")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("[build]", line.strip(), flush=True)
+    build.build_all()  # one nvcc per source, all started together
+    for name in build.SOURCES:
+        build.load(name)
+    print(f"[build] {', '.join(build.SOURCES)} in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name in build.SOURCES:
+        for line in build.BUILD_LOG.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] {name}:", line.strip(), flush=True)
+
+
+# text replacements of confs/conf.conf
+K3_ON = ("use_fused_sdf = True", "use_fused_sdf = True\n    use_fused_trace = True")
+FP32_TRACE = ("fused_sdf_dtype = bfloat16", "fused_sdf_dtype = float32")
+
+
+def _conf_text(replace=()):
+    """confs/conf.conf with the (old, new) replacements; raises if an old
+    text is no longer there."""
+    with open(os.path.join(ROOT, "confs", "conf.conf")) as f:
+        text = f.read()
+    for old, new in replace:
+        if old not in text:
+            raise RuntimeError(f"confs/conf.conf no longer holds {old!r}")
+        text = text.replace(old, new, 1)
+    return text
+
+
+def _model_conf(replace=()):
+    from nefii_tpu_torch.config import parse_string
+
+    return parse_string(_conf_text(replace))
 
 
 def _flagship_net(device):
     import torch
 
-    from nefii_tpu.config import ConfigFactory
     from nefii_tpu_torch.models.implicit import ImplicitNetwork
 
-    conf = ConfigFactory.parse_file(os.path.join(ROOT, "confs", "conf.conf")).get_config("model")
+    conf = _model_conf().get_config("model")
     net = ImplicitNetwork(feature_vector_size=conf.get_int("feature_vector_size"),
                           device=device, **conf.get_config("implicit_network").as_plain_dict())
     net.reset_parameters(torch.Generator(device=device).manual_seed(0))
@@ -101,6 +144,26 @@ def _time(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+# H100 SXM published peaks (dense): FP32 outside the tensor cores, bf16 tensor
+# cores, HBM3 bandwidth. A kernel's bound is the larger of its operations over
+# the peak of their type and the bytes it must move over the memory rate.
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
+
+
+def _bound(flops, nbytes, kind):
+    t_ops, t_bytes = flops / PEAK_FLOPS[kind], nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _chain_flops(net):
+    """Multiply-add operations per point of the SDF net's hidden chain (real,
+    unpadded widths), and of its sdf column."""
+    hidden = sum(2 * L.d_in * L.d_out for L in net.layers[:-1])
+    return hidden, 2 * net.layers[-1].d_in
+
+
 def phase_kernels():
     import torch
 
@@ -110,6 +173,7 @@ def phase_kernels():
     net = _flagship_net(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     pts = torch.randn(N_POINTS, 3, generator=gen, device=dev) * 0.5
+    hidden_flops, _ = _chain_flops(net)
     res = {}
     with torch.no_grad():
         for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -126,12 +190,17 @@ def phase_kernels():
             ok = (err <= TOL["fp32_abs"]) if name == "fp32" else (err <= TOL["bf16_rel"] * scale)
             ms = _time(lambda: fm.fused_hidden(x, fw))
             plain_ms = _time(lambda: fm.fused_hidden_plain(x, fw))
+            item = x.element_size()
+            bound = _bound(N_POINTS * hidden_flops,
+                           N_POINTS * (fw.emb_dim + fw.real_width) * item
+                           + fw.buf.numel() * item, name)
             print(f"[kernels] K1 {name}: N={N_POINTS} max_abs_err={err:.3e} (max|h|={scale:.3e}) "
-                  f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms finite_sdf="
-                  f"{bool(torch.isfinite(sdf).all())}", flush=True)
+                  f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound['bound_ms']:.3f} ms "
+                  f"({bound['bound_by']}) finite_sdf={bool(torch.isfinite(sdf).all())}",
+                  flush=True)
             if not ok or not bool(torch.isfinite(h.float()).all()):
                 raise RuntimeError(f"K1 {name} disagrees with its plain version: {err:.3e}")
-            res[f"k1_{name}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            res[f"k1_{name}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
         fw = fm.prepare_weights(net, torch.float32)
         x = fm.embed_padded(pts, fw)
@@ -144,12 +213,119 @@ def phase_kernels():
         dx_scale = dx_ref.abs().max().item()
         ms = _time(lambda: fm.fused_fwd_bwd(x, fw))
         plain_ms = _time(lambda: fm.fused_fwd_bwd_plain(x, fw))
+        # forward chain plus the input-gradient chain, which repeats its products
+        bound = _bound(N_POINTS * 2 * hidden_flops,
+                       N_POINTS * (2 * fw.emb_dim + fw.real_width) * 4 + fw.buf.numel() * 4,
+                       "fp32")
         print(f"[kernels] K2 fp32: N={N_POINTS} h max_abs_err={err_h:.3e} dx max_abs_err="
-              f"{err_dx:.3e} (max|dx|={dx_scale:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms",
-              flush=True)
+              f"{err_dx:.3e} (max|dx|={dx_scale:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+              f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']})", flush=True)
         if err_h > TOL["fp32_abs"] or err_dx > TOL["grad_rel"] * dx_scale:
             raise RuntimeError(f"K2 disagrees with its plain version: h {err_h:.3e} dx {err_dx:.3e}")
-        res["k2"] = dict(max_abs_err=max(err_h, err_dx), ms=ms, plain_ms=plain_ms)
+        res["k2"] = dict(max_abs_err=max(err_h, err_dx), ms=ms, plain_ms=plain_ms, **bound)
+    return res
+
+
+TRACE_RES = 512
+# K3 on the card against its plain version on the same rays, both fp32: they
+# differ by summation order, which the 5e-5 stop threshold can amplify into a
+# flipped convergence (as REF_TOL below), which moves a ray's unfinished or
+# hit flag; a flip can keep one tile alive for one more evaluation
+TRACE_TOL = {"unfinished_agree": 0.999, "hit_agree": 0.999, "abs": 1e-4, "evals_rel": 0.01}
+
+
+def _trace_rays(tracer, device):
+    """N_POINTS rays through one TRACE_RES^2 view of the seeded-init sphere:
+    the camera rays of the view in scan order (coherent tiles) and random
+    pixels of it in random order (incoherent, like a training batch).
+    -> {name: (cam, dirs, mask_intersect, near, far)}"""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
+    from nefii_tpu_torch.utils.camera import get_camera_params, get_sphere_intersection
+
+    with tempfile.TemporaryDirectory() as d:
+        ds = SceneDataset(1.0, SceneDataset.write_camera_only_split(
+            d, 1, TRACE_RES, focal=1.25 * TRACE_RES), False)
+        _, inp, _ = ds.collate([ds[0]])
+    uv_grid = inp["uv"][0]
+    uv_rand = np.random.default_rng(0).random((N_POINTS, 2)).astype(np.float32) * TRACE_RES
+    sets = {}
+    for name, uv in (("camera", uv_grid), ("random", uv_rand)):
+        dirs, cam_loc = get_camera_params(
+            torch.as_tensor(uv[None], device=device),
+            torch.as_tensor(inp["pose"], device=device),
+            torch.as_tensor(inp["intrinsics"], device=device))
+        si, mi = get_sphere_intersection(cam_loc, dirs, r=tracer.object_bounding_sphere)
+        n = dirs.shape[1]
+        sets[name] = (cam_loc.expand(n, 3).contiguous(), dirs[0].contiguous(), mi.reshape(n),
+                      si[..., 0].reshape(n).contiguous(), si[..., 1].reshape(n).contiguous())
+    return sets
+
+
+def _conf_tracer():
+    from nefii_tpu_torch.models.idr import _dense_tracer_conf
+    from nefii_tpu_torch.ops.ray_tracing import RayTracer
+
+    return RayTracer(**_dense_tracer_conf(
+        _model_conf().get_config("model.ray_tracer").as_plain_dict()))
+
+
+def phase_trace_kernel(card):
+    """K3 at full width on N_POINTS rays in two sets, against its plain version;
+    the gathered tracer through K1 fp32 is timed beside them as a yardstick.
+    K3's bound counts the evaluations the rays need (the gathered tracer's
+    count: live rays only); what K3 executes beyond them (whole tiles while
+    one ray lives, padding) is printed as waste."""
+    import torch
+
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+
+    dev = torch.device("cuda", 0)
+    net = _flagship_net(dev)
+    tracer = _conf_tracer()
+    fw = fm.prepare_weights(net, torch.float32)
+    sdf_k1 = fm.build_fused_sdf(net, torch.float32)
+    hidden_flops, col_flops = _chain_flops(net)
+    res = {}
+    with torch.no_grad():
+        for name, rays in _trace_rays(tracer, dev).items():
+            out = ft.fused_sphere_trace(*rays, fw, tracer)
+            torch.cuda.synchronize()
+            ref = ft.fused_sphere_trace_plain(*rays, fw, tracer)
+            unf_same = out[2] == ref[2]
+            hit_same = (out[0] < out[1]) == (ref[0] < ref[1])
+            same = unf_same & hit_same
+            err = max((out[0] - ref[0])[same].abs().max().item(),
+                      (out[1] - ref[1])[same].abs().max().item())
+            unf_agree = unf_same.float().mean().item()
+            hit_agree = hit_same.float().mean().item()
+            evals_rel = abs(out[3] - ref[3]) / ref[3]
+            hits = float((out[0] < out[1]).float().mean())
+            needed = int(tracer._sphere_trace(sdf_k1, *rays)[3])
+            ms = _time(lambda: ft.fused_sphere_trace(*rays, fw, tracer), reps=3)
+            plain_ms = _time(lambda: ft.fused_sphere_trace_plain(*rays, fw, tracer), reps=1)
+            gathered_ms = _time(lambda: tracer._sphere_trace(sdf_k1, *rays), reps=1)
+            n = rays[0].shape[0]
+            bound = _bound(needed * (hidden_flops + col_flops),
+                           n * (8 * 4 + 1) + n * (2 * 4 + 1) + fw.buf.numel() * 4, "fp32")
+            waste = 1.0 - needed / out[3]
+            print(f"[trace-kernel] K3 {name} rays: N={n} hit fraction {hits:.3f} unfinished "
+                  f"agreement {unf_agree:.6f} hit agreement {hit_agree:.6f} max_abs_err "
+                  f"{err:.3e} evals kernel {out[3]} plain {ref[3]} ({evals_rel:.2e} rel, "
+                  f"{out[3] / n:.2f}/ray) needed {needed} ({needed / n:.2f}/ray; {waste:.1%} of "
+                  f"the executed are waste) kernel {ms:.3f} ms plain {plain_ms:.3f} ms gathered "
+                  f"K1-fp32 tracer {gathered_ms:.3f} ms bound {bound['bound_ms']:.3f} ms "
+                  f"({bound['bound_by']}) [{card}]", flush=True)
+            if (unf_agree < TRACE_TOL["unfinished_agree"] or hit_agree < TRACE_TOL["hit_agree"]
+                    or not err <= TRACE_TOL["abs"] or evals_rel > TRACE_TOL["evals_rel"]):
+                raise RuntimeError(f"K3 disagrees with its plain version on the {name} rays")
+            res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, gathered_ms=gathered_ms,
+                             evals_executed=out[3], evals_needed=needed, waste=waste,
+                             hit_fraction=hits, unfinished_agreement=unf_agree,
+                             hit_agreement=hit_agree, **bound)
     return res
 
 
@@ -168,16 +344,10 @@ def phase_reference():
     import numpy as np
     import torch
 
-    from nefii_tpu.config import parse_string
     from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
     from nefii_tpu_torch.models.idr import IDRNetwork
 
-    with open(os.path.join(ROOT, "confs", "conf.conf")) as f:
-        text = f.read()
-    if "fused_sdf_dtype = bfloat16" not in text:
-        raise RuntimeError("confs/conf.conf no longer sets fused_sdf_dtype = bfloat16")
-    mconf = parse_string(text.replace("fused_sdf_dtype = bfloat16",
-                                      "fused_sdf_dtype = float32")).get_config("model")
+    mconf = _model_conf([FP32_TRACE]).get_config("model")
     gpu = IDRNetwork.from_conf(mconf, device="cuda", seed=0)
     cpu = IDRNetwork.from_conf(mconf, device="cpu", seed=0)
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -219,8 +389,8 @@ def phase_render(card):
     import numpy as np
     import torch
 
-    from nefii_tpu.config import ConfigFactory
-    from nefii_tpu.utils import exr
+    from nefii_tpu_torch.config import ConfigFactory
+    from nefii_tpu_torch.utils import exr
     from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
     from nefii_tpu_torch.models.idr import IDRNetwork
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
@@ -273,6 +443,224 @@ def phase_render(card):
     return launches, stats
 
 
+TRAIN_REF_PATCHES = 16   # 2x2 patches: 64 pixels
+TRAIN_REF_RAYS = 4
+# one training step through the kernels on the card against the same step
+# through the plain versions on the CPU, both fp32 with the same injected
+# directions and min-SDF vector: they differ by summation order only. The
+# gradient gate is the ROADMAP's; the loss gate allows the order differences
+# of a 64-pixel masked mean
+TRAIN_REF_TOL = {"loss_rel": 1e-4, "grad_rel_l2": 2e-3}
+GRAD_GROUPS = ("rendering_network", "envmap_material_network")
+
+
+class _InjectedDirections:
+    """Replace the three Monte-Carlo samplers of the port's sampling module:
+    wi = normalize(n + 0.9 t(n)), t a fixed smooth function of the normal per
+    strategy, with the strategy's canonical pdf. The same surface point gets
+    the same direction on every device."""
+
+    NAMES = ("cos_sampling", "brdf_sampling", "mix_sg_sampling_shared")
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+
+        from nefii_tpu_torch.ops import sampling as ts
+
+        rs = np.random.RandomState(7)
+        tables = [(torch.from_numpy((rs.randn(3, 3) * 2.0).astype(np.float32)),
+                   torch.from_numpy(rs.randn(3).astype(np.float32))) for _ in range(3)]
+
+        def wi_for(k, n):
+            a, c = (x.to(n.device) for x in tables[k])
+            t = torch.sin(n @ a + c)
+            w = n + 0.9 * t / torch.linalg.norm(t, dim=-1, keepdim=True)
+            return w / torch.linalg.norm(w, dim=-1, keepdim=True)
+
+        self.saved = {k: getattr(ts, k) for k in self.NAMES}
+        ts.cos_sampling = lambda gen, n: (wi_for(0, n),
+                                          ts.pdf_fn_cos(wi_for(0, n), n, None, None, None))
+        ts.brdf_sampling = lambda gen, n, r, v: (
+            wi_for(1, n), ts.pdf_fn_brdf_ggx(wi_for(1, n), n, v, r, None))
+        ts.mix_sg_sampling_shared = lambda gen, n, lgt: (
+            wi_for(2, n), ts.pdf_fn_mix_sg_shared(wi_for(2, n), n, None, None, lgt))
+        self.module = ts
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.module, k, v)
+
+
+def phase_train_reference():
+    """One frozen-geometry training step of confs/conf.conf (fp32 trace, K3 on)
+    on TRAIN_REF_PATCHES x 4 pixels x TRAIN_REF_RAYS rays: through the kernels
+    on the card against the plain versions on the CPU, the same weights,
+    directions and min-SDF vector."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
+    from nefii_tpu_torch.models.idr import IDRNetwork
+    from nefii_tpu_torch.models.loss import IDRLoss
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+
+    conf = _model_conf([K3_ON, FP32_TRACE])
+    mconf = conf.get_config("model")
+    loss = IDRLoss(**conf.get_config("loss").as_plain_dict())
+    gpu = IDRNetwork.from_conf(mconf, device="cuda", seed=0)
+    cpu = IDRNetwork.from_conf(mconf, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(3)
+    with tempfile.TemporaryDirectory() as d:
+        ds = SceneDataset(1.0, SceneDataset.write_camera_only_split(d, 1, 64, focal=80.0), False)
+    ds.change_sampling_idx_patch(TRAIN_REF_PATCHES, 1, rng)
+    ds.change_sampling_rays(TRAIN_REF_RAYS, rng)
+    _, inp, _ = ds.collate([ds[0]])
+    n_px = inp["uv"].shape[1]
+    inp["object_mask"] = rng.random((1, n_px)) < 0.85
+    gt = rng.random((1, n_px, 3)).astype(np.float32)
+    steps01 = torch.from_numpy(rng.random(gpu.ray_tracer.n_steps).astype(np.float32))
+    res = {}
+    with _InjectedDirections():
+        for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            fm.reset_launch_counts()
+            ft.reset_launch_counts()
+            batch = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in inp.items()}
+            out = model.forward_with_uv(batch, torch.Generator(device=dev).manual_seed(0),
+                                        training=True, freeze_geo=True,
+                                        steps01=steps01.to(dev))
+            ld = loss(out, {"rgb": torch.as_tensor(gt, device=dev)})
+            ld["loss"].backward()
+            grads = {g: torch.cat([p.grad.reshape(-1).cpu() for n, p in
+                                   model.named_parameters()
+                                   if n.startswith(g + ".") and p.grad is not None])
+                     for g in GRAD_GROUPS}
+            res[dev] = dict(loss=float(ld["loss"].detach()), grads=grads,
+                            mask=out["network_object_mask"].cpu(),
+                            launches={**fm.LAUNCHES, **ft.LAUNCHES})
+    g, c = res["cuda"], res["cpu"]
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    grad_rel = {k: float((g["grads"][k] - c["grads"][k]).norm() / c["grads"][k].norm())
+                for k in GRAD_GROUPS}
+    mask_agree = float((g["mask"] == c["mask"]).float().mean())
+    print(f"[train-reference] {n_px} px x {TRAIN_REF_RAYS} rays, kernels on cuda vs plain on "
+          f"cpu: loss {g['loss']:.6f} vs {c['loss']:.6f} (rel {loss_rel:.2e}), grad rel L2 "
+          f"{grad_rel}, hit mask agreement {mask_agree:.4f}, launches {g['launches']}",
+          flush=True)
+    if not loss_rel <= TRAIN_REF_TOL["loss_rel"]:
+        raise RuntimeError(f"training loss on the card disagrees: rel {loss_rel:.2e}")
+    bad = {k: v for k, v in grad_rel.items() if not v <= TRAIN_REF_TOL["grad_rel_l2"]}
+    if bad:
+        raise RuntimeError(f"training gradients on the card disagree: {bad}")
+    if any(n <= 0 for n in g["launches"].values()):
+        raise RuntimeError(f"the card's training step missed a kernel: {g['launches']}")
+    if any(n != 0 for n in c["launches"].values()):
+        raise RuntimeError("the CPU step launched a kernel")
+    return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, mask_agreement=mask_agree)
+
+
+TRAIN_RES = 128
+TRAIN_VIEWS = 4
+TRAIN_MAX_NITER = 3   # one epoch of the 4 views: iterations 0-3
+
+
+def phase_train(card):
+    """Step-2 training of confs/conf.conf at full width (2048 px x 64 rays a
+    step, K3 on) through nefii_tpu_torch.training.exp_runner.main, on a
+    synthetic scene from a checkpoint of the seeded geometry; then the port's
+    render CLI reads the trained checkpoint."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.config import parse_string
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+    from nefii_tpu_torch.models.idr import IDRNetwork
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.scripts import render
+    from nefii_tpu_torch.training import exp_runner
+    from nefii_tpu_torch.utils import checkpoints as ckpt
+    from nefii_tpu_torch.utils import exr
+
+    text = _conf_text([("plot_freq = 1000", "plot_freq = 0"), ("val_freq = 1000", "val_freq = 0"),
+                       K3_ON])
+    with tempfile.TemporaryDirectory() as d:
+        conf_path = os.path.join(d, "train.conf")
+        with open(conf_path, "w") as f:
+            f.write(text)
+        scene = write_sphere_scene(os.path.join(d, "scene"), TRAIN_VIEWS, TRAIN_RES)
+        geo_dir = os.path.join(d, "geometry", "checkpoints")
+        model = IDRNetwork.from_conf(parse_string(text).get_config("model"), device="cuda",
+                                     seed=0)
+        before = ckpt.params_to_jax(model)
+        ckpt.save_collection(geo_dir, ckpt.MODEL, "latest", before, {"epoch": 0})
+        del model
+        argv = ["--conf", conf_path, "--data_split_dir", scene, "--freeze_geometry",
+                "--geometry", geo_dir, "--exps_folder_name", os.path.join(d, "exps"),
+                "--roughness_warmup", "2", "--secondary_train_interval", "1",
+                "--secondary_batch_size", "1024", "--max_niter", str(TRAIN_MAX_NITER),
+                "--device", "cuda"]
+        print("[train] python -m nefii_tpu_torch.training.exp_runner " + " ".join(argv),
+              flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fm.reset_launch_counts()
+        ft.reset_launch_counts()
+        runner = exp_runner.main(argv)
+        torch.cuda.synchronize()
+        launches = {**fm.LAUNCHES, **ft.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+
+        stats = runner.step_stats
+        after = ckpt.params_to_jax(runner.model)
+        for s in stats:
+            print(f"[train] step {s['iter']}: {s['seconds']:.3f} s/step, "
+                  f"{s['rays'] / s['seconds']:.1f} rays/s ({s['rays']} rays), loss "
+                  f"{s['loss']:.6f}, secondary step {s['secondary_seconds']:.3f} s "
+                  f"({s['secondary_points']} hits x 64 rays) [{card}]", flush=True)
+        steady = stats[1:] or stats
+        summary = dict(
+            steps=len(stats), rays_per_step=stats[0]["rays"],
+            s_per_step=float(np.mean([s["seconds"] for s in steady])),
+            secondary_s=float(np.mean([s["secondary_seconds"] for s in steady])),
+            max_memory_allocated=peak)
+        summary["rays_per_s"] = summary["rays_per_step"] / summary["s_per_step"]
+        print(f"[train] steps after the first: "
+              f"{summary['s_per_step']:.3f} s/step, "
+              f"{summary['rays_per_s']:.1f} rays/s, secondary step {summary['secondary_s']:.3f} s;"
+              f" max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches} [{card}]",
+              flush=True)
+        if len(stats) != TRAIN_VIEWS or stats[0]["rays"] != 2048 * 64:
+            raise RuntimeError(f"expected {TRAIN_VIEWS} steps of 2048 x 64 rays: {stats}")
+        if not all(np.isfinite(s["loss"]) for s in stats):
+            raise RuntimeError("a training loss is not finite")
+        if not all(s["secondary_points"] > 0 for s in stats):
+            raise RuntimeError("a secondary distillation step did not run")
+        moved = {net: any(not np.array_equal(after[k], before[k]) for k in before
+                          if k.startswith(net + "/"))
+                 for net in ("implicit_network", "rendering_network", "envmap_material_network")}
+        if moved != {"implicit_network": False, "rendering_network": True,
+                     "envmap_material_network": True}:
+            raise RuntimeError(f"frozen geometry moved or a trained network did not: {moved}")
+        for name, n in launches.items():
+            if n <= 0:
+                raise RuntimeError(f"training did not launch kernel {name}")
+
+        out_dir = os.path.join(d, "renders")
+        rr = render.main(["--conf", conf_path, "--data_split_dir", scene, "--old_expdir",
+                          runner.expdir, "--timestamp", runner.timestamp, "--num_rays", "1",
+                          "--max_views", "1", "--out_dir", out_dir, "--device", "cuda"])
+        img = exr.read(os.path.join(out_dir, "rerender_rgb_000.exr"))
+        if not np.isfinite(img).all() or not rr.stats[0]["hit_fraction"] > 0:
+            raise RuntimeError("the render of the trained checkpoint is not finite or hits nothing")
+        print(f"[train] render CLI read the trained checkpoint: hit fraction "
+              f"{rr.stats[0]['hit_fraction']:.3f}", flush=True)
+    return launches, summary
+
+
 def main():
     import torch
 
@@ -282,18 +670,36 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     kern = phase_kernels()
+    trace = phase_trace_kernel(card)
     ref = phase_reference()
-    launches, stats = phase_render(card)
-    print(json.dumps({"render": stats, "reference": ref, "card": card}), flush=True)
+    train_ref = phase_train_reference()
+    render_launches, stats = phase_render(card)
+    launches, train = phase_train(card)
+    print(json.dumps({"render": stats, "reference": ref, "train_reference": train_ref,
+                      "train": train, "trace_kernel": trace, "card": card}), flush=True)
     src = "nefii_tpu_torch/ops/kernels/csrc/fused_mlp.cu"
+    # launches: the training run's (this slice's main path); the render's beside
+    # them. No single PyTorch call computes an MLP chain or a sphere trace, so
+    # every library_ms is null.
     records = [
         dict(name="fused_sdf_hidden", route="cuda", source=src,
              replaces="nefii_tpu/ops/pallas/fused_mlp.py:136",
-             launches=launches["fused_sdf_hidden"], dtype="bfloat16",
-             **kern["k1_bf16"], fp32=kern["k1_fp32"]),
+             launches=launches["fused_sdf_hidden"],
+             render_launches=render_launches["fused_sdf_hidden"], dtype="bfloat16",
+             library_ms=None, **kern["k1_bf16"], fp32=kern["k1_fp32"]),
         dict(name="fused_sdf_fwd_bwd", route="cuda", source=src,
              replaces="nefii_tpu/ops/pallas/fused_mlp.py:240",
-             launches=launches["fused_sdf_fwd_bwd"], dtype="float32", **kern["k2"]),
+             launches=launches["fused_sdf_fwd_bwd"],
+             render_launches=render_launches["fused_sdf_fwd_bwd"], dtype="float32",
+             library_ms=None, **kern["k2"]),
+        dict(name="fused_sphere_trace", route="cuda",
+             source="nefii_tpu_torch/ops/kernels/csrc/fused_trace.cu",
+             replaces="nefii_tpu/ops/pallas/fused_trace.py:81",
+             launches=launches["fused_sphere_trace"], dtype="float32", library_ms=None,
+             **{k: trace["camera"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "evals_needed", "evals_executed",
+                                                "waste")},
+             random_rays=trace["random"]),
     ]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

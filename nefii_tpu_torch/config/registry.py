@@ -1,10 +1,9 @@
-"""Conf class resolution for the port.
+"""Conf class resolution for the port (counterpart of
+nefii_tpu/config/registry.py).
 
 Confs name their classes by the reference's dotted paths
 (`train.model_class = model.implicit_differentiable_renderer.IDRNetwork`).
-`nefii_tpu.config.get_class` maps those to the JAX classes; this table maps
-them to the port's own. The HOCON parser itself is the JAX package's
-JAX-free `nefii_tpu.config`.
+This table maps them to the port's own classes.
 """
 
 from __future__ import annotations
@@ -12,11 +11,10 @@ from __future__ import annotations
 import importlib
 from typing import Any, Dict
 
-from nefii_tpu.config import ConfigFactory, ConfigTree  # noqa: F401
-
 _ALIASES: Dict[str, str] = {
     "datasets.scene_dataset.SceneDataset": "nefii_tpu_torch.datasets.scene_dataset.SceneDataset",
     "model.implicit_differentiable_renderer.IDRNetwork": "nefii_tpu_torch.models.idr.IDRNetwork",
+    "model.loss.IDRLoss": "nefii_tpu_torch.models.loss.IDRLoss",
 }
 
 

@@ -5,8 +5,10 @@ of nefii_tpu/datasets/scene_dataset.py, which pulls in JAX through its
 Reads `cam_dict_norm.json` (K, W2C per view), and `image/*` and `mask/*`
 when they exist. Without images it builds a test split from the cameras
 alone: resolution W = 2/K[0,0], H = 2/K[1,1], unit ground truth, full masks.
-EXR images go through nefii_tpu.utils.exr; PNG/JPG inputs need imageio and
-are read only when such files exist.
+EXR images go through the port's utils/exr.py and PNG images through its
+utils/png.py; only JPG inputs need imageio, imported when such a file is read.
+Pixel and patch sampling take an explicit numpy Generator, as in the JAX
+package, so both packages draw the same pixels from the same seed.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from nefii_tpu.utils import exr as exr_io
+from nefii_tpu_torch.utils import exr as exr_io
 from nefii_tpu_torch.utils.camera import rot_to_quat
+from nefii_tpu_torch.utils.png import read_png
 
 IMG_EXTENSIONS = ["png", "jpg", "jpeg", "JPG", "JPEG", "exr", "PNG", "EXR"]
 
@@ -32,7 +35,9 @@ def glob_imgs(path: str) -> List[str]:
 
 
 def _imread(path: str) -> np.ndarray:
-    import imageio.v2 as imageio  # only for PNG/JPG inputs
+    if path.lower().endswith(".png"):
+        return read_png(path).astype(np.float32)
+    import imageio.v2 as imageio  # only for JPG inputs
 
     return np.asarray(imageio.imread(path), np.float32)
 
@@ -141,12 +146,40 @@ class SceneDataset:
         out_g = {k: np.stack([g[k] for g in gts]) for k in gts[0]}
         return np.asarray(idxs, np.int64), out_s, out_g
 
+    def batch_ray_sample(self, s_uv_batch: np.ndarray) -> np.ndarray:
+        B, S, _ = s_uv_batch.shape
+        return self.ray_sample(s_uv_batch.reshape(B * S, 2)).reshape(B, S, -1, 2)
+
     def change_sampling_rays(self, sampling_size: int, rng: Optional[np.random.Generator] = None):
         if sampling_size == -1:
             self.sampling_rays = None
         else:
             rng = rng or np.random.default_rng()
             self.sampling_rays = rng.random((sampling_size, 2)).astype(np.float32) - 0.5
+
+    def change_sampling_idx(self, sampling_size: int, rng: Optional[np.random.Generator] = None):
+        if sampling_size == -1:
+            self.sampling_idx = None
+        else:
+            rng = rng or np.random.default_rng()
+            self.sampling_idx = rng.permutation(self.total_pixels)[:sampling_size]
+
+    def change_sampling_idx_patch(self, N_patch: int, r_patch: int = 1,
+                                  rng: Optional[np.random.Generator] = None):
+        """N_patch square patches of (2 r_patch)^2 pixels, each patch's pixels
+        consecutive in sampling_idx (the loss reshapes them back to patches)."""
+        if N_patch == -1:
+            self.sampling_idx = None
+            return
+        rng = rng or np.random.default_rng()
+        H, W = self.img_res
+        u, v = np.meshgrid(np.arange(-r_patch, r_patch), np.arange(-r_patch, r_patch))
+        offsets = v.reshape(-1) * W + u.reshape(-1)
+        u, v = np.meshgrid(np.arange(r_patch, W - r_patch), np.arange(r_patch, H - r_patch))
+        u, v = u.reshape(-1), v.reshape(-1)
+        sel = rng.choice(u.shape[0], size=(N_patch,), replace=False)
+        centers = v[sel] * W + u[sel]
+        self.sampling_idx = np.stack([centers + s for s in offsets], axis=1).reshape(-1)
 
     @staticmethod
     def write_camera_only_split(d: str, n_views: int, res: int, focal: float,

@@ -1,10 +1,15 @@
-"""IDRNetwork — the composite render pipeline, eval path (counterpart of
+"""IDRNetwork — the composite render pipeline (counterpart of
 nefii_tpu/models/idr.py).
 
 Owns the implicit SDF net, the IDR radiance net, the envmap/material net and
 the tracers. `forward_with_uv` renders pixels (multi-ray AA reduced by
 `mean_pixel`) with `render_type = pt_render_indirect_mlp`, and the SG
-environment as background of the rays that miss.
+environment as background of the rays that miss. With `training=True` and
+`freeze_geo=True` (Step 2 on a frozen geometry) it keeps the autograd graph
+through the rendering and material networks and the light; the trace, the
+surface points and every output of the implicit net are values, as the JAX
+package's stop-gradients make them. `forward_with_point` shades given points
+for the secondary self-distillation step. Unfrozen geometry is not ported.
 
 Differences by design from the JAX pipeline, results unchanged:
   * Only hit rays are shaded (a dynamic gather; the JAX pipeline shades all
@@ -14,8 +19,13 @@ Differences by design from the JAX pipeline, results unchanged:
     of the output is 0.
   * `use_fused_sdf` routes the tracer's SDF queries through the K1 kernel and
     the shading's sdf/feature/normal through the K2 kernel for CUDA tensors,
-    and through their plain PyTorch versions for CPU tensors. A kernel that
-    fails raises; nothing falls back silently.
+    and through their plain PyTorch versions for CPU tensors.
+    `use_fused_trace` runs the bidirectional trace of the primary and the
+    secondary tracer through the K3 kernel. A kernel that fails raises;
+    nothing falls back silently.
+  * Training returns the secondary hits of the shaded (hit) rays only, where
+    the JAX pipeline, shading every ray, also returns those traced from the
+    points of rays that missed.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from nefii_tpu_torch.models.implicit import ImplicitNetwork
 from nefii_tpu_torch.models.material import EnvmapMaterialNetwork
@@ -31,6 +42,7 @@ from nefii_tpu_torch.models.rendering import RenderingNetwork
 from nefii_tpu_torch.ops import path_tracing as ptr
 from nefii_tpu_torch.ops import sampling
 from nefii_tpu_torch.ops.kernels.fused_mlp import build_fused_sdf, build_fused_sdf_feature_grad
+from nefii_tpu_torch.ops.kernels.fused_trace import build_fused_sphere_trace
 from nefii_tpu_torch.ops.ray_tracing import RayTracer
 from nefii_tpu_torch.ops.sg import safe_norm
 from nefii_tpu_torch.utils.camera import get_camera_params
@@ -74,6 +86,7 @@ class IDRNetwork(nn.Module):
         correct_normal: bool = False,
         use_fused_sdf: bool = False,
         fused_sdf_dtype: str = "float32",
+        use_fused_trace: bool = False,
         secondary_ray_tracer: Optional[RayTracer] = None,
     ):
         super().__init__()
@@ -93,6 +106,7 @@ class IDRNetwork(nn.Module):
         self.correct_normal = correct_normal
         self.use_fused_sdf = use_fused_sdf
         self.fused_sdf_dtype = _DTYPES[fused_sdf_dtype]
+        self.use_fused_trace = use_fused_trace
 
     # ------------------------------------------------------------------
     @classmethod
@@ -129,6 +143,7 @@ class IDRNetwork(nn.Module):
             correct_normal=correct_normal,
             use_fused_sdf=conf.get_bool("use_fused_sdf", default=False),
             fused_sdf_dtype=conf.get_string("fused_sdf_dtype", default="float32"),
+            use_fused_trace=conf.get_bool("use_fused_trace", default=False),
             secondary_ray_tracer=secondary,
         )
         model.reset_parameters(seed)
@@ -155,22 +170,44 @@ class IDRNetwork(nn.Module):
             return build_fused_sdf_feature_grad(self.implicit_network)
         return self.implicit_network.sdf_feature_grad
 
+    def _fused_trace_closure(self, tracer: RayTracer):
+        """The K3 whole-trace closure for `tracer` when use_fused_trace, else
+        None (the gathered trace through sdf_fn). The trace is fp32: K3 runs
+        the fp32 chain whatever fused_sdf_dtype says, as the TPU kernel does."""
+        if self.use_fused_trace:
+            return build_fused_sphere_trace(self.implicit_network, tracer)
+        return None
+
     def scene_fns(self, sdf_fn, sfg_fn) -> ptr.SceneFns:
         tracer = self.secondary_ray_tracer or self.ray_tracer
+        trace_fn = self._fused_trace_closure(tracer)
 
         def trace(origins, dirs):
             res = tracer(sdf_fn, origins, torch.ones(origins.shape[0], dtype=torch.bool,
-                                                     device=origins.device), dirs[:, None, :])
+                                                     device=origins.device), dirs[:, None, :],
+                         sphere_trace_fn=trace_fn)
             return res.points, res.object_mask, res.n_evals
 
         return ptr.SceneFns(trace=trace, radiance=self.rendering_network,
                             implicit_with_grad=sfg_fn, feature_size=self.feature_vector_size)
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def forward_with_uv(self, inputs: Dict[str, torch.Tensor], gen: torch.Generator):
+    def forward_with_uv(self, inputs: Dict[str, torch.Tensor], gen: torch.Generator, *,
+                        training: bool = False, freeze_geo: bool = False,
+                        fake_roughness: bool = False, fake_specular: bool = False,
+                        steps01: Optional[torch.Tensor] = None):
         """Render the rays of `inputs` (uv [B,S,2] or multi-ray [B,S,R,2],
-        pose, intrinsics, object_mask). Eval only."""
+        pose, intrinsics, object_mask). Without `training` no graph is kept.
+        `steps01` injects the tracer's min-SDF step vector (training)."""
+        if training and not freeze_geo:
+            raise NotImplementedError(
+                "training with unfrozen geometry is not ported (ROADMAP.md queue 1, item 1): "
+                "pass --freeze_geometry")
+        with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+            return self._forward_with_uv(inputs, gen, training, fake_roughness, fake_specular,
+                                         steps01)
+
+    def _forward_with_uv(self, inputs, gen, training, fake_roughness, fake_specular, steps01):
         intrinsics, uv, pose = inputs["intrinsics"], inputs["uv"], inputs["pose"]
         object_mask = inputs["object_mask"].reshape(-1)
         multi_ray = uv.dim() == 4
@@ -186,18 +223,26 @@ class IDRNetwork(nn.Module):
 
         sdf_fn = self._sdf_closure()
         sfg_fn = self._sfg_closure()
-        trace = self.ray_tracer(sdf_fn, cam_loc, object_mask, ray_dirs)
+        with torch.no_grad(), record_function("primary_trace"):
+            # the trace, the points and the sdf carry no gradient
+            trace = self.ray_tracer(sdf_fn, cam_loc, object_mask, ray_dirs, training=training,
+                                    sphere_trace_fn=self._fused_trace_closure(self.ray_tracer),
+                                    gen=gen, steps01=steps01)
+            sdf_output = self.implicit_network(trace.points)[:, 0:1] if training else None
         points, surface_mask = trace.points, trace.object_mask
         ray_dirs_flat = ray_dirs.reshape(-1, 3)
         view_dirs = -ray_dirs_flat
 
         # shade the hit rays only; miss rays keep the defaults below
         sel = surface_mask.nonzero()[:, 0]
-        ret = self.get_rbg_value(points[sel], view_dirs[sel], gen, sdf_fn, sfg_fn)
+        with record_function("shading"):
+            ret = self.get_rbg_value(points[sel], view_dirs[sel], gen, sdf_fn, sfg_fn,
+                                     training=training, fake_roughness=fake_roughness,
+                                     fake_specular=fake_specular)
         em = self.envmap_material_network
 
         def dense(v, fill):
-            out = torch.full((N, v.shape[-1]), fill, dtype=v.dtype, device=v.device)
+            out = torch.full((N,) + v.shape[1:], fill, dtype=v.dtype, device=v.device)
             out[sel] = v
             return out
 
@@ -231,12 +276,27 @@ class IDRNetwork(nn.Module):
             "n_sdf_evals": trace.n_evals + ret["n_sdf_evals"],
             **{k: z for k in OVERFLOW_KEYS},
         }
+        if training:
+            output["sdf_output"] = sdf_output
+            output["grad_theta"] = None
+            # secondary hits [S_strategies, N, ...] of the shaded rays; the
+            # rays that were not shaded have no secondary hit
+            n_strat = ret["secondary_mask"].shape[0]
+            for k, fill in (("secondary_points", 0.0), ("secondary_mask", False),
+                            ("secondary_dir", 0.0)):
+                v = ret[k]
+                out = torch.full((n_strat, N) + v.shape[2:], fill, dtype=v.dtype, device=v.device)
+                out[:, sel] = v
+                output[k] = out
         if multi_ray:
             BS = batch_size * S
-            for k in ("idr_rgb_values", "sg_rgb_values", "network_object_mask", "object_mask",
-                      "sg_diffuse_rgb_values", "sg_diffuse_albedo_values",
-                      "sg_specular_rgb_values", "points", "sg_roughness_values",
-                      "sg_specular_reflection_values"):
+            keys = ["idr_rgb_values", "sg_rgb_values", "network_object_mask", "object_mask",
+                    "sg_diffuse_rgb_values", "sg_diffuse_albedo_values",
+                    "sg_specular_rgb_values", "points", "sg_roughness_values",
+                    "sg_specular_reflection_values"]
+            if training:
+                keys.append("sdf_output")
+            for k in keys:
                 output[k] = self.mean_pixel(output[k], BS, R)
             output["normal_values"] = self.mean_pixel(output["normal_values"], BS, R, vector=True)
         return output
@@ -244,8 +304,29 @@ class IDRNetwork(nn.Module):
     forward = forward_with_uv
 
     # ------------------------------------------------------------------
-    def get_rbg_value(self, points, view_dirs, gen, sdf_fn, sfg_fn):
-        """Shading of surface points [M,3] seen along view_dirs [M,3]."""
+    def forward_with_point(self, inputs: Dict[str, torch.Tensor], gen: torch.Generator, *,
+                           freeze_geo: bool = True, fake_roughness: bool = False,
+                           fake_specular: bool = False):
+        """Secondary self-distillation forward: shade the points [K,R,3] seen
+        along ray_dirs [K,R,3] and average over R. Trains, with the normals
+        detached; the geometry is frozen."""
+        if not freeze_geo:
+            raise NotImplementedError(
+                "training with unfrozen geometry is not ported (ROADMAP.md queue 1, item 1)")
+        points, ray_dirs = inputs["points"], inputs["ray_dirs"]
+        K, R, _ = points.shape
+        ret = self.get_rbg_value(points.reshape(-1, 3), -ray_dirs.reshape(-1, 3), gen,
+                                 self._sdf_closure(), self._sfg_closure(), training=True,
+                                 fake_roughness=fake_roughness, fake_specular=fake_specular)
+        return {"idr_rgb_values": self.mean_pixel(ret["idr_rgb"], K, R),
+                "sg_rgb_values": self.mean_pixel(ret["sg_rgb"], K, R)}
+
+    # ------------------------------------------------------------------
+    def get_rbg_value(self, points, view_dirs, gen, sdf_fn, sfg_fn, *, training=False,
+                      fake_roughness=False, fake_specular=False):
+        """Shading of surface points [M,3] seen along view_dirs [M,3]. The
+        implicit net's sdf, feature and normal are values (K2 or the plain
+        sdf_feature_grad); the radiance and material nets keep their graph."""
         _, feature_vectors, g = sfg_fn(points)
         if self.feature_vector_size == 0:
             feature_vectors = None
@@ -256,11 +337,13 @@ class IDRNetwork(nn.Module):
             normals = em.apply_correct_normal(normals, points)
 
         idr_rgb = self.rendering_network(points, normals, view_dirs, feature_vectors)
-        mat = em(points, feature_vectors, normals)
+        mat = em(points, feature_vectors, normals, fake_roughness=fake_roughness,
+                 fake_specular=fake_specular)
         sg_ret = ptr.pt_render_core(
             gen, mat["sg_lgtSGs"], mat["sg_specular_reflectance"], mat["sg_roughness"],
             mat["sg_diffuse_albedo"], normals, view_dirs, points,
-            self.scene_fns(sdf_fn, sfg_fn), **PT_RENDER_TYPES[self.render_type],
+            self.scene_fns(sdf_fn, sfg_fn), training=training,
+            **PT_RENDER_TYPES[self.render_type],
         )
         return {
             "normals": normals,

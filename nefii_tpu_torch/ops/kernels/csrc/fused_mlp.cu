@@ -31,109 +31,12 @@
 // a scratch buffer sized by the blocks in flight, not by N (the grid is
 // persistent and walks the row tiles).
 //
-// All matmul work happens in this file; no library GEMM is called.
+// All matmul work happens here and in sdf_mlp.cuh (the layer loop shared
+// with fused_trace.cu); no library GEMM is called.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sdf_mlp.cuh"
 
 namespace {
-
-constexpr int WIDTH = 512;                       // hidden width: every fused layer's padded output
-constexpr int BM = 32;                           // rows per block tile
-constexpr int TM = 8;                            // rows per thread
-constexpr int TN = 8;                            // output features per thread
-constexpr int THREADS = (BM / TM) * (WIDTH / TN);  // 4 row groups x 64 column groups = 256
-constexpr int MAX_LAYERS = 16;
-
-struct Layer {
-  long long w;    // W_h   [k_h][WIDTH]  (input x output, row-major)
-  long long wx;   // W_x   [k_x][WIDTH]  skip layers only
-  long long b;    // bias  [WIDTH]
-  long long wt;   // W_h^T [WIDTH][k_h]  (backward)
-  long long wxt;  // W_x^T [WIDTH][k_x]  (backward, skip layers)
-  int k_h;        // rows of W_h: the width the layer reads from the previous layer (layer 0: x)
-  int k_x;        // rows of W_x: x_cols for a skip layer, 0 otherwise
-};
-
-struct Plan {
-  int n;
-  int x_cols;
-  Layer l[MAX_LAYERS];
-};
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// the working type's rounding of an activation (identity in fp32)
-template <typename T> __device__ __forceinline__ float round_work(float v) {
-  return to_float(from_float<T>(v));
-}
-
-// eight consecutive values starting at a 16-byte aligned address
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-// softplus(100 z)/100 in the stable form max(t,0) + log1p(exp(-|t|))
-__device__ __forceinline__ float softplus100(float z) {
-  const float t = 100.0f * z;
-  return (fmaxf(t, 0.0f) + log1pf(expf(-fabsf(t)))) * 0.01f;
-}
-
-// sigmoid(100 z), stable on both sides
-__device__ __forceinline__ float sigmoid100(float z) {
-  const float t = 100.0f * z;
-  if (t >= 0.0f) return 1.0f / (1.0f + expf(-t));
-  const float e = expf(t);
-  return e / (1.0f + e);
-}
-
-// acc[i][j] += sum_k aT[k][row0 + i] * B[k][col0 + j]
-// aT: shared memory, feature-major [K][BM]; B: global, row-major [K][ldb].
-template <typename T>
-__device__ __forceinline__ void gemm_acc(float (&acc)[TM][TN], const float* __restrict__ aT,
-                                         int K, const T* __restrict__ B, int ldb, int col0,
-                                         int row0) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(aT + k * BM + row0);
-    const float4 a1 = *reinterpret_cast<const float4*>(aT + k * BM + row0 + 4);
-    const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    float b[TN];
-    load8(B + (long long)k * ldb + col0, b);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-}
 
 // xs[c][r] = x[base + r][c] (zero past the last row)
 template <typename T>
@@ -155,37 +58,6 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, const float* act
     const long long row = base + r;
     if (row < n_rows) out[row * WIDTH + c] = from_float<T>(act[c * BM + r]);
   }
-}
-
-// One layer of the forward chain for the block's tile. Reads `in` (feature-
-// major, k_h rows) and xs, writes softplus(z) into act, and z into z_out
-// ([BM][WIDTH], row-major) when given.
-template <typename T>
-__device__ __forceinline__ void forward_layer(const Layer& L, const float* in, const float* xs,
-                                              float* act, const T* __restrict__ wbuf,
-                                              float* z_out, int col0, int row0) {
-  float acc[TM][TN];
-  zero(acc);
-  gemm_acc<T>(acc, in, L.k_h, wbuf + L.w, WIDTH, col0, row0);
-  if (L.k_x > 0) gemm_acc<T>(acc, xs, L.k_x, wbuf + L.wx, WIDTH, col0, row0);
-  float bias[TN];
-  load8(wbuf + L.b + col0, bias);
-  __syncthreads();  // every thread has finished reading `in` (it may be act)
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float z[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      z[j] = acc[i][j] + bias[j];
-      act[(col0 + j) * BM + row0 + i] = round_work<T>(softplus100(z[j]));
-    }
-    if (z_out != nullptr) {
-      float4* zp = reinterpret_cast<float4*>(z_out + (row0 + i) * WIDTH + col0);
-      zp[0] = make_float4(z[0], z[1], z[2], z[3]);
-      zp[1] = make_float4(z[4], z[5], z[6], z[7]);
-    }
-  }
-  __syncthreads();
 }
 
 template <typename T>
@@ -280,29 +152,6 @@ sdf_fwd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
     }
     __syncthreads();
   }
-}
-
-// desc: n_layers x 7 int64 (w, wx, b, wt, wxt, k_h, k_x) in elements.
-bool make_plan(const long long* desc, int n_layers, int x_cols, bool need_backward, Plan* plan) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS) return false;
-  if (x_cols <= 0 || x_cols > WIDTH || x_cols % 8 != 0) return false;
-  plan->n = n_layers;
-  plan->x_cols = x_cols;
-  for (int l = 0; l < n_layers; ++l) {
-    const long long* d = desc + 7 * l;
-    Layer L{d[0], d[1], d[2], d[3], d[4], (int)d[5], (int)d[6]};
-    if (L.k_h <= 0 || L.k_h > WIDTH || L.k_h % 8 != 0) return false;
-    if (l == 0 && (L.k_h != x_cols || L.k_x != 0)) return false;
-    if (L.k_x != 0 && L.k_x != x_cols) return false;
-    if (L.w < 0 || L.b < 0 || L.w % 8 || L.b % 8) return false;
-    if (L.k_x && (L.wx < 0 || L.wx % 8)) return false;
-    if (need_backward) {
-      if (L.wt < 0 || L.wt % 8) return false;
-      if (L.k_x && (L.wxt < 0 || L.wxt % 8)) return false;
-    }
-    plan->l[l] = L;
-  }
-  return true;
 }
 
 }  // namespace

@@ -1,11 +1,14 @@
-"""Monte-Carlo path-traced shading with near-field indirect illumination,
-eval path (counterpart of nefii_tpu/ops/path_tracing.py).
+"""Monte-Carlo path-traced shading with near-field indirect illumination
+(counterpart of nefii_tpu/ops/path_tracing.py).
 
 `pt_render_core` covers what `pt_render_indirect_mlp` renders:
 cos/brdf/mix_sg multiple importance sampling, the 3x3 pdf matrix, ONE batched
 secondary trace of all strategies' rays (`speed_first`), hard visibility
 plus indirect radiance from the IDR radiance net at the secondary hits
-(`shadow="indirect"`, `diff_geo=False`), no gradients (eval).
+(`shadow="indirect"`, `diff_geo=False`). Gradients flow to the light, the
+materials and the radiance net (indirect light); the samples, their pdfs
+and the secondary trace carry none, as in the JAX engine. In training it
+also returns the secondary hits for the self-distillation step.
 
 Where the JAX engine evaluates the secondary MLPs on every ray and masks the
 misses (static shapes), this one gathers the hit rays and evaluates those
@@ -18,6 +21,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from nefii_tpu_torch.ops import sampling
 from nefii_tpu_torch.ops.sampling import TINY_NUMBER
@@ -103,14 +107,18 @@ def pt_render_core(
     shadow: Optional[str] = "indirect",
     diff_geo: bool = False,
     wi_override: Optional[Sequence[torch.Tensor]] = None,
+    training: bool = False,
 ) -> Dict[str, torch.Tensor]:
     if shadow != "indirect" or diff_geo or any(s not in _PDF_FNS for s in strategies):
         raise NotImplementedError(
-            "the port's pt_render_core covers pt_render_indirect_mlp at eval only")
+            "the port's pt_render_core covers pt_render_indirect_mlp only")
     N = normal.shape[0]
     S = len(strategies)
 
     roughness_brdf = roughness.expand(N, 1) if roughness.shape[0] == 1 and N != 1 else roughness
+    # the samples and their pdfs carry no gradient
+    normal_s, view_s = normal.detach(), viewdirs.detach()
+    rough_s, lgt_s = roughness_brdf.detach(), lgtSGs.detach()
 
     # ---- sampling ------------------------------------------------------
     wi_list: List[torch.Tensor] = []
@@ -120,25 +128,26 @@ def pt_render_core(
             # test hook: fixed per-strategy directions; the pdf is the
             # strategy's canonical pdf for them, as its sampler would return
             wi = torch.as_tensor(wi_override[i], dtype=normal.dtype, device=normal.device)
-            pdf = _PDF_FNS[name](wi, normal, viewdirs, roughness_brdf, lgtSGs)
+            pdf = _PDF_FNS[name](wi, normal_s, view_s, rough_s, lgt_s)
         elif name == "cos":
-            wi, pdf = sampling.cos_sampling(gen, normal)
+            wi, pdf = sampling.cos_sampling(gen, normal_s)
         elif name == "brdf":
-            wi, pdf = sampling.brdf_sampling(gen, normal, roughness_brdf, viewdirs)
+            wi, pdf = sampling.brdf_sampling(gen, normal_s, rough_s, view_s)
         else:
-            wi, pdf = sampling.mix_sg_sampling_shared(gen, normal, lgtSGs)
-        wi_list.append(wi)
-        pdf_list.append(torch.clamp(pdf, min=TINY_NUMBER))
+            wi, pdf = sampling.mix_sg_sampling_shared(gen, normal_s, lgt_s)
+        wi_list.append(wi.detach())
+        pdf_list.append(torch.clamp(pdf.detach(), min=TINY_NUMBER))
 
     # 3x3 pdf matrix for MIS
     pdf_matrix = [[pdf_list[i] if j == i else
-                   _PDF_FNS[name_j](wi_list[i], normal, viewdirs, roughness_brdf, lgtSGs)
+                   _PDF_FNS[name_j](wi_list[i], normal_s, view_s, rough_s, lgt_s).detach()
                    for j, name_j in enumerate(strategies)] for i in range(S)]
 
     # ---- one batched secondary trace of every strategy's rays -----------
-    all_pts = points.repeat(S, 1)
+    all_pts = points.detach().repeat(S, 1)
     all_dirs = torch.cat(wi_list, dim=0)
-    lp, hm, n_trace_evals = scene.trace(all_pts, all_dirs)
+    with record_function("secondary_trace"):
+        lp, hm, n_trace_evals = scene.trace(all_pts, all_dirs)
 
     specular_final = torch.zeros_like(diffuse_albedo)
     diffuse_final = torch.zeros_like(diffuse_albedo)
@@ -146,7 +155,8 @@ def pt_render_core(
     for i in range(S):
         wi = wi_list[i]
         lp_i, hm_i = lp[i * N:(i + 1) * N], hm[i * N:(i + 1) * N, None]
-        visible, indirect, n_hit = visibility_and_indirect(scene, lp_i, hm_i, wi)
+        with record_function("secondary_shading"):
+            visible, indirect, n_hit = visibility_and_indirect(scene, lp_i, hm_i, wi)
         n_vis_evals += n_hit
         light = sampling.sg_light_eval(wi, lgtSGs)
         light = light * visible + (1 - visible) * indirect
@@ -158,7 +168,7 @@ def pt_render_core(
         diffuse_final = diffuse_final + torch.clamp(
             weight * light * (diffuse_albedo / np.pi) * w_i_dot_n / pdf_list[i], min=0.0)
 
-    return {
+    ret = {
         "sg_rgb": specular_final + diffuse_final,
         "sg_specular_rgb": specular_final,
         "sg_diffuse_rgb": diffuse_final,
@@ -167,3 +177,9 @@ def pt_render_core(
         # sdf/feature/normal evaluation per secondary hit
         "n_sdf_evals": n_trace_evals + n_vis_evals,
     }
+    if training:
+        # the secondary hits, per strategy, for the self-distillation step
+        ret["secondary_points"] = lp.detach().reshape(S, N, 3)
+        ret["secondary_mask"] = hm.reshape(S, N, 1)
+        ret["secondary_dir"] = all_dirs.reshape(S, N, 3)
+    return ret

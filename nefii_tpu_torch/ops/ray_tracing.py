@@ -1,4 +1,4 @@
-"""Sphere tracing through a learned SDF, eval path (counterpart of
+"""Sphere tracing through a learned SDF (counterpart of
 nefii_tpu/ops/ray_tracing.py).
 
 Same numerics as the JAX RayTracer, restructured for eager PyTorch: where the
@@ -8,7 +8,9 @@ an evaluation and evaluates only those. Those are the dense semantics
 (`budget=None`) of the JAX tracer, without its static compaction budgets, so
 every overflow counter is 0.
 
-The SDF is a closure `sdf_fn(pts [P,3]) -> [P]`.
+The SDF is a closure `sdf_fn(pts [P,3]) -> [P]`. With `training=True` the
+tracer adds the JAX tracer's training extras: the points of the rays that
+miss, for the mask loss.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from nefii_tpu_torch.utils.camera import get_sphere_intersection
 
@@ -62,8 +65,17 @@ class RayTracer:
         cam_loc: torch.Tensor,         # [B, 3]
         object_mask: torch.Tensor,     # [B*S] bool
         ray_directions: torch.Tensor,  # [B, S, 3]
+        training: bool = False,
+        sphere_trace_fn: Optional[Callable] = None,
+        gen: Optional[torch.Generator] = None,
+        steps01: Optional[torch.Tensor] = None,
     ) -> TraceResult:
-        """The eval trace (no min-SDF points: those are training-only)."""
+        """Trace the rays. `sphere_trace_fn` replaces the bidirectional trace
+        (the K3 kernel, with the 6-output contract of the JAX
+        `_sphere_trace`); the fallback sampler and, with `training`, the
+        min-SDF points of the rays that miss keep using `sdf_fn`. The
+        min-SDF points share one [n_steps] uniform vector, `steps01`, drawn
+        from `gen` unless given."""
         B, S, _ = ray_directions.shape
         N = B * S
         si, mask_intersect = get_sphere_intersection(
@@ -75,21 +87,70 @@ class RayTracer:
         mask_intersect = mask_intersect.reshape(N)
         object_mask = object_mask.reshape(N)
 
-        acc_start, acc_end, unfinished_start, n_evals = self._sphere_trace(
-            sdf_fn, cam, dirs, mask_intersect, near, far)
+        with record_function("sphere_trace"):
+            if sphere_trace_fn is not None:
+                acc_start, acc_end, unfinished_start, min_dis, max_dis, n_evals = sphere_trace_fn(
+                    cam, dirs, mask_intersect, near, far)
+            else:
+                acc_start, acc_end, unfinished_start, n_evals = self._sphere_trace(
+                    sdf_fn, cam, dirs, mask_intersect, near, far)
+                zero = torch.zeros_like(near)
+                min_dis = torch.where(mask_intersect, near, zero)
+                max_dis = torch.where(mask_intersect, far, zero)
 
         network_object_mask = acc_start < acc_end
         dists = acc_start.clone()
         sel = unfinished_start.nonzero()[:, 0]
         if sel.numel():
             # fallback sampler for the rays the tracer did not converge on
-            _, s_obj, s_dists, s_evals = self._ray_sampler_dense(
-                sdf_fn, cam[sel], dirs[sel], object_mask[sel], acc_start[sel], acc_end[sel])
+            with record_function("ray_sampler"):
+                _, s_obj, s_dists, s_evals = self._ray_sampler_dense(
+                    sdf_fn, cam[sel], dirs[sel], object_mask[sel], acc_start[sel], acc_end[sel],
+                    training)
             n_evals += s_evals
             dists[sel] = s_dists
             network_object_mask[sel] = s_obj
+        if training:
+            with record_function("min_sdf_points"):
+                dists, m_evals = self._miss_points(
+                    sdf_fn, cam, dirs, object_mask, network_object_mask, unfinished_start,
+                    mask_intersect, acc_start, min_dis, max_dis, dists, gen, steps01)
+            n_evals += m_evals
         points = cam + dists[:, None] * dirs
         return TraceResult(points, network_object_mask, dists, n_evals)
+
+    def _miss_points(self, sdf_fn, cam, dirs, object_mask, network_object_mask, sampler_mask,
+                     mask_intersect, acc_start, min_dis, max_dis, dists, gen, steps01):
+        """Training extras for the mask loss: rays that missed the sphere get
+        the point of the ray closest to the origin, rays inside it that
+        missed the surface (or disagree with the object mask) the point of
+        minimal SDF. -> (dists, evaluations)."""
+        in_mask = ~network_object_mask & object_mask & ~sampler_mask
+        out_mask = ~object_mask & ~sampler_mask
+        mask_left_out = (in_mask | out_mask) & ~mask_intersect
+        proj_dis = -(dirs * cam).sum(-1)
+        dists = torch.where(mask_left_out, proj_dis, dists)
+        mask = (in_mask | out_mask) & mask_intersect
+        min_dis = torch.where(network_object_mask & out_mask, acc_start, min_dis)
+        if steps01 is None:
+            steps01 = torch.rand(self.n_steps, generator=gen, device=cam.device)
+        sel = mask.nonzero()[:, 0]
+        if not sel.numel():
+            return dists, 0
+        dists = dists.clone()
+        dists[sel] = self._minimal_sdf_points(sdf_fn, cam[sel], dirs[sel], min_dis[sel],
+                                              max_dis[sel], steps01.to(cam.device))
+        return dists, sel.numel() * self.n_steps
+
+    def _minimal_sdf_points(self, sdf_fn, cam, dirs, min_dis, max_dis, steps01):
+        """The point of minimal SDF among n_steps points along each ray, at the
+        shared fractions `steps01` of [min_dis, max_dis]."""
+        n = self.n_steps
+        steps = steps01[None, :] * (max_dis - min_dis)[:, None] + min_dis[:, None]
+        pts = cam[:, None, :] + steps[..., None] * dirs[:, None, :]
+        sd = eval_chunked(sdf_fn, pts.reshape(-1, 3), self.sdf_chunk).reshape(-1, n)
+        mi = torch.argmin(sd, dim=-1)
+        return torch.gather(steps, 1, mi[:, None])[:, 0]
 
     # ------------------------------------------------------------------
     def _sdf_at(self, sdf_fn, cam, dirs, acc_s, acc_e, m_s, m_e):
@@ -160,8 +221,10 @@ class RayTracer:
         return acc_s, acc_e, unf_s, n_ev
 
     # ------------------------------------------------------------------
-    def _ray_sampler_dense(self, sdf_fn, cam, dirs, object_mask, acc_start, acc_end):
-        """n_steps-point sign-change sampler + bisection on the given rays."""
+    def _ray_sampler_dense(self, sdf_fn, cam, dirs, object_mask, acc_start, acc_end,
+                           training=False):
+        """n_steps-point sign-change sampler + bisection on the given rays. In
+        training only the rays inside the object mask take the root."""
         N, n = cam.shape[0], self.n_steps
         intervals = torch.linspace(0.0, 1.0, n, device=cam.device)[None, :]
         pts_intervals = acc_start[:, None] + intervals * (acc_end - acc_start)[:, None]
@@ -187,7 +250,8 @@ class RayTracer:
         z_pred, bisect_evals = self._bisection(
             sdf_fn, take(sdf_val, prev), sdf_at_idx, take(pts_intervals, prev),
             take(pts_intervals, idx), cam, dirs)
-        sampler_dists = torch.where(net_surface, z_pred, sampler_dists)
+        rootfind = (net_surface & object_mask) if training else net_surface
+        sampler_dists = torch.where(rootfind, z_pred, sampler_dists)
         sampler_pts = cam + sampler_dists[:, None] * dirs
         return sampler_pts, net_surface, sampler_dists, N * n + bisect_evals
 

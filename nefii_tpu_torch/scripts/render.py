@@ -34,7 +34,7 @@ OUTPUT_KEYS = (
 
 
 def add_argument(parser):
-    from nefii_tpu.training.exp_runner import add_argument as base_args
+    from nefii_tpu_torch.training.exp_runner import add_argument as base_args
 
     parser = base_args(parser)
     parser.add_argument("--num_rays", type=int, default=64, help="anti-aliasing rays per pixel")
@@ -46,8 +46,6 @@ def add_argument(parser):
     parser.add_argument("--envmap_size", type=int, nargs=2, default=[256, 512])
     parser.add_argument("--export_mesh_resolution", type=int, default=0,
                         help="mesh export is not ported yet; must stay 0")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to render on (cuda raises if CUDA is absent)")
     return parser
 
 
@@ -101,7 +99,7 @@ class RenderRunner:
     # ------------------------------------------------------------------
     def render_view(self, img_idx: int):
         """Full-resolution render of one view with multi-ray AA."""
-        from nefii_tpu.utils import general as utils
+        from nefii_tpu_torch.utils import general as utils
 
         ds = self.dataset
         ds.sampling_idx = None
@@ -142,7 +140,7 @@ class RenderRunner:
         return out
 
     def write_view(self, img_idx: int, out):
-        from nefii_tpu.utils import exr as exr_io
+        from nefii_tpu_torch.utils import exr as exr_io
         from nefii_tpu_torch.utils.png import write_png
 
         H, W = self.dataset.img_res
@@ -173,7 +171,7 @@ class RenderRunner:
 
     @torch.no_grad()
     def write_envmap(self):
-        from nefii_tpu.utils import exr as exr_io
+        from nefii_tpu_torch.utils import exr as exr_io
         from nefii_tpu_torch.ops.sg import compute_envmap
 
         em = self.model.envmap_material_network

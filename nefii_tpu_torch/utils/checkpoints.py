@@ -5,7 +5,10 @@ The JAX package stores each collection as a flat `.npz` keyed by pytree
 paths, `<ckpt>/ModelParameters/<tag>.npz` with keys like
 `implicit_network/layers/0/v` and `__extra__/epoch`. Port parameters carry
 the same paths with dots (`implicit_network.layers.0.v`), so the mapping is
-a key rewrite. numpy alone reads and writes the files.
+a key rewrite. numpy alone reads and writes the files. A port training
+checkpoint adds the scheduler collections of the JAX layout and keeps the
+Adam states, which have no JAX layout, in its own `TorchOptimizerParameters`
+files.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ import torch
 from torch import nn
 
 MODEL = "ModelParameters"
+IDR_SCHED = "IDRSchedulerParameters"
+SG_SCHED = "SGSchedulerParameters"
+TORCH_OPT = "TorchOptimizerParameters"
 
 
 def params_from_jax(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
@@ -65,3 +71,43 @@ def load_collection(ckpt_dir: str, collection: str, tag) -> Tuple[Dict[str, np.n
         flat = {k: z[k] for k in z.files}
     extra = {k.split("/", 1)[1]: flat.pop(k) for k in list(flat) if k.startswith("__extra__/")}
     return flat, extra
+
+
+def restore_subtree(model: nn.Module, ckpt_dir: str, tag, subtree: str) -> nn.Module:
+    """Load only the submodule at path `subtree` ("implicit_network",
+    "envmap_material_network/diffuse_albedo_layers") from a JAX-layout
+    checkpoint (the geometry-only `--geometry <dir>` load); strict within it."""
+    flat, _ = load_collection(ckpt_dir, MODEL, tag)
+    prefix = subtree + "/"
+    sub = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    if not sub:
+        raise KeyError(f"{ckpt_dir}: no {subtree} parameters under tag {tag!r}")
+    params_from_jax(model.get_submodule(subtree.replace("/", ".")), sub)
+    return model
+
+
+def save_all(ckpt_dir: str, epoch: int, model: nn.Module, optimizers: Dict, cur_iter: int) -> None:
+    """Write a training checkpoint under the tags <epoch> and `latest`: the
+    parameters and the scheduler counters in the JAX package's layout (both
+    render CLIs and `load_collection` of either package read them), the
+    optimizer states (`{name: state}`) in the port's own TORCH_OPT file."""
+    params = params_to_jax(model)
+    for tag in (str(epoch), "latest"):
+        save_collection(ckpt_dir, MODEL, tag, params, {"epoch": epoch})
+        for sched in (IDR_SCHED, SG_SCHED):
+            save_collection(ckpt_dir, sched, tag, {}, {"epoch": epoch, "cur_iter": cur_iter})
+        d = os.path.join(ckpt_dir, TORCH_OPT)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{tag}.pt")
+        torch.save({"epoch": epoch, "cur_iter": cur_iter, "optimizers": optimizers},
+                   path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+
+def load_all(ckpt_dir: str, tag, model: nn.Module) -> Tuple[Dict, int, int]:
+    """Restore what save_all wrote into `model` -> (optimizer states, epoch, cur_iter)."""
+    flat, extra = load_collection(ckpt_dir, MODEL, tag)
+    params_from_jax(model, flat)
+    state = torch.load(os.path.join(ckpt_dir, TORCH_OPT, f"{tag}.pt"), map_location="cpu",
+                       weights_only=True)
+    return state["optimizers"], int(extra.get("epoch", state["epoch"])), int(state["cur_iter"])

@@ -1,0 +1,1535 @@
+"""Minimal OpenEXR 2.0 scanline codec (pure numpy + zlib): the port's copy
+of nefii_tpu/utils/exr.py, so that the port imports nothing of the JAX
+package.
+
+The reference loads/writes EXR via imageio's freeimage plugin
+(utils/rend_util.py:13-28, scripts/render.py:407-442); that plugin needs a
+binary download, and neither cv2 nor imageio reads EXR without it, so this
+module implements the subset of the format the pipeline needs:
+
+  * read:  scanline AND tiled images (tiled: the full-resolution level of
+           ONE_LEVEL / MIPMAP_LEVELS / RIPMAP_LEVELS files — what the
+           scanline-level libOpenEXR API exposes), single-part or
+           MULTI-PART (part selected by index or name; default = first
+           image part; deep parts raise NotImplementedError), compression
+           NONE / RLE / ZIPS / ZIP / PIZ / PXR24 / B44 / B44A / DWAA /
+           DWAB, channel types HALF / FLOAT / UINT, arbitrary channel
+           names (returned in R,G,B[,A] order when present).
+  * write: RGB(A) scanline images, HALF or FLOAT, ZIP (16-line blocks),
+           PIZ (32-line blocks) or NONE.
+
+The ZIP codec applies OpenEXR's byte-deinterleave + delta predictor around
+zlib, which is what every OpenEXR implementation emits. The PIZ decoder
+(bitmap LUT + Huffman + 2D wavelet, read-only) exists because real-world
+EXR assets default to PIZ in many tools — including the reference's own
+shipped `envmap*_sg_fit/tmp_envmap_100.exr` fixtures; it is validated
+against those (the fixture equals SG2Envmap of the neighbouring .npy,
+which our SG renderer reproduces independently).
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+MAGIC = b"\x76\x2f\x31\x01"
+
+PT_UINT, PT_HALF, PT_FLOAT = 0, 1, 2
+_DTYPES = {PT_UINT: np.uint32, PT_HALF: np.float16, PT_FLOAT: np.float32}
+
+(NO_COMPRESSION, RLE, ZIPS, ZIP, PIZ, PXR24,
+ B44, B44A, DWAA, DWAB) = range(10)
+_LINES_PER_BLOCK = {
+    NO_COMPRESSION: 1, RLE: 1, ZIPS: 1, ZIP: 16, PIZ: 32, PXR24: 16,
+    B44: 32, B44A: 32, DWAA: 32, DWAB: 256,
+}
+
+# capability surface (consulted by tests and by callers that pick a codec)
+DECODE_COMPRESSIONS = frozenset(
+    {NO_COMPRESSION, RLE, ZIPS, ZIP, PIZ, PXR24, B44, B44A, DWAA, DWAB}
+)
+WRITE_COMPRESSIONS = frozenset({NO_COMPRESSION, ZIPS, ZIP, PIZ})
+
+
+# ---------------------------------------------------------------------------
+# OpenEXR ZIP predictor + byte interleave
+# ---------------------------------------------------------------------------
+
+def _unpredict(data: bytes) -> bytes:
+    buf = np.frombuffer(data, np.uint8).astype(np.int64)
+    # undo delta: t[i] = t[i-1] + t[i] - 128
+    buf = np.cumsum(buf - 128) + 128
+    buf = (buf % 256).astype(np.uint8)
+    # re-interleave the two halves
+    n = buf.shape[0]
+    half = (n + 1) // 2
+    out = np.empty(n, np.uint8)
+    out[0::2] = buf[:half]
+    out[1::2] = buf[half:]
+    return out.tobytes()
+
+
+def _predict(data: bytes) -> bytes:
+    src = np.frombuffer(data, np.uint8)
+    n = src.shape[0]
+    half = (n + 1) // 2
+    tmp = np.empty(n, np.uint8)
+    tmp[:half] = src[0::2]
+    tmp[half:] = src[1::2]
+    t = tmp.astype(np.int64)
+    d = np.empty(n, np.int64)
+    d[0] = t[0]
+    d[1:] = t[1:] - t[:-1] + 128 + 256
+    return (d % 256).astype(np.uint8).tobytes()
+
+
+def _rle_decompress(data: bytes) -> bytes:
+    """OpenEXR run-length codec (ImfRle.cpp): signed count byte — negative
+    means |count| literal bytes, non-negative means (count+1) copies of the
+    next byte. The result still carries the ZIP-style predictor+interleave."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        cnt = data[i]
+        i += 1
+        if cnt > 127:  # signed char < 0
+            cnt = 256 - cnt
+            out += data[i : i + cnt]
+            i += cnt
+        else:
+            out += data[i : i + 1] * (cnt + 1)
+            i += 1
+    return bytes(out)
+
+
+def _decompress(data: bytes, compression: int, expected: int) -> bytes:
+    if compression == NO_COMPRESSION or len(data) == expected:
+        return data
+    if compression in (ZIP, ZIPS):
+        return _unpredict(zlib.decompress(data))
+    if compression == RLE:
+        return _unpredict(_rle_decompress(data))
+    raise NotImplementedError(f"EXR compression {compression} not supported")
+
+
+def _compress(data: bytes, compression: int) -> bytes:
+    if compression == NO_COMPRESSION:
+        return data
+    if compression in (ZIP, ZIPS):
+        out = zlib.compress(_predict(data))
+        return out if len(out) < len(data) else data
+    raise NotImplementedError(f"EXR compression {compression} not supported")
+
+
+# ---------------------------------------------------------------------------
+# PIZ (bitmap LUT + Huffman + 2D wavelet), decode only — ImfPizCompressor.cpp
+# ---------------------------------------------------------------------------
+
+_BITMAP_SIZE = 1 << 13  # 8192 bytes = 65536 bits
+
+
+def _huf_decompress(data: memoryview, n_out: int) -> np.ndarray:
+    """OpenEXR Huffman codec, decode side (ImfHuf.cpp hufUncompress).
+
+    Layout: 20-byte header (im, iM, tableLength, nBits, room as u32 LE),
+    then the bit-packed canonical code-length table for symbols im..iM
+    (6-bit entries; 59..62 = short zero runs of 2..5, 63 = long zero run of
+    getBits(8)+6), byte-flush, then nBits of MSB-first code data. Symbol iM
+    is the run-length marker: the next 8 bits repeat the previous output."""
+    im, iM, _, n_bits, _ = struct.unpack("<5I", data[:20])
+    dat = bytes(data[20:])
+    pos = 0
+    c = 0
+    lc = 0
+
+    # --- unpack code lengths (inline bit reads: a closure-based reader
+    # costs ~9 us/call through nonlocal access — 3+ s per image) ----------
+    lengths = np.zeros(iM + 1, np.int64)
+    i = im
+    while i <= iM:
+        while lc < 6:
+            c = (c << 8) | dat[pos]
+            pos += 1
+            lc += 8
+        lc -= 6
+        l = (c >> lc) & 63
+        if l == 63:  # LONG_ZEROCODE_RUN
+            while lc < 8:
+                c = (c << 8) | dat[pos]
+                pos += 1
+                lc += 8
+            lc -= 8
+            i += ((c >> lc) & 0xFF) + 6  # run = getBits(8) + SHORTEST_LONG_RUN
+        elif l >= 59:  # SHORT_ZEROCODE_RUN
+            i += l - 59 + 2
+        else:
+            lengths[i] = l
+            i += 1
+        c &= (1 << lc) - 1
+
+    # --- canonical codes (hufCanonicalCodeTable) ------------------------
+    counts = np.bincount(lengths, minlength=59)
+    base = np.zeros(59, np.int64)
+    cc = 0
+    for ln in range(58, 0, -1):
+        base[ln] = cc
+        cc = (cc + counts[ln]) >> 1
+    # per-symbol code values, assigned in increasing symbol order
+    codes_by_len: List[Dict[int, int]] = [dict() for _ in range(59)]
+    nxt = base.copy()
+    for sym in np.nonzero(lengths)[0]:
+        ln = int(lengths[sym])
+        codes_by_len[ln][int(nxt[ln])] = int(sym)
+        nxt[ln] += 1
+
+    # --- decode the bitstream -------------------------------------------
+    # OpenEXR's HUF_DECBITS scheme, widened: one 16-bit-window table lookup
+    # per symbol (with tens of thousands of active symbols the typical code
+    # is 15-18 bits, so a 14-bit table would long-path most symbols);
+    # longer codes extend bit by bit. Invariant: `c` holds exactly `lc`
+    # significant bits.
+    DECB = 16
+    tbl = [0] * (1 << DECB)
+    for ln in range(1, DECB + 1):
+        span = 1 << (DECB - ln)
+        entry_shift = DECB - ln
+        for code, sym in codes_by_len[ln].items():
+            lo = code << entry_shift
+            if span == 1:
+                tbl[lo] = (sym << 6) | ln
+            else:
+                tbl[lo : lo + span] = [(sym << 6) | ln] * span
+
+    n_bytes = (n_bits + 7) >> 3
+    buf = dat[pos : pos + n_bytes]
+    nb = len(buf)
+    out = np.empty(n_out, np.uint16)
+    oi = 0
+    rlc = iM
+    c = 0
+    lc = 0
+    ip = 0
+
+    def _truncated():
+        return ValueError("corrupt PIZ: Huffman bitstream truncated")
+
+    while oi < n_out:
+        while lc < DECB and ip < nb:
+            c = (c << 8) | buf[ip]
+            ip += 1
+            lc += 8
+        if lc == 0:
+            raise _truncated()
+        window = ((c >> (lc - DECB)) if lc >= DECB else (c << (DECB - lc))) & 0xFFFF
+        e = tbl[window]
+        if e:
+            ln = e & 63
+            if ln > lc:
+                raise _truncated()
+            sym = e >> 6
+            lc -= ln
+            c &= (1 << lc) - 1
+        else:
+            # long code (>14 bits): extend bit by bit from the same stream
+            cur = 0
+            ln = 0
+            sym = None
+            while sym is None:
+                if lc == 0:
+                    if ip >= nb:
+                        raise _truncated()
+                    c = buf[ip]
+                    ip += 1
+                    lc = 8
+                cur = (cur << 1) | ((c >> (lc - 1)) & 1)
+                lc -= 1
+                c &= (1 << lc) - 1
+                ln += 1
+                if ln > 58:
+                    raise ValueError("corrupt PIZ: no Huffman code matches")
+                sym = codes_by_len[ln].get(cur)
+        if sym == rlc:
+            while lc < 8 and ip < nb:
+                c = (c << 8) | buf[ip]
+                ip += 1
+                lc += 8
+            if lc < 8:
+                raise _truncated()
+            run = (c >> (lc - 8)) & 0xFF
+            lc -= 8
+            c &= (1 << lc) - 1
+            # OpenEXR errors on a leading or overshooting run — a silent
+            # clip would hand corrupt pixels downstream
+            if oi == 0 or oi + run > n_out:
+                raise ValueError("corrupt PIZ: bad run-length")
+            out[oi : oi + run] = out[oi - 1]
+            oi += run
+        else:
+            out[oi] = sym
+            oi += 1
+    return out
+
+
+def _wdec14(l: np.ndarray, h: np.ndarray):
+    hi = h.astype(np.int16).astype(np.int32)
+    ai = l.astype(np.int16).astype(np.int32) + (hi & 1) + (hi >> 1)
+    a = ai.astype(np.int16)
+    b = (a.astype(np.int32) - hi).astype(np.int16)
+    return a.astype(np.uint16), b.astype(np.uint16)
+
+
+def _wdec16(l: np.ndarray, h: np.ndarray):
+    m = l.astype(np.int64)
+    d = h.astype(np.int64)
+    bb = (m - (d >> 1)) & 0xFFFF
+    aa = (d + bb - 0x8000) & 0xFFFF
+    return aa.astype(np.uint16), bb.astype(np.uint16)
+
+
+def _wav2_decode(a: np.ndarray, max_value: int) -> None:
+    """In-place inverse of OpenEXR's 2D wavelet (ImfWav.cpp wav2Decode) on a
+    [ny, nx] uint16 array."""
+    dec = _wdec14 if max_value < (1 << 14) else _wdec16
+    ny, nx = a.shape
+    n = min(nx, ny)
+    p = 1
+    while p <= n:
+        p <<= 1
+    p >>= 1
+    p2 = p
+    p >>= 1
+    while p >= 1:
+        ys = np.arange(0, max(ny - p2, -1) + 1, p2)
+        xs = np.arange(0, max(nx - p2, -1) + 1, p2)
+        if len(ys) and len(xs):
+            Y, X = np.meshgrid(ys, xs, indexing="ij")
+            i00, i01 = a[Y, X], a[Y, X + p]
+            i10, i11 = a[Y + p, X], a[Y + p, X + p]
+            t00, t10 = dec(i00, i10)
+            t01, t11 = dec(i01, i11)
+            r00, r01 = dec(t00, t01)
+            r10, r11 = dec(t10, t11)
+            a[Y, X], a[Y, X + p] = r00, r01
+            a[Y + p, X], a[Y + p, X + p] = r10, r11
+        if (nx & p) and len(ys):  # odd remainder column: vertical pairs
+            x = (xs[-1] + p2) if len(xs) else 0
+            t0, t1 = dec(a[ys, x], a[ys + p, x])
+            a[ys, x], a[ys + p, x] = t0, t1
+        if (ny & p) and len(xs):  # odd remainder row: horizontal pairs
+            y = (ys[-1] + p2) if len(ys) else 0
+            t0, t1 = dec(a[y, xs], a[y, xs + p])
+            a[y, xs], a[y, xs + p] = t0, t1
+        p2 = p
+        p >>= 1
+
+
+def _piz_decompress(data: bytes, chans, W: int, n_lines: int) -> bytes:
+    """Decode one PIZ scanline block to the reader's expected layout
+    (per line, per channel in file order, W samples of the channel dtype)."""
+    mv = memoryview(data)
+    min_nz, max_nz = struct.unpack("<HH", mv[:4])
+    pos = 4
+    bitmap = np.zeros(_BITMAP_SIZE, np.uint8)
+    if min_nz <= max_nz:
+        nb = max_nz - min_nz + 1
+        bitmap[min_nz : max_nz + 1] = np.frombuffer(mv[pos : pos + nb], np.uint8)
+        pos += nb
+    # reverseLutFromBitmap: value 0 is always present
+    present = np.nonzero(np.unpackbits(bitmap, bitorder="little"))[0]
+    if len(present) == 0 or present[0] != 0:
+        present = np.concatenate([np.zeros(1, np.int64), present])
+    lut = np.zeros(1 << 16, np.uint16)
+    lut[: len(present)] = present
+    max_value = len(present) - 1
+
+    (length,) = struct.unpack("<i", mv[pos : pos + 4])
+    pos += 4
+
+    sizes = [1 if pt == PT_HALF else 2 for _, pt in chans]  # u16s per sample
+    total = n_lines * W * sum(sizes)
+    decoded = _huf_decompress(mv[pos : pos + length], total)
+
+    # per-channel 2D wavelet decode (each u16 plane of a channel separately),
+    # writing through views into `decoded`
+    off = 0
+    for s in sizes:
+        buf = decoded[off : off + n_lines * W * s].reshape(n_lines, W * s)
+        off += n_lines * W * s
+        for j in range(s):
+            plane = np.ascontiguousarray(buf[:, j::s])
+            _wav2_decode(plane, max_value)
+            buf[:, j::s] = plane
+
+    decoded = lut[decoded]  # applyLut
+
+    # reassemble to the reader's scanline-interleaved layout
+    off = 0
+    rows = []
+    for s in sizes:
+        rows.append(decoded[off : off + n_lines * W * s].reshape(n_lines, W * s))
+        off += n_lines * W * s
+    parts = []
+    for line in range(n_lines):
+        for cb in rows:
+            parts.append(cb[line].tobytes())
+    return b"".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# PIZ encode (forward wavelet + forward LUT + Huffman) — the write-side
+# mirror of the decoder above. Code lengths come from a standard Huffman
+# tree (any optimal tree is valid — the canonical table is transmitted),
+# but the canonical code assignment, table packing, and run-length scheme
+# must match the decoder's expectations exactly.
+# ---------------------------------------------------------------------------
+
+def _pack_bits_msb(vals: np.ndarray, lens: np.ndarray) -> Tuple[bytes, int]:
+    """Pack (value, bit-length) tokens MSB-first; returns (bytes, n_bits)."""
+    if len(vals) == 0:
+        return b"", 0
+    total = int(lens.sum())
+    ends = np.cumsum(lens)
+    starts = ends - lens
+    bits = np.zeros(total, np.uint8)
+    for k in range(int(lens.max())):
+        m = lens > k
+        bits[starts[m] + k] = ((vals[m] >> (lens[m] - 1 - k)) & 1).astype(
+            np.uint8
+        )
+    return np.packbits(bits).tobytes(), total
+
+
+def _huf_build_lengths(freq: np.ndarray, im: int, iM: int) -> np.ndarray:
+    """Huffman code lengths (hufBuildEncTable equivalence class): OpenEXR's
+    heap compares frequencies only, so ties are implementation-defined and
+    only the length MULTISET is pinned — the decoder rebuilds the canonical
+    code from whatever valid lengths the table carries. Built here with the
+    sorted two-queue merge (internal-node frequencies are produced in
+    nondecreasing order, so a second FIFO replaces the heap) and a
+    pointer-jumping depth pass — the per-symbol group-walk this replaces
+    cost ~6 s alone on a 512^2 fp32 PIZ write."""
+    syms = np.nonzero(freq[im:iM + 1])[0] + im
+    n = len(syms)
+    lengths = np.zeros(iM + 1, np.int64)
+    if n <= 1:
+        lengths[syms] = 1
+        return lengths
+    order = np.argsort(freq[syms], kind="stable")
+    leaf_f = freq[syms[order]].astype(np.int64)
+    int_f = np.empty(n - 1, np.int64)
+    parent = np.full(2 * n - 1, 2 * n - 2, np.int64)  # root points at itself
+    li = 0          # next unmerged leaf
+    ii = 0          # next unmerged internal node
+    for k in range(n - 1):
+        pair_f = 0
+        node = n + k
+        for _ in range(2):
+            # take the cheaper of the two queue heads (leaves win ties —
+            # any tie order yields a valid Huffman length set)
+            if li < n and (ii >= k or leaf_f[li] <= int_f[ii]):
+                pair_f += leaf_f[li]
+                parent[li] = node
+                li += 1
+            else:
+                pair_f += int_f[ii]
+                parent[n + ii] = node
+                ii += 1
+        int_f[k] = pair_f
+    # depth by repeated parent-gathers: <=59 vectorised jumps (tree depth is
+    # bounded by the 58-bit code check below) instead of a per-node walk
+    root = 2 * n - 2
+    depth = np.zeros(2 * n - 1, np.int64)
+    cur = np.arange(2 * n - 1)
+    for _ in range(64):
+        live = cur != root
+        if not live.any():
+            break
+        depth += live
+        cur = parent[cur]
+    lengths[syms[order]] = depth[:n]
+    if lengths.max(initial=0) > 58:
+        raise ValueError("PIZ encode: Huffman code length exceeds 58 bits")
+    return lengths
+
+
+def _huf_canonical_values(lengths: np.ndarray) -> np.ndarray:
+    """Canonical code values from lengths (hufCanonicalCodeTable) — the same
+    assignment the decoder reconstructs. Vectorised: code = base[len] +
+    rank of the symbol among same-length symbols in ascending symbol order."""
+    counts = np.bincount(lengths, minlength=59)
+    counts[0] = 0
+    base = np.zeros(59, np.int64)
+    cc = 0
+    for ln in range(58, 0, -1):
+        base[ln] = cc
+        cc = (cc + counts[ln]) >> 1
+    codes = np.zeros(len(lengths), np.int64)
+    nzsym = np.nonzero(lengths)[0]
+    if len(nzsym):
+        ln = lengths[nzsym]
+        order = np.argsort(ln, kind="stable")  # symbol-ascending within length
+        sln = ln[order]
+        grp = np.concatenate([[0], np.nonzero(np.diff(sln))[0] + 1])
+        grp_len = np.diff(np.concatenate([grp, [len(sln)]]))
+        rank = np.arange(len(sln)) - np.repeat(grp, grp_len)
+        codes[nzsym[order]] = base[sln] + rank
+    return codes
+
+
+def _huf_pack_table(lengths: np.ndarray, im: int, iM: int) -> bytes:
+    """Bit-pack code lengths for symbols im..iM (hufPackEncTable): 6-bit
+    entries, 59..62 = zero runs of 2..5, 63 + 8 bits = runs of 6..261.
+    Vectorised (bit-identical to the scan loop it replaces): literals and
+    zero-run chunks are built as positioned token units and interleaved by
+    source position."""
+    lz = lengths[im:iM + 1].astype(np.int64)
+    N = len(lz)
+    iszero = lz == 0
+    padded = np.concatenate([[False], iszero, [False]])
+    rs = np.nonzero(padded[1:] & ~padded[:-1])[0]       # zero-run starts
+    re = np.nonzero(~padded[1:] & padded[:-1])[0]       # one past run ends
+    rl = re - rs
+    # chunk runs into <=261
+    ncz = -(-rl // 261)
+    ch_run = np.repeat(np.arange(len(rs)), ncz)
+    ch_idx = np.arange(len(ch_run)) - np.repeat(np.cumsum(ncz) - ncz, ncz)
+    ch_pos = rs[ch_run] + ch_idx * 261
+    ch_len = np.minimum(rl[ch_run] - ch_idx * 261, 261)
+    # token units: literals (nonzero lengths AND 1-length zero runs) emit one
+    # 6-bit token; 2..5 runs one token; >=6 runs a (63, len-6) pair
+    lit_pos = np.nonzero(~iszero)[0]
+    units_pos = np.concatenate([lit_pos, ch_pos])
+    u_v0 = np.concatenate([
+        lz[lit_pos],
+        np.where(ch_len >= 6, 63, np.where(ch_len >= 2, 59 + ch_len - 2, 0)),
+    ])
+    u_v1 = np.concatenate([np.zeros(len(lit_pos), np.int64), ch_len - 6])
+    u_two = np.concatenate([
+        np.zeros(len(lit_pos), bool), ch_len >= 6,
+    ])
+    order = np.argsort(units_pos, kind="stable")
+    u_v0, u_v1, u_two = u_v0[order], u_v1[order], u_two[order]
+    cnt = np.where(u_two, 2, 1)
+    offs = np.concatenate([[0], np.cumsum(cnt)])
+    vals = np.zeros(int(offs[-1]), np.int64)
+    lens = np.full(int(offs[-1]), 6, np.int64)
+    vals[offs[:-1]] = u_v0
+    second = offs[:-1][u_two] + 1
+    vals[second] = u_v1[u_two]
+    lens[second] = 8
+    packed, _ = _pack_bits_msb(vals, lens)
+    return packed
+
+
+def _huf_compress(data: np.ndarray) -> bytes:
+    """OpenEXR Huffman codec, encode side (hufCompress): 20-byte header,
+    packed code-length table, then run-length-aware code stream."""
+    freq = np.bincount(data, minlength=(1 << 16) + 1).astype(np.int64)
+    nz = np.nonzero(freq)[0]
+    im = int(nz[0])
+    rlc = int(nz[-1]) + 1  # pseudo-symbol: run-length marker
+    freq[rlc] = 1
+    lengths = _huf_build_lengths(freq, im, rlc)
+    code_vals = _huf_canonical_values(lengths)
+    table = _huf_pack_table(lengths, im, rlc)
+
+    # token stream: per equal-value run, chunks of <=256 samples; each chunk
+    # is one code + (RLC + 8-bit count) when that is strictly cheaper than
+    # repeating the code (hufEncode/sendCode). Fully vectorised — the
+    # obvious per-run Python loop costs ~12 s on a 512^2 fp32 image (high-
+    # entropy data is nearly all 1-sample runs), this is ~milliseconds.
+    starts = np.concatenate([[0], np.nonzero(np.diff(data))[0] + 1])
+    run_lens = np.diff(np.concatenate([starts, [len(data)]]))
+    syms = data[starts].astype(np.int64)
+    len_rlc = int(lengths[rlc])
+    val_rlc = int(code_vals[rlc])
+
+    # split runs into <=256-sample chunks
+    nc = -(-run_lens // 256)
+    chunk_sym = np.repeat(syms, nc)
+    chunk_len = np.full(int(nc.sum()), 256, np.int64)
+    last_idx = np.cumsum(nc) - 1
+    chunk_len[last_idx] = run_lens - (nc - 1) * 256
+    cl = lengths[chunk_sym].astype(np.int64)
+    cv = code_vals[chunk_sym].astype(np.int64)
+    rc = chunk_len - 1
+    use_rle = cl + len_rlc + 8 < cl * rc
+
+    out_count = np.where(use_rle, 3, chunk_len)
+    offs = np.concatenate([[0], np.cumsum(out_count)])
+    total = int(offs[-1])
+    out_v = np.empty(total, np.int64)
+    out_l = np.empty(total, np.int64)
+    base_r = offs[:-1][use_rle]
+    out_v[base_r], out_l[base_r] = cv[use_rle], cl[use_rle]
+    out_v[base_r + 1], out_l[base_r + 1] = val_rlc, len_rlc
+    out_v[base_r + 2], out_l[base_r + 2] = rc[use_rle], 8
+    lit = ~use_rle
+    ll = chunk_len[lit]
+    if ll.size:
+        within = np.arange(int(ll.sum())) - np.repeat(np.cumsum(ll) - ll, ll)
+        idx = np.repeat(offs[:-1][lit], ll) + within
+        out_v[idx] = np.repeat(cv[lit], ll)
+        out_l[idx] = np.repeat(cl[lit], ll)
+    bits, n_bits = _pack_bits_msb(out_v, out_l)
+    header = struct.pack("<5I", im, rlc, len(table), n_bits, 0)
+    return header + table + bits
+
+
+def _wenc14(a: np.ndarray, b: np.ndarray):
+    ai = a.astype(np.int16).astype(np.int32)
+    bi = b.astype(np.int16).astype(np.int32)
+    m = (ai + bi) >> 1
+    d = ai - bi
+    return (m.astype(np.int16).astype(np.uint16),
+            d.astype(np.int16).astype(np.uint16))
+
+
+def _wenc16(a: np.ndarray, b: np.ndarray):
+    ao = (a.astype(np.int64) + 0x8000) & 0xFFFF
+    bi = b.astype(np.int64)
+    m = (ao + bi) >> 1
+    d = ao - bi
+    m = np.where(d < 0, (m + 0x8000) & 0xFFFF, m)
+    return m.astype(np.uint16), (d & 0xFFFF).astype(np.uint16)
+
+
+def _wav2_encode(a: np.ndarray, max_value: int) -> None:
+    """In-place forward 2D wavelet (ImfWav.cpp wav2Encode) on [ny, nx]
+    uint16 — levels and index sets mirror _wav2_decode, reversed, with
+    horizontal-then-vertical pairing (the inverse of decode's order)."""
+    enc = _wenc14 if max_value < (1 << 14) else _wenc16
+    ny, nx = a.shape
+    n = min(nx, ny)
+    p, p2 = 1, 2
+    while p2 <= n:
+        ys = np.arange(0, max(ny - p2, -1) + 1, p2)
+        xs = np.arange(0, max(nx - p2, -1) + 1, p2)
+        if len(ys) and len(xs):
+            Y, X = np.meshgrid(ys, xs, indexing="ij")
+            v00, v01 = a[Y, X], a[Y, X + p]
+            v10, v11 = a[Y + p, X], a[Y + p, X + p]
+            h00, h01 = enc(v00, v01)
+            h10, h11 = enc(v10, v11)
+            r00, r10 = enc(h00, h10)
+            r01, r11 = enc(h01, h11)
+            a[Y, X], a[Y, X + p] = r00, r01
+            a[Y + p, X], a[Y + p, X + p] = r10, r11
+        if (nx & p) and len(ys):  # odd remainder column: vertical pairs
+            x = (xs[-1] + p2) if len(xs) else 0
+            t0, t1 = enc(a[ys, x], a[ys + p, x])
+            a[ys, x], a[ys + p, x] = t0, t1
+        if (ny & p) and len(xs):  # odd remainder row: horizontal pairs
+            y = (ys[-1] + p2) if len(ys) else 0
+            t0, t1 = enc(a[y, xs], a[y, xs + p])
+            a[y, xs], a[y, xs + p] = t0, t1
+        p = p2
+        p2 <<= 1
+
+
+def _piz_compress(raw: bytes, chans, W: int, n_lines: int) -> bytes:
+    """Encode one scanline block from the writer's layout (per line, per
+    channel in file order) — inverse of _piz_decompress."""
+    sizes = [1 if pt == PT_HALF else 2 for _, pt in chans]  # u16s per sample
+    stride = W * sum(sizes)
+    src = np.frombuffer(raw, np.uint16).reshape(n_lines, stride)
+
+    # deinterleave scanlines into the channel-planar tmp buffer
+    offs = np.cumsum([0] + [W * s for s in sizes])
+    buf = np.empty(n_lines * stride, np.uint16)
+    off = 0
+    for ci, s in enumerate(sizes):
+        nvals = n_lines * W * s
+        buf[off : off + nvals] = src[:, offs[ci] : offs[ci + 1]].reshape(-1)
+        off += nvals
+
+    # bitmapFromData + forwardLutFromBitmap (value 0 is never stored)
+    present_nz = np.unique(buf)
+    present_nz = present_nz[present_nz != 0]
+    lut = np.zeros(1 << 16, np.uint16)
+    lut[present_nz] = np.arange(1, len(present_nz) + 1, dtype=np.uint16)
+    max_value = len(present_nz)
+    bitbytes = np.zeros(1 << 16, np.uint8)
+    bitbytes[present_nz] = 1
+    bitmap = np.packbits(bitbytes, bitorder="little")
+    nz_bytes = np.nonzero(bitmap)[0]
+    if len(nz_bytes):
+        min_nz, max_nz = int(nz_bytes[0]), int(nz_bytes[-1])
+    else:
+        min_nz, max_nz = _BITMAP_SIZE - 1, 0  # all-zero block: no bitmap
+
+    buf = lut[buf]
+
+    off = 0
+    for s in sizes:
+        plane = buf[off : off + n_lines * W * s].reshape(n_lines, W * s)
+        off += n_lines * W * s
+        for j in range(s):
+            sub = np.ascontiguousarray(plane[:, j::s])
+            _wav2_encode(sub, max_value)
+            plane[:, j::s] = sub
+
+    huf = _huf_compress(buf)
+    head = struct.pack("<HH", min_nz, max_nz)
+    body = bitmap[min_nz : max_nz + 1].tobytes() if min_nz <= max_nz else b""
+    return head + body + struct.pack("<i", len(huf)) + huf
+
+
+# ---------------------------------------------------------------------------
+# B44 / B44A (4x4 HALF pixel blocks, 14 bytes each; B44A adds 3-byte flat
+# blocks), decode — ImfB44Compressor.cpp. Non-HALF channels are stored raw,
+# channel-planar, inside the same stream.
+# ---------------------------------------------------------------------------
+
+def _b44_unpack14(b: np.ndarray) -> np.ndarray:
+    """Vectorised unpack of [M, 14] byte blocks into [M, 16] uint16 halfs
+    (s.reshape(4, 4) is [row, col] of the 4x4 pixel tile)."""
+    b = b.astype(np.int64)
+    shift = b[:, 2] >> 2
+    bias = np.int64(0x20) << shift
+
+    def six(x):
+        return x & 0x3F
+
+    # the 15 running differences, in the order the recurrence consumes them
+    r = [
+        six((b[:, 2] << 4) | (b[:, 3] >> 4)),   # s4  from s0
+        six((b[:, 3] << 2) | (b[:, 4] >> 6)),   # s8  from s4
+        six(b[:, 4]),                           # s12 from s8
+        six(b[:, 5] >> 2),                      # s1  from s0
+        six((b[:, 5] << 4) | (b[:, 6] >> 4)),   # s5  from s4
+        six((b[:, 6] << 2) | (b[:, 7] >> 6)),   # s9  from s8
+        six(b[:, 7]),                           # s13 from s12
+        six(b[:, 8] >> 2),                      # s2  from s1
+        six((b[:, 8] << 4) | (b[:, 9] >> 4)),   # s6  from s5
+        six((b[:, 9] << 2) | (b[:, 10] >> 6)),  # s10 from s9
+        six(b[:, 10]),                          # s14 from s13
+        six(b[:, 11] >> 2),                     # s3  from s2
+        six((b[:, 11] << 4) | (b[:, 12] >> 4)), # s7  from s6
+        six((b[:, 12] << 2) | (b[:, 13] >> 6)), # s11 from s10
+        six(b[:, 13]),                          # s15 from s14
+    ]
+    d = [(ri << shift) - bias for ri in r]
+
+    s = np.empty((len(b), 16), np.int64)
+    s[:, 0] = (b[:, 0] << 8) | b[:, 1]
+    s[:, 4] = s[:, 0] + d[0]
+    s[:, 8] = s[:, 4] + d[1]
+    s[:, 12] = s[:, 8] + d[2]
+    for col, (base_off, r0) in enumerate(((0, 3), (1, 7), (2, 11)), start=1):
+        for row in range(4):
+            s[:, 4 * row + col] = s[:, 4 * row + base_off] + d[r0 + row]
+    s &= 0xFFFF
+    return _b44_from_monotonic(s)
+
+
+def _b44_from_monotonic(s: np.ndarray) -> np.ndarray:
+    """Invert the sign-bias transform pack() applies so deltas are monotonic:
+    values with the high bit set map back directly, others bit-complement."""
+    return np.where(s & 0x8000, s & 0x7FFF, ~s & 0xFFFF).astype(np.uint16)
+
+
+def _b44_decompress(data: bytes, chans, W: int, n_lines: int,
+                    plinear: Dict[str, bool]) -> bytes:
+    """Decode one B44/B44A scanline block to the reader's layout (per line,
+    per channel in file order)."""
+    mv = np.frombuffer(data, np.uint8)
+    pos = 0
+    chan_rows: List[np.ndarray] = []  # per channel: [n_lines] list of row bytes
+    for name, pt in chans:
+        if pt != PT_HALF:
+            # UINT/FLOAT channels ride along uncompressed, channel-planar
+            nbytes = W * n_lines * np.dtype(_DTYPES[pt]).itemsize
+            plane = np.frombuffer(data, np.uint8, nbytes, pos)
+            chan_rows.append(plane.reshape(n_lines, -1))
+            pos += nbytes
+            continue
+        if plinear.get(name):
+            raise NotImplementedError(
+                "B44 pLinear channels not supported by this codec"
+            )
+        nbx = -(-W // 4)
+        nby = -(-n_lines // 4)
+        n_blocks = nbx * nby
+        offs = np.empty(n_blocks, np.int64)
+        flat = np.empty(n_blocks, bool)
+        p = pos
+        for bi in range(n_blocks):
+            if p + 3 > len(mv):
+                raise ValueError(
+                    f"corrupt EXR: B44 stream truncated at block {bi}"
+                )
+            offs[bi] = p
+            f = mv[p + 2] == 0xFC
+            flat[bi] = f
+            p += 3 if f else 14
+        if p > len(mv):
+            raise ValueError("corrupt EXR: B44 stream truncated")
+        pos = p
+
+        tiles = np.empty((n_blocks, 16), np.uint16)
+        if flat.any():
+            fo = offs[flat]
+            v = (mv[fo].astype(np.int64) << 8) | mv[fo + 1]
+            tiles[flat] = _b44_from_monotonic(v)[:, None]
+        if (~flat).any():
+            o = offs[~flat]
+            blk = np.stack([mv[o + k] for k in range(14)], axis=1)
+            tiles[~flat] = _b44_unpack14(blk)
+
+        # scatter tiles (row-major block order) and crop the edge padding
+        arr = np.empty((nby * 4, nbx * 4), np.uint16)
+        t4 = tiles.reshape(nby, nbx, 4, 4)
+        arr.reshape(nby, 4, nbx, 4)[:] = t4.transpose(0, 2, 1, 3)
+        chan_rows.append(
+            arr[:n_lines, :W].view(np.uint8).reshape(n_lines, -1)
+        )
+
+    parts = []
+    for line in range(n_lines):
+        for cb in chan_rows:
+            parts.append(cb[line].tobytes())
+    return b"".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# PXR24 (zlib over per-row per-channel byte planes of horizontally
+# delta-coded samples; FLOAT truncated to 24 bits), decode only —
+# ImfPxr24Compressor.cpp
+# ---------------------------------------------------------------------------
+
+def _pxr24_decompress(data: bytes, chans, W: int, n_lines: int) -> bytes:
+    raw = zlib.decompress(data)
+    src = np.frombuffer(raw, np.uint8)
+    pos = 0
+    out_rows = []
+    n_planes = {PT_HALF: 2, PT_FLOAT: 3, PT_UINT: 4}
+    for _ in range(n_lines):
+        for name, pt in chans:
+            k = n_planes[pt]
+            planes = [
+                src[pos + j * W : pos + (j + 1) * W].astype(np.uint32)
+                for j in range(k)
+            ]
+            pos += k * W
+            diff = np.zeros(W, np.uint32)
+            for pl in planes:
+                diff = (diff << 8) | pl
+            # horizontal delta accumulation, modulo the sample's bit width
+            pix = np.cumsum(diff.astype(np.uint64)).astype(np.uint32)
+            if pt == PT_HALF:
+                out_rows.append((pix & 0xFFFF).astype(np.uint16).tobytes())
+            elif pt == PT_FLOAT:
+                # stored value is the float's top 24 bits; restore by << 8
+                out_rows.append(((pix & 0xFFFFFF) << 8).astype(np.uint32).tobytes())
+            else:  # UINT — full 32 bits, uint32 cast already wraps
+                out_rows.append(pix.tobytes())
+    return b"".join(out_rows)
+
+
+# ---------------------------------------------------------------------------
+# DWAA / DWAB (lossy DCT with a perceptual nonlinearity; AC Huffman- or
+# deflate-coded, DC zip-coded, plus lossless RLE / deflate side channels),
+# decode only — ImfDwaCompressor.cpp. The block layout, stream ordering,
+# CSC plane order, DC packing and RLE byte-planarization were established
+# empirically against libOpenEXR 3.1 (crafted single-feature images), and
+# the full decoder is validated against libOpenEXR-decoded fixtures
+# (tests/fixtures/exr/dwa*_*.f32).
+# ---------------------------------------------------------------------------
+
+# channel compression schemes (Classifier byte, bits 2-3)
+_DWA_UNKNOWN, _DWA_LOSSY_DCT, _DWA_RLE = 0, 1, 2
+
+_dwa_to_linear: Optional[np.ndarray] = None
+
+
+def _dwa_to_linear_lut() -> np.ndarray:
+    """dwaCompressorToLinear: half-bits -> half-bits inverting the encoder's
+    perceptual curve toNonlinear(v) = sign(v) * (|v|<=1 ? |v|^(1/2.2)
+    : 1 + ln|v|/2.2); inf/nan map to 0. Generated analytically in float32 —
+    verified bit-identical to the 65536-entry table compiled into
+    libOpenEXR 3.1."""
+    global _dwa_to_linear
+    if _dwa_to_linear is None:
+        bits = np.arange(65536, dtype=np.uint16)
+        h = bits.view(np.float16).astype(np.float32)
+        sign = np.sign(h).astype(np.float32)
+        a = np.abs(h).astype(np.float32)
+        with np.errstate(over="ignore", invalid="ignore"):
+            out = np.where(
+                a <= 1.0,
+                np.power(a, np.float32(2.2), dtype=np.float32),
+                np.exp(np.float32(2.2) * (a - np.float32(1.0)), dtype=np.float32),
+            )
+            lut = (sign * out).astype(np.float16).view(np.uint16).copy()
+        lut[~np.isfinite(h)] = 0
+        _dwa_to_linear = lut
+    return _dwa_to_linear
+
+
+def _dwa_zigzag() -> np.ndarray:
+    """JPEG zigzag scan order: index i in the AC/DC stream -> position in the
+    row-major 8x8 block."""
+    order = sorted(
+        ((y, x) for y in range(8) for x in range(8)),
+        key=lambda p: (p[0] + p[1], p[1] if (p[0] + p[1]) % 2 else p[0]),
+    )
+    return np.asarray([y * 8 + x for y, x in order], np.int64)
+
+
+_DWA_ZIGZAG = _dwa_zigzag()
+
+
+def _dwa_idct1d(r: np.ndarray) -> np.ndarray:
+    """One pass of the 8-point inverse DCT along the last axis, replicating
+    dctInverse8x8_scalar's even/odd butterfly (ImfDwaCompressorSimd.h) with
+    its truncated pi and float32 evaluation order, so CSC'd channel sets
+    round to the same halfs libOpenEXR produces."""
+    f32 = np.float32
+    pi = f32(3.14159)
+    ca = f32(0.5) * np.cos(pi / f32(4.0), dtype=np.float32)
+    cb = f32(0.5) * np.cos(pi / f32(16.0), dtype=np.float32)
+    cc = f32(0.5) * np.cos(pi / f32(8.0), dtype=np.float32)
+    cd = f32(0.5) * np.cos(f32(3.0) * pi / f32(16.0), dtype=np.float32)
+    ce = f32(0.5) * np.cos(f32(5.0) * pi / f32(16.0), dtype=np.float32)
+    cf = f32(0.5) * np.cos(f32(3.0) * pi / f32(8.0), dtype=np.float32)
+    cg = f32(0.5) * np.cos(f32(7.0) * pi / f32(16.0), dtype=np.float32)
+    r0, r1, r2, r3, r4, r5, r6, r7 = (r[..., i] for i in range(8))
+    al0, al1, al2, al3 = cc * r2, cf * r2, cc * r6, cf * r6
+    be0 = ((cb * r1 + cd * r3) + ce * r5) + cg * r7
+    be1 = ((cd * r1 - cg * r3) - cb * r5) - ce * r7
+    be2 = ((ce * r1 - cb * r3) + cg * r5) + cd * r7
+    be3 = ((cg * r1 - ce * r3) + cd * r5) - cb * r7
+    th0, th3 = ca * (r0 + r4), ca * (r0 - r4)
+    th1, th2 = al0 + al3, al1 - al2
+    ga0, ga1 = th0 + th1, th3 + th2
+    ga2, ga3 = th3 - th2, th0 - th1
+    return np.stack([ga0 + be0, ga1 + be1, ga2 + be2, ga3 + be3,
+                     ga3 - be3, ga2 - be2, ga1 - be1, ga0 - be0], axis=-1)
+
+
+def _dwa_idct8x8(coeffs: np.ndarray) -> np.ndarray:
+    """Batched 8x8 inverse DCT ([B, 8, 8] -> [B, y, x]). Zigzag slot k sits
+    at (row k//8, col k%8) with the col axis varying along image x; row pass
+    first, then columns (orientation validated per-pixel against
+    libOpenEXR). DC convention verified empirically: X00 = 8 * mean."""
+    x = _dwa_idct1d(coeffs.astype(np.float32))
+    return _dwa_idct1d(x.transpose(0, 2, 1))
+
+
+def _dwa_parse_rules(raw: bytes):
+    """Serialized Classifier list: per rule a C-string suffix + 1 byte
+    ((cscIdx+1)<<4 | scheme<<2 | caseInsensitive) + 1 byte pixel type."""
+    rules = []
+    i = 0
+    while i < len(raw):
+        name, i = _read_cstring(raw, i)
+        b, pt = raw[i], raw[i + 1]
+        i += 2
+        rules.append({
+            "name": name,
+            "csc_idx": (b >> 4) - 1,
+            "scheme": (b >> 2) & 3,
+            "case_insensitive": bool(b & 1),
+            "type": pt,
+        })
+    return rules
+
+
+def _dwa_default_rules():
+    """initializeDefaultChannelRules (ImfDwaCompressor.cpp): R/G/B HALF and
+    FLOAT are a lossy-DCT CSC triple, Y/BY/RY lossy DCT, A lossless RLE."""
+    rules = []
+    for i, n in enumerate("RGB"):
+        for t in (PT_HALF, PT_FLOAT):
+            rules.append({"name": n, "csc_idx": i, "scheme": _DWA_LOSSY_DCT,
+                          "case_insensitive": False, "type": t})
+    for n in ("Y", "BY", "RY"):
+        for t in (PT_HALF, PT_FLOAT):
+            rules.append({"name": n, "csc_idx": -1, "scheme": _DWA_LOSSY_DCT,
+                          "case_insensitive": False, "type": t})
+    for t in (PT_UINT, PT_HALF, PT_FLOAT):
+        rules.append({"name": "A", "csc_idx": -1, "scheme": _DWA_RLE,
+                      "case_insensitive": False, "type": t})
+    return rules
+
+
+def _dwa_classify(chans, rules):
+    """Per channel: (scheme, csc_idx) from the first rule whose suffix and
+    pixel type match (case-sensitive first, then case-insensitive rules)."""
+    out = []
+    for name, pt in chans:
+        suffix = name.rsplit(".", 1)[-1]
+        hit = (_DWA_UNKNOWN, -1)
+        for ci_pass in (False, True):
+            found = False
+            for r in rules:
+                if r["case_insensitive"] != ci_pass or r["type"] != pt:
+                    continue
+                match = (suffix.lower() == r["name"].lower()) if ci_pass \
+                    else (suffix == r["name"])
+                if match:
+                    hit = (r["scheme"], r["csc_idx"])
+                    found = True
+                    break
+            if found:
+                break
+        out.append(hit)
+    return out
+
+
+def _dwa_unrle_ac(ac: np.ndarray, start: int, n_blocks: int, n_comp: int):
+    """Expand the AC token stream for one decoder instance: per block
+    (row-major), per component, 63 zigzag AC coefficients. Tokens: 0xff00 =
+    rest of block zero, 0xffXX = run of XX zeros, else literal half bits.
+    Returns ([n_blocks, n_comp, 64] uint16 with slot 0 zero, next offset)."""
+    out = np.zeros((n_blocks, n_comp, 64), np.uint16)
+    pos = start
+    n_ac = len(ac)
+    for b in range(n_blocks):
+        for c in range(n_comp):
+            slot = 1
+            while slot < 64:
+                if pos >= n_ac:
+                    raise ValueError("corrupt DWA block: AC stream truncated")
+                val = int(ac[pos]); pos += 1
+                if val == 0xFF00:
+                    break
+                if (val >> 8) == 0xFF:
+                    slot += val & 0xFF
+                else:
+                    out[b, c, slot] = val
+                    slot += 1
+    return out, pos
+
+
+def _dwa_decompress(data: bytes, chans, W: int, n_lines: int) -> bytes:
+    if len(data) < 88:
+        raise ValueError("corrupt DWA block: short header")
+    (version, unk_unc, unk_cmp, ac_cmp, dc_cmp, rle_cmp, _rle_unc,
+     rle_raw, ac_cnt, dc_cnt, ac_scheme) = struct.unpack("<11Q", data[:88])
+    pos = 88
+    if version >= 2:
+        rule_size = struct.unpack("<H", data[pos:pos + 2])[0]
+        if rule_size < 2 or pos + rule_size > len(data):
+            raise ValueError("corrupt DWA block: bad channel-rule size")
+        rules = _dwa_parse_rules(data[pos + 2:pos + rule_size])
+        pos += rule_size
+    else:
+        rules = _dwa_default_rules()
+
+    unk_bytes = zlib.decompress(data[pos:pos + unk_cmp]) if unk_cmp else b""
+    pos += unk_cmp
+    ac_buf = data[pos:pos + ac_cmp]; pos += ac_cmp
+    dc_buf = data[pos:pos + dc_cmp]; pos += dc_cmp
+    rle_buf = data[pos:pos + rle_cmp]
+
+    if ac_cnt:
+        if ac_scheme == 0:  # STATIC_HUFFMAN, same codec as PIZ
+            ac = _huf_decompress(memoryview(ac_buf), int(ac_cnt))
+        else:  # DEFLATE
+            ac = np.frombuffer(zlib.decompress(ac_buf), np.uint16)
+    else:
+        ac = np.empty(0, np.uint16)
+    dc = (np.frombuffer(_unpredict(zlib.decompress(dc_buf)), np.uint16)
+          if dc_cnt else np.empty(0, np.uint16))
+    rle_bytes = (_rle_decompress(zlib.decompress(rle_buf))
+                 if rle_cmp else b"")
+    if len(rle_bytes) != rle_raw:
+        raise ValueError("corrupt DWA block: RLE size mismatch")
+
+    klass = _dwa_classify(chans, rules)
+
+    # CSC sets: channels sharing a prefix whose rules carry csc indices
+    # 0/1/2; decoded together (forward CSC was applied across the triple)
+    csc_sets: Dict[str, Dict[int, int]] = {}
+    for i, ((name, _pt), (scheme, csc_idx)) in enumerate(zip(chans, klass)):
+        if scheme == _DWA_LOSSY_DCT and csc_idx >= 0:
+            prefix = name.rsplit(".", 1)[0] if "." in name else ""
+            csc_sets.setdefault(prefix, {})[csc_idx] = i
+    full_sets = {p: s for p, s in csc_sets.items() if len(s) == 3}
+    chan_to_set = {i: p for p, s in full_sets.items() for i in s.values()}
+
+    nbx, nby = -(-W // 8), -(-n_lines // 8)
+    n_blocks = nbx * nby
+    lut = _dwa_to_linear_lut()
+
+    def decode_dct_group(n_comp, ac_pos, dc_pos):
+        """One LossyDctDecoder instance: n_comp planes decoded jointly.
+        AC interleaved per block across components; DC planar per component.
+        Returns ([n_comp, n_lines, W] float32 linear, ac_pos, dc_pos)."""
+        zig, ac_pos = _dwa_unrle_ac(ac, ac_pos, n_blocks, n_comp)
+        for c in range(n_comp):
+            zig[:, c, 0] = dc[dc_pos + c * n_blocks:dc_pos + (c + 1) * n_blocks]
+        dc_pos += n_comp * n_blocks
+        coeffs = np.zeros((n_blocks * n_comp, 64), np.float32)
+        coeffs[:, _DWA_ZIGZAG] = (
+            zig.reshape(-1, 64).view(np.float16).astype(np.float32))
+        pix = _dwa_idct8x8(coeffs.reshape(-1, 8, 8))
+        pix = pix.reshape(n_blocks, n_comp, 8, 8)
+        if n_comp == 3:
+            # inverse BT.709 CSC on (Y, Cb, Cr) -> (R, G, B), with
+            # csc709Inverse's exact truncated float32 constants and
+            # evaluation order (bit-exactness vs libOpenEXR)
+            f32 = np.float32
+            Y = pix[:, 0].astype(np.float32)
+            Cb = pix[:, 1].astype(np.float32)
+            Cr = pix[:, 2].astype(np.float32)
+            R = Y + f32(1.5747) * Cr
+            G = (Y - f32(0.1873) * Cb) - f32(0.4682) * Cr
+            B = Y + f32(1.8556) * Cb
+            pix = np.stack([R, G, B], 1)
+        planes = np.empty((n_comp, n_lines, W), np.float32)
+        tiles = pix.reshape(nby, nbx, n_comp, 8, 8)
+        padded = np.empty((n_comp, nby * 8, nbx * 8), np.float32)
+        padded.reshape(n_comp, nby, 8, nbx, 8)[:] = tiles.transpose(2, 0, 3, 1, 4)
+        # quantized values are half precision; apply the perceptual LUT
+        bits = padded[:, :n_lines, :W].astype(np.float16).view(np.uint16)
+        planes[:] = lut[bits].view(np.float16).astype(np.float32)
+        return planes, ac_pos, dc_pos
+
+    out_rows: Dict[int, np.ndarray] = {}  # channel index -> [n_lines, row bytes]
+    ac_pos = dc_pos = 0
+    unk_pos = rle_pos = 0
+    done = set()
+    for i, ((name, pt), (scheme, _ci)) in enumerate(zip(chans, klass)):
+        if i in done:
+            continue
+        dt = _DTYPES[pt]
+        isz = np.dtype(dt).itemsize
+        if scheme == _DWA_LOSSY_DCT and i in chan_to_set:
+            members = full_sets[chan_to_set[i]]  # csc_idx -> channel index
+            planes, ac_pos, dc_pos = decode_dct_group(3, ac_pos, dc_pos)
+            for ci in range(3):
+                j = members[ci]
+                jdt = _DTYPES[chans[j][1]]
+                row = planes[ci].astype(
+                    np.float16 if jdt == np.float16 else np.float32)
+                out_rows[j] = row.view(np.uint8).reshape(n_lines, -1)
+                done.add(j)
+        elif scheme == _DWA_LOSSY_DCT:
+            planes, ac_pos, dc_pos = decode_dct_group(1, ac_pos, dc_pos)
+            row = planes[0].astype(
+                np.float16 if dt == np.float16 else np.float32)
+            out_rows[i] = row.view(np.uint8).reshape(n_lines, -1)
+            done.add(i)
+        elif scheme == _DWA_RLE:
+            # byte-planar per channel: plane b holds byte b of each sample
+            n = W * n_lines
+            planes = np.frombuffer(
+                rle_bytes, np.uint8, n * isz, rle_pos).reshape(isz, n)
+            rle_pos += n * isz
+            samples = np.empty((n, isz), np.uint8)
+            samples[:] = planes.T
+            out_rows[i] = samples.reshape(n_lines, -1)
+            done.add(i)
+        else:  # UNKNOWN: channel-planar raw bytes, deflate-compressed
+            n = W * n_lines * isz
+            out_rows[i] = np.frombuffer(
+                unk_bytes, np.uint8, n, unk_pos).reshape(n_lines, -1)
+            unk_pos += n
+            done.add(i)
+
+    parts = []
+    for line in range(n_lines):
+        for i in range(len(chans)):
+            parts.append(out_rows[i][line].tobytes())
+    return b"".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# header parsing
+# ---------------------------------------------------------------------------
+
+def _read_cstring(data: bytes, off: int) -> Tuple[str, int]:
+    end = data.index(b"\0", off)
+    return data[off:end].decode("latin-1"), end + 1
+
+
+def _parse_attrs(data: bytes, off: int):
+    """One header's attribute list (ends at the empty-name terminator)."""
+    attrs: Dict[str, Tuple[str, bytes]] = {}
+    while True:
+        name, off = _read_cstring(data, off)
+        if not name:
+            break
+        typ, off = _read_cstring(data, off)
+        size = struct.unpack("<i", data[off : off + 4])[0]
+        off += 4
+        attrs[name] = (typ, data[off : off + size])
+        off += size
+    return attrs, off
+
+
+def _parse_headers(data: bytes):
+    """All part headers -> (headers, offset_after_headers, multipart).
+
+    Single-part files have one header; multi-part files (version bit 12,
+    OpenEXR 2.0) a header SEQUENCE terminated by an empty header
+    (ImfMultiPartInputFile.cpp). Single-part deep files (version bit 11)
+    are rejected here; a multi-part file's deep PARTS are rejected only
+    when selected (read(part=...)), so image parts of mixed files stay
+    readable."""
+    if data[:4] != MAGIC:
+        raise ValueError("not an EXR file")
+    version = struct.unpack("<i", data[4:8])[0]
+    if version & 0x800:
+        raise NotImplementedError("deep EXR not supported")
+    if not version & 0x1000:
+        attrs, off = _parse_attrs(data, 8)
+        return [attrs], off, False
+    headers = []
+    off = 8
+    while data[off] != 0:
+        attrs, off = _parse_attrs(data, off)
+        headers.append(attrs)
+    return headers, off + 1, True  # +1: the empty terminating header
+
+
+def _parse_header(data: bytes):
+    """Single-part header (back-compat wrapper) -> (attrs, offset)."""
+    headers, off, multipart = _parse_headers(data)
+    if multipart:
+        raise NotImplementedError(
+            "multi-part EXR: use read(path, part=...)")
+    return headers[0], off
+
+
+def _parse_chlist(raw: bytes) -> List[Tuple[str, int]]:
+    chans = []
+    i = 0
+    while raw[i] != 0:
+        name, i = _read_cstring(raw, i)
+        pixel_type = struct.unpack("<i", raw[i : i + 4])[0]
+        i += 16  # pixelType + pLinear/reserved + xSampling + ySampling
+        chans.append((name, pixel_type))
+    return chans
+
+
+def _parse_chlist_plinear(raw: bytes) -> Dict[str, bool]:
+    """Per-channel pLinear flags (byte 4 of each channel record) — consulted
+    by the B44 decoder, which rejects pLinear channels (empirically their
+    decode differs; DWA ignores the flag, matching libOpenEXR)."""
+    flags = {}
+    i = 0
+    while raw[i] != 0:
+        name, i = _read_cstring(raw, i)
+        flags[name] = raw[i + 4] != 0
+        i += 16
+    return flags
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+def _decode_block(block, compression, chans, W, n_lines, plinear, label):
+    """Decode ONE compressed chunk (a scanline block or a tile) to raw
+    interleaved scanlines (per line, per channel — the layout both chunk
+    kinds share). OpenEXR writers store a chunk RAW whenever compression
+    doesn't shrink it, so a valid chunk is never larger than the raw size:
+    route `< expected` to the decoder, `== expected` through as raw, and
+    reject `> expected` as corruption instead of feeding the decoders an
+    oversized stream (opaque struct/zlib errors)."""
+    bytes_per_px = sum(np.dtype(_DTYPES[pt]).itemsize for _, pt in chans)
+    expected = n_lines * W * bytes_per_px
+    if len(block) > expected:
+        raise ValueError(
+            f"corrupt EXR: {label} is {len(block)} bytes, larger "
+            f"than its {expected}-byte raw size"
+        )
+    if compression == PIZ and len(block) < expected:
+        return _piz_decompress(block, chans, W, n_lines)
+    if compression == PXR24 and len(block) < expected:
+        return _pxr24_decompress(block, chans, W, n_lines)
+    if compression in (B44, B44A) and len(block) < expected:
+        return _b44_decompress(block, chans, W, n_lines, plinear)
+    if compression in (DWAA, DWAB) and len(block) < expected:
+        return _dwa_decompress(block, chans, W, n_lines)
+    return _decompress(block, compression, expected)
+
+
+def _scatter_lines(raw, chans, out, y, x0, n_lines, w):
+    """Place decoded raw scanlines (per line, per channel) into the output
+    channel planes at [y : y+n_lines, x0 : x0+w]."""
+    pos = 0
+    for line in range(n_lines):
+        for name, pt in chans:
+            dt = _DTYPES[pt]
+            row = np.frombuffer(raw, dt, count=w, offset=pos)
+            out[name][y + line, x0 : x0 + w] = row.astype(np.float32)
+            pos += w * np.dtype(dt).itemsize
+
+
+def _level_size(size: int, level: int, round_up: bool) -> int:
+    b = 1 << level
+    s = size // b + (1 if round_up and size % b else 0)
+    return max(s, 1)
+
+
+def _tile_chunk_counts(W, H, xs, ys, mode, round_up):
+    """Per-level (lx, ly) -> tile-grid shape, in the file's chunk order
+    (increasing level; RIPMAP varies lx fastest — ImfTiledMisc.cc)."""
+    if mode == 0:  # ONE_LEVEL
+        levels = [(0, 0)]
+    elif mode == 1:  # MIPMAP_LEVELS
+        n = max(W, H).bit_length() - 1
+        if round_up and max(W, H) & (max(W, H) - 1):
+            n += 1
+        levels = [(l, l) for l in range(n + 1)]
+    elif mode == 2:  # RIPMAP_LEVELS
+        nx, ny = W.bit_length() - 1, H.bit_length() - 1
+        if round_up:
+            nx += 1 if W & (W - 1) else 0
+            ny += 1 if H & (H - 1) else 0
+        levels = [(lx, ly) for ly in range(ny + 1) for lx in range(nx + 1)]
+    else:
+        raise NotImplementedError(f"EXR tile level mode {mode} not supported")
+    counts = []
+    for lx, ly in levels:
+        w, h = _level_size(W, lx, round_up), _level_size(H, ly, round_up)
+        counts.append(((lx, ly), (-(-w // xs), -(-h // ys))))
+    return counts
+
+
+def _read_tiled(data, attrs, off, chans, compression, W, H, plinear,
+                offsets=None, prefix=0, part_idx=0):
+    """Tiled EXR part: decode the full-resolution level (0, 0) — what
+    InputFile's scanline API exposes for tiled files and all the pipeline
+    consumes; lower mip/rip levels are skipped. Each tile is one
+    independently-compressed chunk of the SAME codecs as scanline blocks,
+    with scanline width = the (edge-clipped) tile width. `offsets` is the
+    part's chunk-offset table (read from `off` for single-part files);
+    `prefix`=4 skips a multi-part chunk's leading part-number field after
+    validating it against `part_idx`."""
+    xs, ys, md = struct.unpack("<IIB", attrs["tiles"][1][:9])
+    mode, round_up = md & 0x0F, (md >> 4) & 0x0F == 1
+    if xs <= 0 or ys <= 0:
+        raise ValueError(f"corrupt EXR: tile size {xs}x{ys}")
+    if offsets is None:
+        counts = _tile_chunk_counts(W, H, xs, ys, mode, round_up)
+        n_chunks = sum(cx * cy for _, (cx, cy) in counts)
+        offsets = struct.unpack(f"<{n_chunks}q", data[off : off + 8 * n_chunks])
+
+    out = {name: np.empty((H, W), np.float32) for name, _ in chans}
+    seen = np.zeros((-(-H // ys), -(-W // xs)), bool)
+    for boff in offsets:
+        if boff == 0:  # unwritten tile (incomplete file): leave a hole only
+            continue   # if it is a level-0 tile — checked via `seen` below
+        if prefix:
+            pnum = struct.unpack("<i", data[boff : boff + 4])[0]
+            if pnum != part_idx:
+                raise ValueError(
+                    f"corrupt EXR: chunk of part {pnum} in part "
+                    f"{part_idx}'s offset table")
+            boff += 4
+        dx, dy, lx, ly, size = struct.unpack("<5i", data[boff : boff + 20])
+        if lx != 0 or ly != 0:
+            continue  # lower-resolution mip/rip level
+        x0, y0 = dx * xs, dy * ys
+        if not (0 <= x0 < W and 0 <= y0 < H):
+            raise ValueError(f"corrupt EXR: tile ({dx},{dy}) outside image")
+        tw, th = min(xs, W - x0), min(ys, H - y0)
+        block = data[boff + 20 : boff + 20 + size]
+        raw = _decode_block(block, compression, chans, tw, th, plinear,
+                            f"tile ({dx},{dy})")
+        _scatter_lines(raw, chans, out, y0, x0, th, tw)
+        seen[dy, dx] = True
+    if not seen.all():
+        raise ValueError(
+            f"incomplete tiled EXR: {int((~seen).sum())} of {seen.size} "
+            "full-resolution tiles missing"
+        )
+    return out
+
+
+_IMAGE_PART_TYPES = (b"scanlineimage", b"tiledimage")
+
+
+def read(path: str, part=None) -> np.ndarray:
+    """Read an EXR into float32 [H, W, C]; RGB(A) channel order when named.
+
+    Handles single-part scanline AND tiled images (tiled: the
+    full-resolution level of ONE_LEVEL / MIPMAP_LEVELS / RIPMAP_LEVELS
+    files) at every compression in DECODE_COMPRESSIONS, plus MULTI-PART
+    files (OpenEXR 2.0, ImfMultiPartInputFile): `part` selects a part by
+    index or by its `name` attribute; the default is the first IMAGE
+    (scanline/tiled) part, so mixed files whose leading parts are deep
+    still read. Deep parts raise NotImplementedError when selected."""
+    with open(path, "rb") as f:
+        data = f.read()
+    headers, off, multipart = _parse_headers(data)
+
+    prefix = 0
+    part_idx = 0
+    offsets = None
+    if multipart:
+        # one chunk-offset table per part, in header order, each sized by
+        # the part's required chunkCount attribute
+        tables = []
+        for h in headers:
+            n = struct.unpack("<i", h["chunkCount"][1])[0]
+            tables.append(struct.unpack(f"<{n}q", data[off : off + 8 * n]))
+            off += 8 * n
+        names = [h.get("name", ("", b""))[1] for h in headers]
+        if part is None:
+            imgs = [i for i, h in enumerate(headers)
+                    if h.get("type", ("", b""))[1] in _IMAGE_PART_TYPES]
+            if not imgs:
+                raise NotImplementedError(
+                    "multi-part EXR with no scanline/tiled image part "
+                    f"(part types: {[h.get('type', ('', b''))[1] for h in headers]})")
+            part_idx = imgs[0]
+        elif isinstance(part, str):
+            if part.encode("latin-1") not in names:
+                raise ValueError(
+                    f"no part named {part!r} (parts: "
+                    f"{[n.decode('latin-1') for n in names]})")
+            part_idx = names.index(part.encode("latin-1"))
+        else:
+            if not 0 <= int(part) < len(headers):
+                raise ValueError(
+                    f"part {part} out of range ({len(headers)} parts)")
+            part_idx = int(part)
+        attrs = headers[part_idx]
+        ptype = attrs.get("type", ("", b""))[1]
+        if ptype not in _IMAGE_PART_TYPES:
+            raise NotImplementedError(
+                f"EXR part type {ptype.decode('latin-1')!r} not supported "
+                "(deep parts)")
+        offsets = tables[part_idx]
+        prefix = 4  # every multi-part chunk leads with its part number
+    else:
+        attrs = headers[0]
+
+    chans = sorted(_parse_chlist(attrs["channels"][1]))  # alphabetical = file order
+    compression = attrs["compression"][1][0]
+    x_min, y_min, x_max, y_max = struct.unpack("<4i", attrs["dataWindow"][1])
+    W = x_max - x_min + 1
+    H = y_max - y_min + 1
+    if compression not in DECODE_COMPRESSIONS:
+        raise NotImplementedError(f"EXR compression {compression} not supported")
+    plinear = (_parse_chlist_plinear(attrs["channels"][1])
+               if compression in (B44, B44A) else None)
+
+    tiled = ("tiles" in attrs if not multipart
+             else attrs.get("type", ("", b""))[1] == b"tiledimage")
+    if tiled:
+        out = _read_tiled(data, attrs, off, chans, compression, W, H,
+                          plinear, offsets=offsets, prefix=prefix,
+                          part_idx=part_idx)
+    else:
+        lines_per_block = _LINES_PER_BLOCK[compression]
+        n_blocks = -(-H // lines_per_block)
+
+        if offsets is None:
+            # single-part: the line-offset table follows the header
+            offsets = struct.unpack(
+                f"<{n_blocks}q", data[off : off + 8 * n_blocks])
+
+        out = {name: np.empty((H, W), np.float32) for name, _ in chans}
+        for bi, boff in enumerate(offsets):
+            if prefix:
+                pnum = struct.unpack("<i", data[boff : boff + 4])[0]
+                if pnum != part_idx:
+                    raise ValueError(
+                        f"corrupt EXR: chunk of part {pnum} in part "
+                        f"{part_idx}'s offset table")
+                boff += 4
+            y, size = struct.unpack("<ii", data[boff : boff + 8])
+            y -= y_min
+            n_lines = min(lines_per_block, H - y)
+            block = data[boff + 8 : boff + 8 + size]
+            raw = _decode_block(block, compression, chans, W, n_lines,
+                                plinear, f"block {bi}")
+            _scatter_lines(raw, chans, out, y, 0, n_lines, W)
+
+    names = [n for n, _ in chans]
+    order = [n for n in ("R", "G", "B", "A") if n in names]
+    order += [n for n in names if n not in order]
+    return np.stack([out[n] for n in order], axis=-1)
+
+
+def write(
+    path: str,
+    img: np.ndarray,
+    pixel_type: int = PT_FLOAT,
+    compression: int = ZIP,
+) -> None:
+    """Write [H, W, C<=4] (or [H, W]) float data as an EXR."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W, C = img.shape
+    names = {1: ["Y"], 3: ["R", "G", "B"], 4: ["R", "G", "B", "A"]}[C]
+    dt = np.dtype(_DTYPES[pixel_type])
+
+    # header ----------------------------------------------------------------
+    def attr(name: str, typ: str, val: bytes) -> bytes:
+        return (
+            name.encode() + b"\0" + typ.encode() + b"\0"
+            + struct.pack("<i", len(val)) + val
+        )
+
+    chlist = b""
+    for n in sorted(names):
+        chlist += n.encode() + b"\0" + struct.pack("<i", pixel_type)
+        chlist += struct.pack("<BBBB", 0, 0, 0, 0) + struct.pack("<ii", 1, 1)
+    chlist += b"\0"
+
+    box = struct.pack("<4i", 0, 0, W - 1, H - 1)
+    header = MAGIC + struct.pack("<i", 2)
+    header += attr("channels", "chlist", chlist)
+    header += attr("compression", "compression", bytes([compression]))
+    header += attr("dataWindow", "box2i", box)
+    header += attr("displayWindow", "box2i", box)
+    header += attr("lineOrder", "lineOrder", b"\0")
+    header += attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+    header += attr("screenWindowCenter", "v2f", struct.pack("<2f", 0.0, 0.0))
+    header += attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+    header += b"\0"
+
+    # pixel blocks -----------------------------------------------------------
+    lines_per_block = _LINES_PER_BLOCK[compression]
+    n_blocks = -(-H // lines_per_block)
+    chan_order = sorted(range(C), key=lambda i: names[i])
+
+    blocks = []
+    for bi in range(n_blocks):
+        y0 = bi * lines_per_block
+        n_lines = min(lines_per_block, H - y0)
+        parts = []
+        for line in range(n_lines):
+            for ci in chan_order:
+                parts.append(img[y0 + line, :, ci].astype(dt).tobytes())
+        raw = b"".join(parts)
+        if compression == PIZ:
+            comp = _piz_compress(
+                raw, [(names[ci], pixel_type) for ci in chan_order],
+                W, n_lines)
+            blocks.append((y0, comp if len(comp) < len(raw) else raw))
+        else:
+            blocks.append((y0, _compress(raw, compression)))
+
+    table_off = len(header)
+    data_off = table_off + 8 * n_blocks
+    offsets = []
+    pos = data_off
+    for y0, blk in blocks:
+        offsets.append(pos)
+        pos += 8 + len(blk)
+
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(struct.pack(f"<{n_blocks}q", *offsets))
+        for (y0, blk) in blocks:
+            f.write(struct.pack("<ii", y0, len(blk)))
+            f.write(blk)
+
+
+# convenience aliases matching common io APIs
+imread = read
+imwrite = write

@@ -78,3 +78,40 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fm.fused_fwd_bwd(fm.embed_padded(pts, fm.prepare_weights(net, torch.bfloat16)),
                          fm.prepare_weights(net, torch.bfloat16))  # K2 is fp32 only
     assert fm.LAUNCHES == {"fused_sdf_hidden": 0, "fused_sdf_fwd_bwd": 0}
+
+
+@torch.no_grad()
+def test_k3_kernel_matches_plain():
+    """K3 on camera rays through the flagship init sphere: the same per-ray
+    results as its plain version (fp32 summation order aside) and an
+    evaluation count within 1% (a flipped convergence keeps a tile alive)."""
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.ops.ray_tracing import RayTracer
+    from nefii_tpu_torch.utils.camera import get_sphere_intersection
+
+    net, _ = _flagship()
+    tracer = RayTracer(line_step_iters=3, sphere_tracing_iters=10)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cam_loc = torch.tensor([[0.0, 0.0, -2.0]], device="cuda")
+    dirs = torch.randn(1, 4000, 3, generator=g, device="cuda") * 0.3
+    dirs[..., 2] = 1.0
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    si, mi = get_sphere_intersection(cam_loc, dirs)
+    rays = (cam_loc.expand(4000, 3).contiguous(), dirs[0].contiguous(), mi[0],
+            si[0, :, 0].contiguous(), si[0, :, 1].contiguous())
+    fw = fm.prepare_weights(net)
+    ft.reset_launch_counts()
+    out = ft.fused_sphere_trace(*rays, fw, tracer)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES["fused_sphere_trace"] == 1
+    ref = ft.fused_sphere_trace_plain(*rays, fw, tracer)
+    agree = out[2] == ref[2]
+    assert agree.float().mean().item() >= 0.999
+    hit, hit_ref = out[0] < out[1], ref[0] < ref[1]
+    assert 0 < int(hit.sum()) < 4000
+    same = agree & (hit == hit_ref)
+    assert (out[0] - ref[0])[same].abs().max().item() <= 1e-4
+    assert (out[1] - ref[1])[same].abs().max().item() <= 1e-4
+    assert abs(out[3] - ref[3]) <= 0.01 * ref[3]
+    with pytest.raises(ValueError):
+        ft.fused_sphere_trace(*rays, fm.prepare_weights(net, torch.bfloat16), tracer)

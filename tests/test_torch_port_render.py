@@ -4,6 +4,7 @@ render.main renders a 2-view 8x8 cam_dict_norm.json-only split from a
 checkpoint that the JAX package wrote (checkpoints.save_collection), and must
 write the seven EXRs per view, the stacked PNG and envmap.exr, all finite."""
 
+import ast
 import os
 import struct
 import subprocess
@@ -88,20 +89,46 @@ def test_render_cli_writes_finite_outputs(tmp_path):
 
 
 def test_port_imports_without_jax():
-    """Every module of nefii_tpu_torch imports with JAX made unimportable."""
+    """Every module of nefii_tpu_torch, and chip_smoke.py, imports with JAX
+    and the JAX package made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['nefii_tpu'] = None\n"
         "import nefii_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(nefii_tpu_torch.__path__,"
-        " 'nefii_tpu_torch.')]\n"
+        " 'nefii_tpu_torch.')] + ['chip_smoke']\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert sys.modules['jax'] is None\n"
-        "assert not [m for m in sys.modules if m.startswith('jax.') or m == 'jaxlib']\n"
+        "assert sys.modules['jax'] is None and sys.modules['nefii_tpu'] is None\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax.', 'nefii_tpu.'))"
+        " or m == 'jaxlib']\n"
         "print(len(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT), timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip()) >= 25
+
+
+def _imported_modules(path):
+    """Every module an `import` or `from ... import` statement of the file names."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_never_import_jax_or_the_jax_package():
+    """An AST scan of the port's sources and chip_smoke.py, which also sees
+    the imports inside functions that importing a module does not run."""
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(os.path.join(ROOT, "nefii_tpu_torch"))
+        for f in fs if f.endswith(".py")]
+    assert len(files) >= 25
+    bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imported_modules(p)
+           if m.split(".")[0] in ("jax", "jaxlib", "nefii_tpu")]
+    assert not bad, bad
