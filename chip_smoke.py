@@ -7,9 +7,14 @@ Phases, each of which raises on failure (exit code != 0):
 2. build: compile the kernel sources of csrc/ with nvcc, one process each,
    all started together.
 3. kernels: on the full-width confs/conf.conf SDF net (8x512, skip at 4,
-   multires 6), run K1 (fp32 and bf16) and K2 (fp32) at 262,144 points and
-   hold each against its plain PyTorch version on the same inputs, in the
-   working type; time both with CUDA events.
+   multires 6), run K1 fp32 (FMA pipe), K1 bf16 on the tensor cores (both
+   entries: the hidden state, and the sdf of fused_sdf_value) and K2 (fp32)
+   at 262,144 points, the tensor-core entries also at 1, 63, 64, 65 and 5000
+   points, and hold each against its plain PyTorch version on the same
+   inputs, in the working type; time them with CUDA events, the fp32 FMA K1
+   beside the tensor-core one, and print the tensor-core kernel's TFLOP/s
+   and the L2 weight bytes a call requests by its design (computed, not
+   measured).
 4. trace-kernel: K3, the whole sphere trace, on 262,144 rays of one 512x512
    view of the seeded-init sphere (camera rays, and random pixels in random
    order) against its plain version; the port's gathered tracer through K1
@@ -27,14 +32,16 @@ Phases, each of which raises on failure (exit code != 0):
    init, save the checkpoint in the JAX package's .npz layout, and render two
    128x128 views with 16 rays per pixel through
    nefii_tpu_torch.scripts.render.main. Checks finite outputs, a hit fraction
-   above 0 and that both kernels were launched by the render.
+   above 0 and that the render launched the tensor-core K1 (its sdf entry)
+   and K2.
 8. train: Step-2 training of confs/conf.conf with use_fused_trace at full
    width (2048 px x 64 rays a step) through
    nefii_tpu_torch.training.exp_runner.main, four steps on a synthetic 4-view
    128x128 sphere scene from a checkpoint of the seeded geometry, a secondary
    distillation step after each. Checks finite losses, a frozen geometry,
    trained rendering and material nets, a checkpoint the render CLI reads,
-   and launches of K1, K2 and K3; prints s/step, rays/s and peak memory.
+   and launches of the tensor-core K1 (its sdf entry), K2 and K3; prints
+   s/step, rays/s, the distillation step and peak memory.
 
 The line before the last is the kernels' JSON record (launches from the
 training run); the last line is {"ok": true, "device": {...}}.
@@ -164,6 +171,22 @@ def _chain_flops(net):
     return hidden, 2 * net.layers[-1].d_in
 
 
+RAGGED = (1, 63, 64, 65, 5000)
+
+
+def _check_bf16(name, got, ref):
+    """max |got - ref| and max |ref|; raises unless within TOL['bf16_rel'] of
+    the largest value and finite."""
+    import torch
+
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if not err <= TOL["bf16_rel"] * scale or not bool(torch.isfinite(got.float()).all()):
+        raise RuntimeError(f"{name} disagrees with its plain version: {err:.3e} "
+                           f"(max {scale:.3e})")
+    return err, scale
+
+
 def phase_kernels():
     import torch
 
@@ -173,34 +196,67 @@ def phase_kernels():
     net = _flagship_net(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     pts = torch.randn(N_POINTS, 3, generator=gen, device=dev) * 0.5
-    hidden_flops, _ = _chain_flops(net)
+    hidden_flops, col_flops = _chain_flops(net)
     res = {}
     with torch.no_grad():
-        for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            fw = fm.prepare_weights(net, dtype)
-            x = fm.embed_padded(pts, fw)
+        # K1 fp32, the FMA pipe
+        fw = fm.prepare_weights(net, torch.float32)
+        x = fm.embed_padded(pts, fw)
+        h = fm.fused_hidden(x, fw)
+        torch.cuda.synchronize()
+        ref = fm.fused_hidden_plain(x, fw)
+        torch.cuda.synchronize()
+        err = (h - ref).abs().max().item()
+        ms = _time(lambda: fm.fused_hidden(x, fw))
+        plain_ms = _time(lambda: fm.fused_hidden_plain(x, fw))
+        bound = _bound(N_POINTS * hidden_flops,
+                       N_POINTS * (fw.emb_dim + fw.real_width) * 4 + fw.buf.numel() * 4, "fp32")
+        print(f"[kernels] K1 fp32 (FMA): N={N_POINTS} max_abs_err={err:.3e} kernel {ms:.3f} ms "
+              f"plain {plain_ms:.3f} ms bound {bound['bound_ms']:.3f} ms ({bound['bound_by']})",
+              flush=True)
+        if not err <= TOL["fp32_abs"] or not bool(torch.isfinite(h).all()):
+            raise RuntimeError(f"K1 fp32 disagrees with its plain version: {err:.3e}")
+        res["k1_fp32"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+
+        # K1 bf16 on the tensor cores: the hidden entry and the sdf entry
+        fw = fm.prepare_weights(net, torch.bfloat16)
+        errs_h, errs_s = [], []
+        for n in RAGGED + (N_POINTS,):
+            x = fm.embed_padded(pts[:n], fw)
             h = fm.fused_hidden(x, fw)
+            sdf = fm.fused_sdf_value(x, fw)
             torch.cuda.synchronize()
-            ref = fm.fused_hidden_plain(x, fw)
-            torch.cuda.synchronize()
-            err = (h.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            sdf = fm.build_fused_sdf(net, dtype)(pts)
-            torch.cuda.synchronize()
-            ok = (err <= TOL["fp32_abs"]) if name == "fp32" else (err <= TOL["bf16_rel"] * scale)
-            ms = _time(lambda: fm.fused_hidden(x, fw))
-            plain_ms = _time(lambda: fm.fused_hidden_plain(x, fw))
-            item = x.element_size()
-            bound = _bound(N_POINTS * hidden_flops,
-                           N_POINTS * (fw.emb_dim + fw.real_width) * item
-                           + fw.buf.numel() * item, name)
-            print(f"[kernels] K1 {name}: N={N_POINTS} max_abs_err={err:.3e} (max|h|={scale:.3e}) "
-                  f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound['bound_ms']:.3f} ms "
-                  f"({bound['bound_by']}) finite_sdf={bool(torch.isfinite(sdf).all())}",
+            eh, sh = _check_bf16(f"K1 bf16 (tensor cores) at N={n}", h,
+                                 fm.fused_hidden_plain(x, fw))
+            es, ss = _check_bf16(f"fused_sdf_value at N={n}", sdf, fm.fused_sdf_value_plain(x, fw))
+            errs_h.append(eh)
+            errs_s.append(es)
+            print(f"[kernels] K1 bf16 (tensor cores) N={n}: hidden max_abs_err={eh:.3e} "
+                  f"(max|h|={sh:.3e}); fused_sdf_value max_abs_err={es:.3e} (max|sdf|={ss:.3e})",
                   flush=True)
-            if not ok or not bool(torch.isfinite(h.float()).all()):
-                raise RuntimeError(f"K1 {name} disagrees with its plain version: {err:.3e}")
-            res[f"k1_{name}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+        x = fm.embed_padded(pts, fw)
+        ms_h = _time(lambda: fm.fused_hidden(x, fw), reps=10)
+        ms_s = _time(lambda: fm.fused_sdf_value(x, fw), reps=10)
+        plain_h = _time(lambda: fm.fused_hidden_plain(x, fw))
+        plain_s = _time(lambda: fm.fused_sdf_value_plain(x, fw))
+        flops = N_POINTS * hidden_flops
+        # computed from the design, not measured: every 64-row tile requests
+        # every packed weight chunk from L2
+        l2_bytes = -(-N_POINTS // fm.TC_BLOCK_ROWS) * fw.tc.numel() * 2
+        weights = fw.tc.numel() * 2
+        bound_h = _bound(flops, N_POINTS * (fw.emb_dim + fw.real_width) * 2 + weights, "bf16")
+        bound_s = _bound(flops + N_POINTS * col_flops, N_POINTS * (fw.emb_dim * 2 + 4) + weights,
+                         "bf16")
+        print(f"[kernels] K1 bf16 (tensor cores) N={N_POINTS}: hidden {ms_h:.3f} ms "
+              f"({flops / ms_h / 1e9:.1f} TFLOP/s), fused_sdf_value {ms_s:.3f} ms "
+              f"({flops / ms_s / 1e9:.1f} TFLOP/s); plain {plain_h:.3f} / {plain_s:.3f} ms; "
+              f"bound {bound_h['bound_ms']:.3f} / {bound_s['bound_ms']:.3f} ms "
+              f"({bound_h['bound_by']}); fp32 FMA K1 {res['k1_fp32']['ms']:.3f} ms; L2 weight "
+              f"bytes requested a call, computed from the design: {l2_bytes / 1e9:.3f} GB "
+              f"({l2_bytes / ms_s / 1e9:.3f} TB/s requested in the sdf entry)", flush=True)
+        tc = dict(fma_fp32_ms=res["k1_fp32"]["ms"], ragged=list(RAGGED))
+        res["k1_tc"] = dict(max_abs_err=max(errs_h), ms=ms_h, plain_ms=plain_h, **bound_h, **tc)
+        res["sdf_value"] = dict(max_abs_err=max(errs_s), ms=ms_s, plain_ms=plain_s, **bound_s, **tc)
 
         fw = fm.prepare_weights(net, torch.float32)
         x = fm.embed_padded(pts, fw)
@@ -380,6 +436,12 @@ def phase_reference():
 RENDER_RES = 128
 RENDER_VIEWS = 2
 RENDER_RAYS = 16
+# the kernels each path must launch: the bf16 conf's SDF queries go through the
+# tensor-core K1's sdf entry; the fp32 trace of the train-reference through the
+# FMA K1; K3 only where use_fused_trace is on
+RENDER_KERNELS = ("fused_sdf_value", "fused_sdf_fwd_bwd")
+TRAIN_KERNELS = ("fused_sdf_value", "fused_sdf_fwd_bwd", "fused_sphere_trace")
+TRAIN_REF_KERNELS = ("fused_sdf_hidden", "fused_sdf_fwd_bwd", "fused_sphere_trace")
 EXR_NAMES = ("gt", "rerender_rgb", "diffuse_rgb", "specular_rgb", "diffuse_albedo", "roughness",
              "specular_reflection")
 
@@ -437,8 +499,8 @@ def phase_render(card):
         if not s["hit_fraction"] > 0:
             raise RuntimeError(f"view {s['view']}: no ray hit the surface")
     print(f"[render] kernel launches during the render: {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in RENDER_KERNELS:
+        if launches[name] <= 0:
             raise RuntimeError(f"the render did not launch kernel {name}")
     return launches, stats
 
@@ -555,11 +617,12 @@ def phase_train_reference():
     bad = {k: v for k, v in grad_rel.items() if not v <= TRAIN_REF_TOL["grad_rel_l2"]}
     if bad:
         raise RuntimeError(f"training gradients on the card disagree: {bad}")
-    if any(n <= 0 for n in g["launches"].values()):
+    if any(g["launches"][k] <= 0 for k in TRAIN_REF_KERNELS):
         raise RuntimeError(f"the card's training step missed a kernel: {g['launches']}")
     if any(n != 0 for n in c["launches"].values()):
         raise RuntimeError("the CPU step launched a kernel")
-    return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, mask_agreement=mask_agree)
+    return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, mask_agreement=mask_agree,
+                launches=g["launches"])
 
 
 TRAIN_RES = 128
@@ -645,8 +708,8 @@ def phase_train(card):
         if moved != {"implicit_network": False, "rendering_network": True,
                      "envmap_material_network": True}:
             raise RuntimeError(f"frozen geometry moved or a trained network did not: {moved}")
-        for name, n in launches.items():
-            if n <= 0:
+        for name in TRAIN_KERNELS:
+            if launches[name] <= 0:
                 raise RuntimeError(f"training did not launch kernel {name}")
 
         out_dir = os.path.join(d, "renders")
@@ -678,15 +741,27 @@ def main():
     print(json.dumps({"render": stats, "reference": ref, "train_reference": train_ref,
                       "train": train, "trace_kernel": trace, "card": card}), flush=True)
     src = "nefii_tpu_torch/ops/kernels/csrc/fused_mlp.cu"
-    # launches: the training run's (this slice's main path); the render's beside
-    # them. No single PyTorch call computes an MLP chain or a sphere trace, so
-    # every library_ms is null.
+    tc_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_tc.cuh"
+    k1 = "nefii_tpu/ops/pallas/fused_mlp.py:136"
+    ref_launches = train_ref.pop("launches")
+    # launches: the training run's (this slice's main path); the render's and
+    # the fp32 train-reference step's beside them. No single PyTorch call
+    # computes an MLP chain or a sphere trace, so every library_ms is null.
     records = [
-        dict(name="fused_sdf_hidden", route="cuda", source=src,
-             replaces="nefii_tpu/ops/pallas/fused_mlp.py:136",
+        dict(name="fused_sdf_hidden_tc", route="cuda", source=tc_src, replaces=k1,
+             launches=launches["fused_sdf_hidden_tc"],
+             render_launches=render_launches["fused_sdf_hidden_tc"], dtype="bfloat16",
+             design="wgmma m64n256k16, bulk-copy weight ring", library_ms=None, **kern["k1_tc"]),
+        dict(name="fused_sdf_value", route="cuda", source=tc_src, replaces=k1,
+             launches=launches["fused_sdf_value"],
+             render_launches=render_launches["fused_sdf_value"], dtype="bfloat16",
+             design="the tensor-core K1 with the sdf column in its epilogue", library_ms=None,
+             **kern["sdf_value"]),
+        dict(name="fused_sdf_hidden", route="cuda", source=src, replaces=k1,
              launches=launches["fused_sdf_hidden"],
-             render_launches=render_launches["fused_sdf_hidden"], dtype="bfloat16",
-             library_ms=None, **kern["k1_bf16"], fp32=kern["k1_fp32"]),
+             render_launches=render_launches["fused_sdf_hidden"],
+             reference_launches=ref_launches["fused_sdf_hidden"], dtype="float32",
+             design="FMA pipe", library_ms=None, **kern["k1_fp32"]),
         dict(name="fused_sdf_fwd_bwd", route="cuda", source=src,
              replaces="nefii_tpu/ops/pallas/fused_mlp.py:240",
              launches=launches["fused_sdf_fwd_bwd"],

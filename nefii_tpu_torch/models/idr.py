@@ -23,9 +23,14 @@ Differences by design from the JAX pipeline, results unchanged:
     `use_fused_trace` runs the bidirectional trace of the primary and the
     secondary tracer through the K3 kernel. A kernel that fails raises;
     nothing falls back silently.
-  * Training returns the secondary hits of the shaded (hit) rays only, where
-    the JAX pipeline, shading every ray, also returns those traced from the
-    points of rays that missed.
+
+In training the secondary-hit pool of the self-distillation step is the JAX
+pipeline's: the shaded rays' secondary hits, and those traced from the points
+of the rays that missed (which the JAX pipeline shades too), in its
+[strategy, ray] order. The pool is built only where it is asked for
+(`secondary_limit` > 0: the trainer's distilling steps), and the missed
+rays' part only for the strategies that hold the first `secondary_limit`
+hits.
 """
 
 from __future__ import annotations
@@ -195,19 +200,27 @@ class IDRNetwork(nn.Module):
     def forward_with_uv(self, inputs: Dict[str, torch.Tensor], gen: torch.Generator, *,
                         training: bool = False, freeze_geo: bool = False,
                         fake_roughness: bool = False, fake_specular: bool = False,
-                        steps01: Optional[torch.Tensor] = None):
+                        steps01: Optional[torch.Tensor] = None,
+                        secondary_limit: int = 0):
         """Render the rays of `inputs` (uv [B,S,2] or multi-ray [B,S,R,2],
         pose, intrinsics, object_mask). Without `training` no graph is kept.
-        `steps01` injects the tracer's min-SDF step vector (training)."""
+        `steps01` injects the tracer's min-SDF step vector (training).
+
+        With `training` and `secondary_limit` > 0 the output holds the
+        secondary-hit pool [S', N] (`secondary_points`, `secondary_mask`,
+        `secondary_dir`) of the first S' strategies, equal to the JAX
+        pipeline's: S' is the fewest strategies whose hits reach the limit, or
+        every strategy (a limit of S * N or more gives the whole pool)."""
         if training and not freeze_geo:
             raise NotImplementedError(
                 "training with unfrozen geometry is not ported (ROADMAP.md queue 1, item 1): "
                 "pass --freeze_geometry")
         with torch.set_grad_enabled(training and torch.is_grad_enabled()):
             return self._forward_with_uv(inputs, gen, training, fake_roughness, fake_specular,
-                                         steps01)
+                                         steps01, secondary_limit)
 
-    def _forward_with_uv(self, inputs, gen, training, fake_roughness, fake_specular, steps01):
+    def _forward_with_uv(self, inputs, gen, training, fake_roughness, fake_specular, steps01,
+                         secondary_limit):
         intrinsics, uv, pose = inputs["intrinsics"], inputs["uv"], inputs["pose"]
         object_mask = inputs["object_mask"].reshape(-1)
         multi_ray = uv.dim() == 4
@@ -279,15 +292,13 @@ class IDRNetwork(nn.Module):
         if training:
             output["sdf_output"] = sdf_output
             output["grad_theta"] = None
-            # secondary hits [S_strategies, N, ...] of the shaded rays; the
-            # rays that were not shaded have no secondary hit
-            n_strat = ret["secondary_mask"].shape[0]
-            for k, fill in (("secondary_points", 0.0), ("secondary_mask", False),
-                            ("secondary_dir", 0.0)):
-                v = ret[k]
-                out = torch.full((n_strat, N) + v.shape[2:], fill, dtype=v.dtype, device=v.device)
-                out[:, sel] = v
-                output[k] = out
+            if secondary_limit > 0:
+                with torch.no_grad(), record_function("secondary_pool"):
+                    pool, n_evals = self._secondary_pool(
+                        ret, sel, points, view_dirs, gen, sdf_fn, sfg_fn, secondary_limit,
+                        fake_roughness=fake_roughness, fake_specular=fake_specular)
+                output.update(pool)
+                output["n_sdf_evals"] = output["n_sdf_evals"] + n_evals
         if multi_ray:
             BS = batch_size * S
             keys = ["idr_rgb_values", "sg_rgb_values", "network_object_mask", "object_mask",
@@ -302,6 +313,68 @@ class IDRNetwork(nn.Module):
         return output
 
     forward = forward_with_uv
+
+    # ------------------------------------------------------------------
+    def _secondary_pool(self, ret, sel, points, view_dirs, gen, sdf_fn, sfg_fn, limit, *,
+                        fake_roughness, fake_specular):
+        """The secondary hits of every ray, [S', N, ...] in the JAX pipeline's
+        [strategy, ray] order, and the SDF evaluations it ran: the shaded
+        rays' from their shading (`ret`); for the rays that missed, what the
+        JAX pipeline runs to get theirs -- sdf, feature and normal at their
+        points, the material net's roughness where the brdf strategy needs
+        it, each strategy's directions and the secondary trace -- strategy by
+        strategy until the hits reach `limit`. They need no visibility or
+        indirect radiance: their colours are defaults. The hit counts stay on
+        the device: one read a strategy decides whether to go on."""
+        N = points.shape[0]
+        S = ret["secondary_mask"].shape[0]
+        pool = {}
+        for k, fill in (("secondary_points", 0.0), ("secondary_mask", False),
+                        ("secondary_dir", 0.0)):
+            v = ret[k]
+            pool[k] = torch.full((S, N) + v.shape[2:], fill, dtype=v.dtype, device=v.device)
+            pool[k][:, sel] = v
+        miss = torch.ones(N, dtype=torch.bool, device=points.device)
+        miss[sel] = False
+        miss = miss.nonzero()[:, 0]
+        hits = pool["secondary_mask"].reshape(S, N).sum(1)
+        n_evals = 0
+        if miss.numel():
+            pts = points[miss].detach()
+            feats, normals, view = self._surface(pts, view_dirs[miss], sfg_fn)
+            n_evals += pts.shape[0]
+            em = self.envmap_material_network
+            lgt, rough = em.get_lgtSGs(), None
+            trace = self.scene_fns(sdf_fn, sfg_fn).trace
+            for s, name in enumerate(PT_RENDER_TYPES[self.render_type]["strategies"]):
+                if s > 0 and int(hits[:s].sum()) >= limit:
+                    break
+                if name == "brdf" and rough is None:
+                    rough = em(pts, feats, normals, fake_roughness=fake_roughness,
+                               fake_specular=fake_specular)["sg_roughness"]
+                    rough = rough.expand(pts.shape[0], 1) if rough.shape[0] == 1 else rough
+                wi, _ = ptr.sample_direction(name, gen, normals, view, rough, lgt)
+                lp, hm, ne = trace(pts, wi)
+                n_evals += ne
+                pool["secondary_points"][s, miss] = lp
+                pool["secondary_mask"][s, miss, 0] = hm
+                pool["secondary_dir"][s, miss] = wi
+                hits[s] += hm.sum()
+        # the strategies before the one whose hits reach the limit, and that one
+        keep = min(S, int((hits.cumsum(0) < limit).sum()) + 1)
+        return {k: v[:keep] for k, v in pool.items()}, n_evals
+
+    def _surface(self, points, view_dirs, sfg_fn):
+        """-> (feature, unit normal, unit view direction) at surface points
+        [M,3]: the implicit net's values (K2 or the plain sdf_feature_grad)."""
+        _, feature_vectors, g = sfg_fn(points)
+        if self.feature_vector_size == 0:
+            feature_vectors = None
+        normals = g / (safe_norm(g) + 1e-6)
+        view_dirs = view_dirs / (safe_norm(view_dirs) + 1e-6)
+        if self.correct_normal:
+            normals = self.envmap_material_network.apply_correct_normal(normals, points)
+        return feature_vectors, normals, view_dirs
 
     # ------------------------------------------------------------------
     def forward_with_point(self, inputs: Dict[str, torch.Tensor], gen: torch.Generator, *,
@@ -327,15 +400,8 @@ class IDRNetwork(nn.Module):
         """Shading of surface points [M,3] seen along view_dirs [M,3]. The
         implicit net's sdf, feature and normal are values (K2 or the plain
         sdf_feature_grad); the radiance and material nets keep their graph."""
-        _, feature_vectors, g = sfg_fn(points)
-        if self.feature_vector_size == 0:
-            feature_vectors = None
-        normals = g / (safe_norm(g) + 1e-6)
-        view_dirs = view_dirs / (safe_norm(view_dirs) + 1e-6)
+        feature_vectors, normals, view_dirs = self._surface(points, view_dirs, sfg_fn)
         em = self.envmap_material_network
-        if self.correct_normal:
-            normals = em.apply_correct_normal(normals, points)
-
         idr_rgb = self.rendering_network(points, normals, view_dirs, feature_vectors)
         mat = em(points, feature_vectors, normals, fake_roughness=fake_roughness,
                  fake_specular=fake_specular)

@@ -3,68 +3,72 @@
 //
 // Replaces the two Pallas TPU kernels of nefii_tpu/ops/pallas/fused_mlp.py:
 //
-//   nefii_sdf_hidden  <- _kernel (fused_mlp.py:136), reached through
-//       build_fused_hidden / build_fused_sdf. The value-only hidden chain of
-//       the SDF MLP: per layer z = h W + b (the skip layer adds x Wx, the
-//       concat(h, x)/sqrt(2) folded into split weights), h = softplus(100 z)/100.
-//       fp32, or bf16 storage with fp32 accumulation and h rounded to bf16
-//       after every layer, exactly as the TPU kernel does.
-//   nefii_sdf_fwd_bwd <- _kernel_fwd_bwd (fused_mlp.py:240), reached through
-//       build_fused_sdf_feature_grad. The same forward, storing every
-//       pre-activation z, then the input-space backward seeded by the sdf
-//       column of the last linear: g_z = g_h sigmoid(100 z), g_h = g_z W^T,
-//       the skip layer's x part into its own accumulator. fp32 only.
+//   _kernel (fused_mlp.py:136), reached through build_fused_hidden /
+//   build_fused_sdf: the value-only hidden chain of the SDF MLP, per layer
+//   z = h W + b (the skip layer adds x Wx, the concat(h, x)/sqrt(2) folded
+//   into split weights), h = softplus(100 z)/100. Three entries:
+//     nefii_sdf_hidden     fp32, on the FMA pipe (the layer loop of
+//                          sdf_mlp.cuh, shared with K3);
+//     nefii_sdf_hidden_tc  bf16 operands, fp32 accumulation, h rounded to
+//                          bf16 after every layer, on the tensor cores
+//                          (sdf_mlp_tc.cuh: wgmma, bulk-copy weight ring);
+//     nefii_sdf_value      the same tensor-core kernel with an sdf epilogue:
+//                          sdf = h . w_last[:, 0] + b_last[0] in fp32, so the
+//                          [N, 512] hidden state never reaches memory.
+//   _kernel_fwd_bwd (fused_mlp.py:240), reached through
+//   build_fused_sdf_feature_grad: nefii_sdf_fwd_bwd, the same forward in
+//   fp32, storing every pre-activation z, then the input-space backward
+//   seeded by the sdf column of the last linear: g_z = g_h sigmoid(100 z),
+//   g_h = g_z W^T, the skip layer's x part into its own accumulator.
 //
-// What bounds it on this card. The 8x512 chain is ~3.7 MFLOP per point
-// against ~160 B of input and 1-2 KB of output, so it is compute-bound; the
-// TPU kernel kept all ~7.5 MB of fp32 weights in VMEM, which an SM (227 KB of
-// shared memory) cannot. The design therefore keeps only the block's
-// activation tile on chip -- 32 rows x 512 features in fp32, 64 KB of shared
-// memory -- and streams each layer's weights through L2 (they fit in its
-// 50 MB many times over) and L1, where the four row groups of a block share
-// them. Every thread owns an 8x8 output tile and runs the matmul as fp32 FMAs
-// (64 FMAs per 16 bytes of weights and 32 bytes of broadcast activations
-// read), so the kernel is bound by the FP32 pipe, not by memory. The bf16
-// variant converts on load and uses the same FMA path: correct first; the
-// tensor-core (wgmma) version is later work. K2's pre-activations (16 KB per
-// row) cannot stay on chip either: each block writes them to its own slot of
-// a scratch buffer sized by the blocks in flight, not by N (the grid is
-// persistent and walks the row tiles).
+// What bounds the fp32 kernels on this card. The 8x512 chain is ~3.7 MFLOP
+// per point against ~160 B of input and 1-2 KB of output, so it is
+// compute-bound; the TPU kernel kept all ~7.5 MB of fp32 weights in VMEM,
+// which an SM (227 KB of shared memory) cannot. The design therefore keeps
+// only the block's activation tile on chip -- 32 rows x 512 features in fp32,
+// 64 KB of shared memory -- and streams each layer's weights through L2
+// (they fit in its 50 MB many times over) and L1, where the four row groups
+// of a block share them. Every thread owns an 8x8 output tile and runs the
+// matmul as fp32 FMAs (64 FMAs per 16 bytes of weights and 32 bytes of
+// broadcast activations read), so the kernel is bound by the FP32 pipe, not
+// by memory: their JAX counterparts are fp32, and TF32 tensor cores would
+// change the numerics. K2's pre-activations (16 KB per row) cannot stay on
+// chip either: each block writes them to its own slot of a scratch buffer
+// sized by the blocks in flight, not by N (the grid is persistent and walks
+// the row tiles). The bf16 design and its bound are in sdf_mlp_tc.cuh.
 //
-// All matmul work happens here and in sdf_mlp.cuh (the layer loop shared
-// with fused_trace.cu); no library GEMM is called.
+// All matmul work happens here, in sdf_mlp.cuh (the layer loop shared with
+// fused_trace.cu) and in sdf_mlp_tc.cuh; no library GEMM is called.
 
 #include "sdf_mlp.cuh"
+#include "sdf_mlp_tc.cuh"
 
 namespace {
 
 // xs[c][r] = x[base + r][c] (zero past the last row)
-template <typename T>
-__device__ __forceinline__ void load_rows(float* xs, const T* __restrict__ x, int xc,
+__device__ __forceinline__ void load_rows(float* xs, const float* __restrict__ x, int xc,
                                           long long base, long long n_rows) {
   for (int i = threadIdx.x; i < BM * xc; i += THREADS) {
     const int r = i / xc, c = i - r * xc;
     const long long row = base + r;
-    xs[c * BM + r] = row < n_rows ? to_float(x[row * xc + c]) : 0.0f;
+    xs[c * BM + r] = row < n_rows ? x[row * xc + c] : 0.0f;
   }
 }
 
 // out[base + r][c] = act[c][r]
-template <typename T>
-__device__ __forceinline__ void store_rows(T* __restrict__ out, const float* act, long long base,
+__device__ __forceinline__ void store_rows(float* __restrict__ out, const float* act, long long base,
                                            long long n_rows) {
   for (int i = threadIdx.x; i < BM * WIDTH; i += THREADS) {
     const int r = i / WIDTH, c = i - r * WIDTH;
     const long long row = base + r;
-    if (row < n_rows) out[row * WIDTH + c] = from_float<T>(act[c * BM + r]);
+    if (row < n_rows) out[row * WIDTH + c] = act[c * BM + r];
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-sdf_hidden_kernel(const T* __restrict__ x, const T* __restrict__ wbuf,
+sdf_hidden_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
                   const __grid_constant__ Plan plan,
-                  T* __restrict__ out, long long n_rows) {
+                  float* __restrict__ out, long long n_rows) {
   extern __shared__ __align__(16) float smem[];
   float* act = smem;                // [WIDTH][BM]
   float* xs = smem + WIDTH * BM;    // [x_cols][BM]
@@ -76,7 +80,7 @@ sdf_hidden_kernel(const T* __restrict__ x, const T* __restrict__ wbuf,
     load_rows(xs, x, plan.x_cols, base, n_rows);
     __syncthreads();
     for (int l = 0; l < plan.n; ++l)
-      forward_layer<T>(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, nullptr, col0, row0);
+      forward_layer(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, nullptr, col0, row0);
     store_rows(out, act, base, n_rows);
     __syncthreads();
   }
@@ -104,7 +108,7 @@ sdf_fwd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
 
     // ---- forward, storing the pre-activations -------------------------
     for (int l = 0; l < plan.n; ++l)
-      forward_layer<float>(plan.l[l], l == 0 ? xs : act, xs, act, wbuf,
+      forward_layer(plan.l[l], l == 0 ? xs : act, xs, act, wbuf,
                            zs + (long long)l * BM * WIDTH, col0, row0);
     store_rows(h_out, act, base, n_rows);
     __syncthreads();
@@ -129,14 +133,14 @@ sdf_fwd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
       float acc[TM][TN];
       if (L.k_x > 0 && col0 < L.k_x) {
         zero(acc);
-        gemm_acc<float>(acc, act, WIDTH, wbuf + L.wxt, L.k_x, col0, row0);
+        gemm_acc(acc, act, WIDTH, wbuf + L.wxt, L.k_x, col0, row0);
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
           for (int j = 0; j < TN; ++j) gx[(col0 + j) * BM + row0 + i] += acc[i][j];
       }
       zero(acc);
-      if (col0 < L.k_h) gemm_acc<float>(acc, act, WIDTH, wbuf + L.wt, L.k_h, col0, row0);
+      if (col0 < L.k_h) gemm_acc(acc, act, WIDTH, wbuf + L.wt, L.k_h, col0, row0);
       __syncthreads();  // every thread has finished reading g_z
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -154,6 +158,24 @@ sdf_fwd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
   }
 }
 
+template <bool SDF>
+int launch_tc(const void* x, const void* tc, const void* wbuf, const long long* desc,
+              int n_layers, int x_cols, const void* wlast, float b_last, void* out_h,
+              void* out_sdf, long long n_rows, int grid, void* stream) {
+  Plan plan;
+  if (!make_plan(desc, n_layers, x_cols, false, &plan) || x_cols > TC_BK || grid <= 0 ||
+      n_rows <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(sdf_tc_kernel<SDF>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  sdf_tc_kernel<SDF><<<grid, TC_THREADS, TC_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(tc),
+      static_cast<const __nv_bfloat16*>(wbuf), plan, static_cast<const float*>(wlast), b_last,
+      static_cast<__nv_bfloat16*>(out_h), static_cast<float*>(out_sdf), n_rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -162,40 +184,47 @@ const char* nefii_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int nefii_fused_mlp_config(int* width, int* block_rows, int* threads) {
+int nefii_fused_mlp_config(int* width, int* block_rows, int* threads, int* tc_block_rows,
+                           int* tc_threads) {
   *width = WIDTH;
   *block_rows = BM;
   *threads = THREADS;
+  *tc_block_rows = TC_BM;
+  *tc_threads = TC_THREADS;
   return 0;
 }
 
-// out[n_rows][WIDTH] = hidden chain of x[n_rows][x_cols]; bf16 != 0 selects
-// bf16 storage (x, weights, out) with fp32 accumulation.
+// out[n_rows][WIDTH] = hidden chain of x[n_rows][x_cols], fp32 (FMA pipe).
 int nefii_sdf_hidden(const void* x, const void* wbuf, const long long* desc, int n_layers,
-                     int x_cols, void* out, long long n_rows, int grid, int bf16,
-                     void* stream) {
+                     int x_cols, void* out, long long n_rows, int grid, void* stream) {
   Plan plan;
   if (!make_plan(desc, n_layers, x_cols, false, &plan) || grid <= 0 || n_rows <= 0)
     return (int)cudaErrorInvalidValue;
   const int smem = (WIDTH + x_cols) * BM * (int)sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (bf16) {
-    e = cudaFuncSetAttribute(sdf_hidden_kernel<__nv_bfloat16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    sdf_hidden_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wbuf), plan,
-        static_cast<__nv_bfloat16*>(out), n_rows);
-  } else {
-    e = cudaFuncSetAttribute(sdf_hidden_kernel<float>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    sdf_hidden_kernel<float><<<grid, THREADS, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wbuf), plan,
-        static_cast<float*>(out), n_rows);
-  }
+  cudaError_t e = cudaFuncSetAttribute(sdf_hidden_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  sdf_hidden_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wbuf), plan,
+      static_cast<float*>(out), n_rows);
   return (int)cudaGetLastError();
+}
+
+// out[n_rows][WIDTH] bf16 = hidden chain of x[n_rows][x_cols] bf16 on the
+// tensor cores; tc holds the packed weight chunks, wbuf the biases.
+int nefii_sdf_hidden_tc(const void* x, const void* tc, const void* wbuf, const long long* desc,
+                        int n_layers, int x_cols, void* out, long long n_rows, int grid,
+                        void* stream) {
+  return launch_tc<false>(x, tc, wbuf, desc, n_layers, x_cols, nullptr, 0.0f, out, nullptr,
+                          n_rows, grid, stream);
+}
+
+// sdf[n_rows] fp32 = (hidden chain of x) . wlast + b_last, the same kernel.
+int nefii_sdf_value(const void* x, const void* tc, const void* wbuf, const long long* desc,
+                    int n_layers, int x_cols, const void* wlast, float b_last, void* sdf,
+                    long long n_rows, int grid, void* stream) {
+  return launch_tc<true>(x, tc, wbuf, desc, n_layers, x_cols, wlast, b_last, nullptr, sdf,
+                         n_rows, grid, stream);
 }
 
 // h_out[n_rows][WIDTH] (last hidden state) and dx_out[n_rows][x_cols]

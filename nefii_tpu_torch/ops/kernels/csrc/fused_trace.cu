@@ -89,7 +89,7 @@ __device__ void sdf_tile(TileState& st, const float* __restrict__ wbuf, const Pl
   embed_tile(st, cfg, xs, plan.x_cols);
   __syncthreads();
   for (int l = 0; l < plan.n; ++l)
-    forward_layer<float>(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, nullptr, col0, row0);
+    forward_layer(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, nullptr, col0, row0);
   // sdf column: warp w sums features [w COLS_PER_WARP, (w+1) COLS_PER_WARP)
   // for row = lane, then one thread per row adds the warps in order
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;

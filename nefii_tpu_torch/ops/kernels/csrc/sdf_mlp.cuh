@@ -10,7 +10,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,20 +38,6 @@ struct Plan {
   Layer l[MAX_LAYERS];
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// the working type's rounding of an activation (identity in fp32)
-template <typename T> __device__ __forceinline__ float round_work(float v) {
-  return to_float(from_float<T>(v));
-}
-
 // eight consecutive values starting at a 16-byte aligned address
 __device__ __forceinline__ void load8(const float* p, float v[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
@@ -60,17 +45,6 @@ __device__ __forceinline__ void load8(const float* p, float v[8]) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
 // softplus(100 z)/100 in the stable form max(t,0) + log1p(exp(-|t|))
 __device__ __forceinline__ float softplus100(float z) {
   const float t = 100.0f * z;
@@ -87,9 +61,8 @@ __device__ __forceinline__ float sigmoid100(float z) {
 
 // acc[i][j] += sum_k aT[k][row0 + i] * B[k][col0 + j]
 // aT: shared memory, feature-major [K][BM]; B: global, row-major [K][ldb].
-template <typename T>
 __device__ __forceinline__ void gemm_acc(float (&acc)[TM][TN], const float* __restrict__ aT,
-                                         int K, const T* __restrict__ B, int ldb, int col0,
+                                         int K, const float* __restrict__ B, int ldb, int col0,
                                          int row0) {
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
@@ -115,14 +88,13 @@ __device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
 // One layer of the forward chain for the block's tile. Reads `in` (feature-
 // major, k_h rows) and xs, writes softplus(z) into act, and z into z_out
 // ([BM][WIDTH], row-major) when given.
-template <typename T>
 __device__ __forceinline__ void forward_layer(const Layer& L, const float* in, const float* xs,
-                                              float* act, const T* __restrict__ wbuf,
+                                              float* act, const float* __restrict__ wbuf,
                                               float* z_out, int col0, int row0) {
   float acc[TM][TN];
   zero(acc);
-  gemm_acc<T>(acc, in, L.k_h, wbuf + L.w, WIDTH, col0, row0);
-  if (L.k_x > 0) gemm_acc<T>(acc, xs, L.k_x, wbuf + L.wx, WIDTH, col0, row0);
+  gemm_acc(acc, in, L.k_h, wbuf + L.w, WIDTH, col0, row0);
+  if (L.k_x > 0) gemm_acc(acc, xs, L.k_x, wbuf + L.wx, WIDTH, col0, row0);
   float bias[TN];
   load8(wbuf + L.b + col0, bias);
   __syncthreads();  // every thread has finished reading `in` (it may be act)
@@ -132,7 +104,7 @@ __device__ __forceinline__ void forward_layer(const Layer& L, const float* in, c
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       z[j] = acc[i][j] + bias[j];
-      act[(col0 + j) * BM + row0 + i] = round_work<T>(softplus100(z[j]));
+      act[(col0 + j) * BM + row0 + i] = softplus100(z[j]);
     }
     if (z_out != nullptr) {
       float4* zp = reinterpret_cast<float4*>(z_out + (row0 + i) * WIDTH + col0);

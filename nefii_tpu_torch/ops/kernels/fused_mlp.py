@@ -1,12 +1,17 @@
 """Fused SDF-MLP kernels: CUDA wrappers and their plain PyTorch versions
 (counterpart of nefii_tpu/ops/pallas/fused_mlp.py).
 
-Two kernels, both in `csrc/fused_mlp.cu` (built by `build.py`, bound with
+The kernels are in `csrc/fused_mlp.cu` (built by `build.py`, bound with
 ctypes):
 
-  * `fused_hidden` (K1) replaces the Pallas `_kernel`: the value-only hidden
-    chain of the SDF MLP, fp32 or bf16 storage with fp32 accumulation. It
-    answers every SDF query of the tracers (`build_fused_sdf`).
+  * K1 replaces the Pallas `_kernel`: the value-only hidden chain of the SDF
+    MLP, which answers every SDF query of the tracers (`build_fused_sdf`).
+    In fp32 it runs on the FMA pipe (`fused_hidden`). In bf16 (bf16
+    operands, fp32 accumulation, h rounded to bf16 after every layer) it runs
+    on the tensor cores (`csrc/sdf_mlp_tc.cuh`), with two entries:
+    `fused_hidden` returns h, and `fused_sdf_value` reduces h against the
+    sdf column of the final linear in the kernel and returns sdf [N], which
+    `build_fused_sdf` uses for CUDA tensors.
   * `fused_fwd_bwd` (K2) replaces the Pallas `_kernel_fwd_bwd`: the forward
     plus the input-space backward of the sdf column, fp32. It gives sdf,
     feature and normal at every shading point and secondary hit
@@ -14,8 +19,10 @@ ctypes):
 
 `prepare_weights` resolves weight norm, pads and folds the skip layer's
 1/sqrt(2) into split weights once per call, into one packed buffer that the
-kernels and the plain versions share. The final linear and the positional
-encoding's backward stay outside the kernels, as in the JAX package.
+kernels and the plain versions share; in bf16 it also packs the tensor-core
+kernel's weight chunks (`pack_tc`). The final linear (outside
+`fused_sdf_value`) and the positional encoding's backward stay outside the
+kernels, as in the JAX package.
 
 A wrapper given a CUDA tensor launches its kernel or raises; the plain
 version (`*_plain`) runs only for tensors on the CPU, and it is what the
@@ -34,11 +41,15 @@ import torch
 import torch.nn.functional as F
 
 # launches of each CUDA kernel; a wrapper adds one where it launches, nowhere else
-LAUNCHES: Dict[str, int] = {"fused_sdf_hidden": 0, "fused_sdf_fwd_bwd": 0}
+LAUNCHES: Dict[str, int] = {"fused_sdf_hidden": 0, "fused_sdf_hidden_tc": 0,
+                            "fused_sdf_value": 0, "fused_sdf_fwd_bwd": 0}
 
 KERNEL_WIDTH = 512    # hidden width the CUDA kernels take (WIDTH in csrc/fused_mlp.cu)
-BLOCK_ROWS = 32       # rows per block tile (BM)
-BLOCKS_PER_SM = 2     # resident blocks per SM: the grid is persistent
+# rows per block tile and resident blocks per SM of each design; the grids are
+# persistent (csrc: BM and THREADS' launch bounds, TC_BM and TC_THREADS')
+FMA_BLOCK_ROWS, FMA_BLOCKS_PER_SM = 32, 2
+TC_BLOCK_ROWS, TC_BLOCKS_PER_SM = 64, 1
+TC_K = 64             # input rows of one tensor-core weight chunk (TC_BK)
 
 
 def reset_launch_counts() -> None:
@@ -72,9 +83,11 @@ class FusedWeights:
     w_last: torch.Tensor     # [real_width, d_out (+F)] fp32, the final linear
     b_last: torch.Tensor
     wlast_col: torch.Tensor  # [width] fp32: sdf column of w_last, zero padded
+    b_sdf: float             # b_last[0], read once
     multires: int
     d_in: int
     embed_fn: object
+    tc: Optional[torch.Tensor] = None  # bf16: the tensor-core kernel's weight chunks
 
     @property
     def dtype(self) -> torch.dtype:
@@ -109,6 +122,7 @@ def prepare_weights(network, dtype: torch.dtype = torch.float32) -> FusedWeights
 
     desc: List[int] = []
     shapes = []
+    tc_parts: List[torch.Tensor] = []
     for l, w in enumerate(ws):
         in_dim, out_dim = w.shape
         w = F.pad(w, (0, width - out_dim))
@@ -130,6 +144,8 @@ def prepare_weights(network, dtype: torch.dtype = torch.float32) -> FusedWeights
         o_wxt = put(wb.t().contiguous()) if wb is not None else -1
         desc += [o_w, o_wx, o_b, o_wt, o_wxt, k_h, k_x]
         shapes.append((o_w, o_wx, o_b, k_h, k_x))
+        if dtype == torch.bfloat16:
+            tc_parts += [pack_tc(wa)] + ([pack_tc(wb)] if wb is not None else [])
     buf = torch.cat(blocks).to(dtype).contiguous()
 
     layers = []
@@ -144,12 +160,35 @@ def prepare_weights(network, dtype: torch.dtype = torch.float32) -> FusedWeights
     w_last = last.effective_weight().t().float().contiguous()
     real_width = dims[-2]
     wlast_col = F.pad(w_last[:, 0], (0, width - real_width)).contiguous()
+    b_last = last.b.detach().float()
     return FusedWeights(
         buf=buf, desc=desc, layers=layers, width=width, x_cols=x_cols, emb_dim=d_emb,
-        real_width=real_width, w_last=w_last, b_last=last.b.detach().float(),
-        wlast_col=wlast_col, multires=network.multires, d_in=network.d_in,
+        real_width=real_width, w_last=w_last, b_last=b_last, wlast_col=wlast_col,
+        b_sdf=float(b_last[0]), multires=network.multires, d_in=network.d_in,
         embed_fn=embed_fn,
+        tc=torch.cat(tc_parts).to(dtype).contiguous() if dtype == torch.bfloat16 else None,
     )
+
+
+def _swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """[..., rows, 64] -> the same values in the 128-byte swizzled layout of
+    Hopper's TMA and wgmma: in row r, the 8-element group g is stored at
+    group g ^ (r % 8)."""
+    r = torch.arange(t.shape[-2], device=t.device)[:, None]
+    col = torch.arange(TC_K, device=t.device)[None, :]
+    return torch.gather(t, -1, (((col // 8) ^ (r % 8)) * 8 + col % 8).expand(t.shape))
+
+
+def pack_tc(w: torch.Tensor) -> torch.Tensor:
+    """One weight block [k, width] (input x output) -> the tensor-core
+    kernel's chunks, flat: the input dimension zero padded to a multiple of
+    TC_K and cut into chunks of TC_K, each chunk [width][TC_K] K-major (the
+    transposed block) and 128-byte swizzled, so one contiguous bulk copy
+    lands it in shared memory as the wgmma B descriptor reads it."""
+    k, width = w.shape
+    n = -(-k // TC_K)
+    wt = F.pad(w, (0, 0, 0, n * TC_K - k)).t().reshape(width, n, TC_K).permute(1, 0, 2)
+    return _swizzle128(wt.contiguous()).reshape(-1)
 
 
 def embed_padded(pts: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
@@ -181,6 +220,13 @@ def fused_hidden_plain(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
         if fw.dtype != torch.float32:
             h = h.to(fw.dtype).float()
     return h.to(fw.dtype)
+
+
+def fused_sdf_value_plain(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
+    """K1 with the sdf column of the final linear, in plain PyTorch: the
+    hidden chain, then h[:, :real_width] . w_last[:, 0] + b_last[0] in fp32."""
+    h = fused_hidden_plain(x, fw)[:, :fw.real_width].float()
+    return (h @ fw.w_last[:, :1])[:, 0] + fw.b_last[0]
 
 
 def fused_fwd_bwd_plain(x: torch.Tensor, fw: FusedWeights):
@@ -217,29 +263,34 @@ def _lib() -> ctypes.CDLL:
 
     lib = build.load("fused_mlp")
     if not getattr(lib, "_nefii_typed", False):
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         pll = ctypes.POINTER(ctypes.c_longlong)
-        lib.nefii_sdf_hidden.argtypes = [vp, vp, pll, i, i, vp, ll, i, i, vp]
-        lib.nefii_sdf_hidden.restype = i
+        lib.nefii_sdf_hidden.argtypes = [vp, vp, pll, i, i, vp, ll, i, vp]
+        lib.nefii_sdf_hidden_tc.argtypes = [vp, vp, vp, pll, i, i, vp, ll, i, vp]
+        lib.nefii_sdf_value.argtypes = [vp, vp, vp, pll, i, i, vp, f, vp, ll, i, vp]
         lib.nefii_sdf_fwd_bwd.argtypes = [vp, vp, pll, i, i, vp, vp, vp, vp, ll, i, vp]
-        lib.nefii_sdf_fwd_bwd.restype = i
+        for fn in (lib.nefii_sdf_hidden, lib.nefii_sdf_hidden_tc, lib.nefii_sdf_value,
+                   lib.nefii_sdf_fwd_bwd):
+            fn.restype = i
         lib.nefii_error_string.argtypes = [i]
         lib.nefii_error_string.restype = ctypes.c_char_p
-        lib.nefii_fused_mlp_config.argtypes = [ctypes.POINTER(i)] * 3
-        width, rows, threads = i(), i(), i()
-        lib.nefii_fused_mlp_config(ctypes.byref(width), ctypes.byref(rows), ctypes.byref(threads))
-        if (width.value, rows.value) != (KERNEL_WIDTH, BLOCK_ROWS):
-            raise RuntimeError(f"fused_mlp library takes width {width.value}, rows "
-                               f"{rows.value}; the wrapper expects {KERNEL_WIDTH}, {BLOCK_ROWS}")
+        lib.nefii_fused_mlp_config.argtypes = [ctypes.POINTER(i)] * 5
+        cfg = [i() for _ in range(5)]
+        lib.nefii_fused_mlp_config(*(ctypes.byref(c) for c in cfg))
+        width, rows, _, tc_rows, _ = (c.value for c in cfg)
+        if (width, rows, tc_rows) != (KERNEL_WIDTH, FMA_BLOCK_ROWS, TC_BLOCK_ROWS):
+            raise RuntimeError(f"fused_mlp library takes width {width}, rows {rows} (FMA) and "
+                               f"{tc_rows} (tensor cores); the wrapper expects {KERNEL_WIDTH}, "
+                               f"{FMA_BLOCK_ROWS}, {TC_BLOCK_ROWS}")
         lib._nefii_typed = True
     return lib
 
 
-def _grid(n_rows: int, device: torch.device) -> int:
+def _grid(n_rows: int, device: torch.device, rows: int, per_sm: int) -> int:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _SM_COUNT:
         _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return max(1, min(-(-n_rows // BLOCK_ROWS), _SM_COUNT[idx] * BLOCKS_PER_SM))
+    return max(1, min(-(-n_rows // rows), _SM_COUNT[idx] * per_sm))
 
 
 def _check_cuda(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
@@ -260,6 +311,24 @@ def _check_cuda(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
         raise ValueError(f"{name}: input and weights must be 16-byte aligned")
 
 
+def _check_tc(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
+    """What the tensor-core kernel takes beyond _check_cuda: bf16, an
+    embedding of at most one chunk, and its packed chunks on the device,
+    whole, contiguous and 16-byte aligned (the bulk copies' alignment)."""
+    _check_cuda(x, fw, name)
+    if fw.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the tensor-core kernel is bf16 only, weights are {fw.dtype}")
+    if fw.x_cols > TC_K:
+        raise ValueError(f"{name}: the tensor-core kernel takes at most {TC_K} embedding "
+                         f"columns, this network has {fw.x_cols}")
+    n_chunks = sum(-(-L.k_h // TC_K) + -(-L.k_x // TC_K) for L in fw.layers)
+    tc = fw.tc
+    if tc is None or tc.device != x.device or tc.numel() != n_chunks * fw.width * TC_K:
+        raise ValueError(f"{name}: the packed tensor-core weights are missing or do not match")
+    if not tc.is_contiguous() or tc.data_ptr() % 16:
+        raise ValueError(f"{name}: the packed weights must be contiguous and 16-byte aligned")
+
+
 def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:
     if err != 0:
         msg = lib.nefii_error_string(err).decode()
@@ -268,24 +337,57 @@ def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:
 
 def fused_hidden(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     """K1: embedded points [N, x_cols] -> last hidden state [N, width], both in
-    the working dtype (fp32 or bf16)."""
+    the working dtype: fp32 on the FMA pipe, bf16 on the tensor cores."""
     if x.device.type == "cpu":
         return fused_hidden_plain(x, fw)
-    _check_cuda(x, fw, "fused_hidden")
-    if fw.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"fused_hidden: dtype {fw.dtype} is not supported")
+    if fw.dtype == torch.bfloat16:
+        _check_tc(x, fw, "fused_hidden")
+    else:
+        _check_cuda(x, fw, "fused_hidden")
+        if fw.dtype != torch.float32:
+            raise ValueError(f"fused_hidden: dtype {fw.dtype} is not supported")
     n = x.shape[0]
     out = torch.empty(n, fw.width, dtype=fw.dtype, device=x.device)
     if n == 0:
         return out
     lib = _lib()
     desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
-    err = lib.nefii_sdf_hidden(
-        x.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, out.data_ptr(),
-        n, _grid(n, x.device), int(fw.dtype == torch.bfloat16),
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if fw.dtype == torch.bfloat16:
+        err = lib.nefii_sdf_hidden_tc(
+            x.data_ptr(), fw.tc.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols,
+            out.data_ptr(), n, _grid(n, x.device, TC_BLOCK_ROWS, TC_BLOCKS_PER_SM), stream)
+        _raise_on(err, "fused_hidden", lib)
+        LAUNCHES["fused_sdf_hidden_tc"] += 1
+    else:
+        err = lib.nefii_sdf_hidden(
+            x.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, out.data_ptr(),
+            n, _grid(n, x.device, FMA_BLOCK_ROWS, FMA_BLOCKS_PER_SM), stream)
+        _raise_on(err, "fused_hidden", lib)
+        LAUNCHES["fused_sdf_hidden"] += 1
+    return out
+
+
+def fused_sdf_value(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
+    """K1 with the sdf column of the final linear in its epilogue: embedded
+    points [N, x_cols] bf16 -> sdf [N] fp32, on the tensor cores."""
+    if x.device.type == "cpu":
+        return fused_sdf_value_plain(x, fw)
+    _check_tc(x, fw, "fused_sdf_value")
+    n = x.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    wlast = fw.wlast_col.to(x.device).contiguous()
+    lib = _lib()
+    desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
+    err = lib.nefii_sdf_value(
+        x.data_ptr(), fw.tc.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols,
+        wlast.data_ptr(), fw.b_sdf, out.data_ptr(), n,
+        _grid(n, x.device, TC_BLOCK_ROWS, TC_BLOCKS_PER_SM),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "fused_hidden", lib)
-    LAUNCHES["fused_sdf_hidden"] += 1
+    _raise_on(err, "fused_sdf_value", lib)
+    LAUNCHES["fused_sdf_value"] += 1
     return out
 
 
@@ -303,9 +405,9 @@ def fused_fwd_bwd(x: torch.Tensor, fw: FusedWeights):
     if n == 0:
         return h, dx
     lib = _lib()
-    grid = _grid(n, x.device)
+    grid = _grid(n, x.device, FMA_BLOCK_ROWS, FMA_BLOCKS_PER_SM)
     # pre-activation scratch: one slot per resident block, not per row
-    zbuf = torch.empty(grid * len(fw.layers) * BLOCK_ROWS * fw.width,
+    zbuf = torch.empty(grid * len(fw.layers) * FMA_BLOCK_ROWS * fw.width,
                        dtype=torch.float32, device=x.device)
     wlast = fw.wlast_col.to(x.device).contiguous()
     desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
@@ -336,11 +438,16 @@ def pe_backward(dx_emb: torch.Tensor, pts: torch.Tensor, multires: int) -> torch
 
 
 def build_fused_sdf(network, dtype: torch.dtype = torch.float32):
-    """fn(pts [N,3]) -> sdf [N]: K1's hidden chain + the sdf column in fp32."""
+    """fn(pts [N,3]) -> sdf [N]: K1's hidden chain + the sdf column in fp32.
+    In bf16 the column is reduced inside the tensor-core kernel
+    (fused_sdf_value); in fp32 after the FMA kernel."""
     fw = prepare_weights(network, dtype)
 
     def fn(pts: torch.Tensor) -> torch.Tensor:
-        h = fused_hidden(embed_padded(pts, fw), fw)[:, :fw.real_width].float()
+        x = embed_padded(pts, fw)
+        if dtype == torch.bfloat16:
+            return fused_sdf_value(x, fw)
+        h = fused_hidden(x, fw)[:, :fw.real_width].float()
         return (h @ fw.w_last[:, :1])[:, 0] + fw.b_last[0]
 
     return fn

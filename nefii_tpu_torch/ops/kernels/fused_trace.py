@@ -181,7 +181,7 @@ def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, t
     err = lib.nefii_sphere_trace(
         cam.data_ptr(), dirs.data_ptr(), mask_intersect.data_ptr(), near.data_ptr(),
         far.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, wlast.data_ptr(),
-        float(fw.b_last[0]), float(tracer.sdf_threshold), 1.0 - float(tracer.line_search_step),
+        fw.b_sdf, float(tracer.sdf_threshold), 1.0 - float(tracer.line_search_step),
         int(tracer.line_step_iters), int(tracer.sphere_tracing_iters), int(fw.multires),
         acc_s.data_ptr(), acc_e.data_ptr(), unf.data_ptr(), counter.data_ptr(), n,
         torch.cuda.current_stream(cam.device).cuda_stream)

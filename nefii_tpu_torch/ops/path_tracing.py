@@ -92,6 +92,17 @@ _PDF_FNS = {
 }
 
 
+def sample_direction(name: str, gen: torch.Generator, normal, viewdirs, roughness, lgtSGs):
+    """One strategy's Monte-Carlo direction and pdf at every point: "cos"
+    (normal), "brdf" (GGX: normal, view, roughness) or "mix_sg" (the SG
+    light). The inputs are values; so are the outputs."""
+    if name == "cos":
+        return sampling.cos_sampling(gen, normal)
+    if name == "brdf":
+        return sampling.brdf_sampling(gen, normal, roughness, viewdirs)
+    return sampling.mix_sg_sampling_shared(gen, normal, lgtSGs)
+
+
 def pt_render_core(
     gen: torch.Generator,
     lgtSGs: torch.Tensor,                 # [M,7]
@@ -129,12 +140,8 @@ def pt_render_core(
             # strategy's canonical pdf for them, as its sampler would return
             wi = torch.as_tensor(wi_override[i], dtype=normal.dtype, device=normal.device)
             pdf = _PDF_FNS[name](wi, normal_s, view_s, rough_s, lgt_s)
-        elif name == "cos":
-            wi, pdf = sampling.cos_sampling(gen, normal_s)
-        elif name == "brdf":
-            wi, pdf = sampling.brdf_sampling(gen, normal_s, rough_s, view_s)
         else:
-            wi, pdf = sampling.mix_sg_sampling_shared(gen, normal_s, lgt_s)
+            wi, pdf = sample_direction(name, gen, normal_s, view_s, rough_s, lgt_s)
         wi_list.append(wi.detach())
         pdf_list.append(torch.clamp(pdf.detach(), min=TINY_NUMBER))
 

@@ -48,6 +48,18 @@ def conf_text(path: str, fused_trace: bool) -> str:
     return text
 
 
+def card_name(device: str) -> str:
+    """The card's `name, power.limit` as nvidia-smi prints them, printed on a
+    line of its own ("" on the CPU)."""
+    if device != "cuda":
+        return ""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    return card
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--conf", default="confs/conf.conf")
@@ -56,12 +68,7 @@ def main(argv=None):
                         help="trace through the gathered tracer (K1) instead of K3")
     parser.add_argument("--device", default="cuda")
     opt = parser.parse_args(argv)
-    card = ""
-    if opt.device == "cuda":
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              check=True).stdout.strip().splitlines()[0]
-        print(card, flush=True)
+    card = card_name(opt.device)
 
     text = conf_text(opt.conf, not opt.no_fused_trace)
     with tempfile.TemporaryDirectory() as d:

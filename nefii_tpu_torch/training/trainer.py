@@ -23,7 +23,11 @@ Differences by design:
     writes holds the last finite parameters.
   * The secondary step distils at most `secondary_batch_size` hits and no
     padding (the JAX step pads to a static size and masks the padding out of
-    the loss, which gives the same loss and gradients).
+    the loss, which gives the same loss and gradients). Its pool is the JAX
+    pipeline's, the hits traced from the points of the rays that missed
+    included; the forward builds the pool only on the steps that distil,
+    and the missed rays' part only for the strategies that hold the first
+    `secondary_batch_size` hits (`IDRNetwork.forward_with_uv(secondary_limit=...)`).
   * The mesh export of `vis` is not ported.
 """
 
@@ -112,6 +116,24 @@ class AdamGroup:
             self.opt.load_state_dict(state["adam"])
 
 
+def secondary_batch(out: Dict, k_max: int, num_rays: int):
+    """The batch the secondary step distils: the first `k_max` hits of the
+    pool out["secondary_mask"] [S', N, 1] in its [strategy, ray] order (the
+    JAX trainer's stable argsort), each seen along num_rays copies of its
+    ray. -> ({points, ray_dirs} [K,R,3], K, hits in the pool), or None when
+    the pool has no hit."""
+    mask = out["secondary_mask"].reshape(-1)
+    n_hit = int(mask.sum())
+    if n_hit < 1:
+        return None
+    order = torch.argsort((~mask).to(torch.int8), stable=True)[:min(k_max, n_hit)]
+    R = max(num_rays, 1)
+    K = order.shape[0]
+    batch = {"points": out["secondary_points"].reshape(-1, 3)[order][:, None].expand(K, R, 3),
+             "ray_dirs": out["secondary_dir"].reshape(-1, 3)[order][:, None].expand(K, R, 3)}
+    return batch, K, n_hit
+
+
 def distillation_loss(model, batch: Dict[str, torch.Tensor], gen: torch.Generator, *,
                       fake_roughness=False, fake_specular=False) -> torch.Tensor:
     """Secondary self-distillation: L1(sg_rgb, idr_rgb) over the points of
@@ -125,8 +147,8 @@ def distillation_loss(model, batch: Dict[str, torch.Tensor], gen: torch.Generato
 PROFILE_STEPS = 3
 # the spans of one training step (record_function names), outermost first
 SPANS = ("train.forward", "primary_trace", "sphere_trace", "ray_sampler", "min_sdf_points",
-         "shading", "secondary_trace", "secondary_shading", "train.loss", "train.backward",
-         "train.update", "train.secondary")
+         "shading", "secondary_trace", "secondary_shading", "secondary_pool", "train.loss",
+         "train.backward", "train.update", "train.secondary")
 
 
 class StepProfiler:
@@ -388,15 +410,18 @@ class IDRTrainRunner:
         }
 
     # ------------------------------------------------------------------
-    def train_step(self, batch, gt, fake_r: bool, fake_s: bool, alpha: float):
+    def train_step(self, batch, gt, fake_r: bool, fake_s: bool, alpha: float,
+                   distil: bool = False):
         """One frozen-geometry step: forward, loss, backward, both Adam
         updates. -> (loss dict, model outputs, finite). A non-finite loss
-        updates nothing."""
+        updates nothing. With `distil` the outputs hold the secondary-hit
+        pool as far as the secondary step's batch needs it."""
         for group in self.optimizers.values():
             group.zero_grad()
         with record_function("train.forward"):
-            out = self.model.forward_with_uv(batch, self.gen, training=True, freeze_geo=True,
-                                             fake_roughness=fake_r, fake_specular=fake_s)
+            out = self.model.forward_with_uv(
+                batch, self.gen, training=True, freeze_geo=True, fake_roughness=fake_r,
+                fake_specular=fake_s, secondary_limit=self.secondary_batch_size if distil else 0)
         with record_function("train.loss"):
             ld = self.loss(out, gt, alpha=alpha)
         if not np.isfinite(float(ld["loss"].detach())):
@@ -412,16 +437,10 @@ class IDRTrainRunner:
         """Secondary self-distillation on at most secondary_batch_size of the
         step's secondary hits, each seen along num_rays copies of its ray.
         -> the number of hits distilled (0: there was none, nothing ran)."""
-        mask = out["secondary_mask"].reshape(-1)
-        n_hit = int(mask.sum())
-        if n_hit < 1:
+        picked = secondary_batch(out, self.secondary_batch_size, self.num_rays)
+        if picked is None:
             return 0
-        order = torch.argsort((~mask).to(torch.int8), stable=True)[:min(self.secondary_batch_size,
-                                                                         n_hit)]
-        R = max(self.num_rays, 1)
-        K = order.shape[0]
-        batch = {"points": out["secondary_points"].reshape(-1, 3)[order][:, None].expand(K, R, 3),
-                 "ray_dirs": out["secondary_dir"].reshape(-1, 3)[order][:, None].expand(K, R, 3)}
+        batch, K, n_hit = picked
         for group in self.optimizers.values():
             group.zero_grad()
         with record_function("train.secondary"):
@@ -478,8 +497,10 @@ class IDRTrainRunner:
                                              device=self.device)}
                 fake_r, fake_s = self._fakes()
                 alpha = self._alpha()
+                distil = (self.secondary_train_interval > 0
+                          and self.cur_iter % self.secondary_train_interval == 0)
                 t0 = time.perf_counter()
-                loss_dict, out, finite = self.train_step(batch, gt, fake_r, fake_s, alpha)
+                loss_dict, out, finite = self.train_step(batch, gt, fake_r, fake_s, alpha, distil)
                 if not finite:
                     print("[WARNING] NaN in loss — checkpointing and exiting")
                     stop_profiler()
@@ -490,8 +511,7 @@ class IDRTrainRunner:
                 if self.cur_iter % self.log_freq == 0:
                     self.log_scalars(epoch, loss_dict, mse2psnr, alpha)
                 sec_seconds, n_distilled = 0.0, 0
-                if self.secondary_train_interval > 0 and \
-                        self.cur_iter % self.secondary_train_interval == 0:
+                if distil:
                     t1 = time.perf_counter()
                     n_distilled = self._train_with_secondary(out, fake_r, fake_s)
                     self._sync()

@@ -1431,7 +1431,10 @@ def read(path: str, part=None) -> np.ndarray:
                 f"<{n_blocks}q", data[off : off + 8 * n_blocks])
 
         out = {name: np.empty((H, W), np.float32) for name, _ in chans}
+        seen = np.zeros(n_blocks, bool)
         for bi, boff in enumerate(offsets):
+            if boff == 0:  # unwritten block (incomplete file): checked via `seen`
+                continue
             if prefix:
                 pnum = struct.unpack("<i", data[boff : boff + 4])[0]
                 if pnum != part_idx:
@@ -1441,11 +1444,19 @@ def read(path: str, part=None) -> np.ndarray:
                 boff += 4
             y, size = struct.unpack("<ii", data[boff : boff + 8])
             y -= y_min
+            if not 0 <= y < H or y % lines_per_block:
+                raise ValueError(f"corrupt EXR: block {bi} starts at line {y + y_min}")
             n_lines = min(lines_per_block, H - y)
             block = data[boff + 8 : boff + 8 + size]
             raw = _decode_block(block, compression, chans, W, n_lines,
                                 plinear, f"block {bi}")
             _scatter_lines(raw, chans, out, y, 0, n_lines, W)
+            seen[y // lines_per_block] = True
+        if not seen.all():
+            raise ValueError(
+                f"incomplete scanline EXR: {int((~seen).sum())} of {n_blocks} "
+                "blocks missing"
+            )
 
     names = [n for n, _ in chans]
     order = [n for n in ("R", "G", "B", "A") if n in names]

@@ -6,9 +6,9 @@ a machine that has only PyTorch:
 
 Tolerances, kernel against its plain PyTorch version on the same CUDA
 tensors: fp32 within 1e-4 absolute (FMA chain vs cuBLAS summation order over
-8 layers of 512-long dot products); bf16 within 1e-2 of the largest value
-(one bf16 rounding of h flipped by the order propagates); the input gradient
-within 1e-3 of its largest value.
+8 layers of 512-long dot products); bf16 (the tensor-core K1 and its sdf
+entry) within 1e-2 of the largest value (one bf16 rounding of h flipped by
+the order propagates); the input gradient within 1e-3 of its largest value.
 """
 
 import pytest
@@ -41,7 +41,8 @@ def test_k1_kernel_matches_plain(dtype):
     fm.reset_launch_counts()
     h = fm.fused_hidden(x, fw).float()
     torch.cuda.synchronize()
-    assert fm.LAUNCHES["fused_sdf_hidden"] == 1
+    assert fm.LAUNCHES["fused_sdf_hidden" if dtype == torch.float32 else "fused_sdf_hidden_tc"] == 1
+    assert sum(fm.LAUNCHES.values()) == 1
     ref = fm.fused_hidden_plain(x, fw).float()
     bound = 1e-4 if dtype == torch.float32 else 1e-2 * ref.abs().max().item()
     assert (h - ref).abs().max().item() <= bound
@@ -77,7 +78,60 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         fm.fused_fwd_bwd(fm.embed_padded(pts, fm.prepare_weights(net, torch.bfloat16)),
                          fm.prepare_weights(net, torch.bfloat16))  # K2 is fp32 only
-    assert fm.LAUNCHES == {"fused_sdf_hidden": 0, "fused_sdf_fwd_bwd": 0}
+    with pytest.raises(ValueError):
+        fm.fused_sdf_value(x, fw)  # the sdf entry is the bf16 tensor-core kernel
+    assert all(n == 0 for n in fm.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 5000, 100_000])
+@torch.no_grad()
+def test_tensor_core_k1_and_sdf_value_match_plain(n):
+    """The bf16 tensor-core kernel, both entries, at ragged sizes around its
+    64-row tile and at 100,000 points: within 1e-2 of the largest value."""
+    net, _ = _flagship()
+    fw = fm.prepare_weights(net, torch.bfloat16)
+    pts = torch.randn(n, 3, generator=torch.Generator(device="cuda").manual_seed(n),
+                      device="cuda") * 0.5
+    x = fm.embed_padded(pts, fw)
+    fm.reset_launch_counts()
+    h = fm.fused_hidden(x, fw).float()
+    sdf = fm.fused_sdf_value(x, fw)
+    sdf_built = fm.build_fused_sdf(net, torch.bfloat16)(pts)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_sdf_hidden_tc"] == 1 and fm.LAUNCHES["fused_sdf_value"] == 2
+    assert fm.LAUNCHES["fused_sdf_hidden"] == 0
+    ref = fm.fused_hidden_plain(x, fw).float()
+    sdf_ref = fm.fused_sdf_value_plain(x, fw)
+    assert h.shape == (n, 512) and sdf.shape == (n,) and sdf.dtype == torch.float32
+    assert (h - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    for s in (sdf, sdf_built):
+        assert (s - sdf_ref).abs().max().item() <= 1e-2 * sdf_ref.abs().max().item()
+
+
+@torch.no_grad()
+def test_tensor_core_wrappers_refuse_what_the_kernel_does_not_take():
+    net, pts = _flagship()
+    fw = fm.prepare_weights(net, torch.bfloat16)
+    x = fm.embed_padded(pts, fw)
+    narrow = ImplicitNetwork(feature_vector_size=256, dims=(256,) * 4, skip_in=(2,), multires=6,
+                             use_last_as_f=True, bias=0.6, device="cuda")
+    narrow.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+    fw_narrow = fm.prepare_weights(narrow, torch.bfloat16)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    misaligned = flat[1:].view(x.shape)  # 2 bytes past a 16-byte boundary
+    misaligned.copy_(x)
+    fm.reset_launch_counts()
+    for fn in (fm.fused_hidden, fm.fused_sdf_value):
+        assert fn(x[:0], fw).shape[0] == 0  # N = 0: no launch
+        with pytest.raises(ValueError):
+            fn(fm.embed_padded(pts, fw_narrow), fw_narrow)  # width 256, not 512
+        with pytest.raises(ValueError):
+            fn(misaligned, fw)
+        with pytest.raises(ValueError):
+            fn(x.t().contiguous().t(), fw)  # not contiguous
+        with pytest.raises(ValueError):
+            fn(x.float(), fw)  # an fp32 input to the bf16 kernel
+    assert all(n == 0 for n in fm.LAUNCHES.values())
 
 
 @torch.no_grad()

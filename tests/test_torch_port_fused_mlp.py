@@ -73,7 +73,7 @@ def test_k1_plain_matches_pallas_fp32(name):
         sdf_t = fm.build_fused_sdf(net)(pt).numpy()
         fw = fm.prepare_weights(net)
         h_t = fm.fused_hidden(fm.embed_padded(pt, fw), fw).numpy()
-    assert fm.LAUNCHES == {"fused_sdf_hidden": 0, "fused_sdf_fwd_bwd": 0}
+    assert all(n == 0 for n in fm.LAUNCHES.values())
     np.testing.assert_allclose(sdf_t, sdf_j, atol=FP32_TOL)
     np.testing.assert_allclose(h_t[:, :width], h_j[:, :width], atol=FP32_TOL)
 
@@ -93,6 +93,59 @@ def test_k1_plain_matches_pallas_bf16():
     assert h_t.dtype == np.float32 and fw.buf.dtype == torch.bfloat16
     np.testing.assert_allclose(sdf_t, sdf_j, atol=BF16_REL * np.abs(sdf_j).max())
     np.testing.assert_allclose(h_t[:, :512], h_j[:, :512], atol=BF16_REL * np.abs(h_j).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sdf_value_plain_matches_pallas(dtype):
+    """The plain sdf path of build_fused_sdf (fused_sdf_value's plain version
+    in bf16, the hidden chain and the sdf column in fp32) against the Pallas
+    build_fused_sdf in interpret mode: 2e-5 in fp32, 1e-2 of the largest
+    value in bf16."""
+    jnet, params, net = _nets("flagship-8x512")
+    pts = _pts(320, seed=3)
+    sdf_j = np.asarray(jfm.build_fused_sdf(jnet, params, tile=128, interpret=True,
+                                           dtype=getattr(jnp, dtype))(pts))
+    tdtype = getattr(torch, dtype)
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        pt = torch.from_numpy(pts)
+        sdf_t = fm.build_fused_sdf(net, tdtype)(pt).numpy()
+        fw = fm.prepare_weights(net, tdtype)
+        value = fm.fused_sdf_value(fm.embed_padded(pt, fw), fw).numpy()
+    assert all(n == 0 for n in fm.LAUNCHES.values())
+    assert sdf_t.dtype == value.dtype == np.float32
+    tol = FP32_TOL if dtype == "float32" else BF16_REL * np.abs(sdf_j).max()
+    np.testing.assert_allclose(sdf_t, sdf_j, atol=tol)
+    np.testing.assert_allclose(value, sdf_j, atol=tol)
+
+
+def test_tensor_core_chunks_pack_every_layer():
+    """prepare_weights' bf16 chunks for the tensor-core kernel: the 58
+    [512][64] chunks of the flagship net, in layer order (h part, then x
+    part), each the transposed, zero-padded, 128-byte swizzled slice of the
+    layer's weights; unpacking gives the bf16 weights of the packed buffer
+    back exactly."""
+    _, _, net = _nets("flagship-8x512")
+    fw = fm.prepare_weights(net, torch.bfloat16)
+    assert fm.prepare_weights(net).tc is None  # fp32 runs no tensor-core kernel
+    off = 0
+    for L in fw.layers:
+        for w, k in ((L.w, L.k_h), (L.wx, L.k_x)):
+            if w is None:
+                continue
+            n = -(-k // fm.TC_K)
+            chunks = fw.tc[off:off + n * fw.width * fm.TC_K].view(n, fw.width, fm.TC_K)
+            # row r of a chunk holds its 8-element group g at group g ^ (r % 8)
+            r = 11
+            logical = torch.nn.functional.pad(w.t(), (0, n * fm.TC_K - k))[r, :fm.TC_K]
+            for g in range(8):
+                assert torch.equal(chunks[0, r, 8 * (g ^ (r % 8)):8 * (g ^ (r % 8)) + 8],
+                                   logical[8 * g:8 * g + 8])
+            # swizzling twice undoes it: every chunk back to [k, width]
+            whole = fm._swizzle128(chunks).permute(1, 0, 2).reshape(fw.width, n * fm.TC_K)
+            assert torch.equal(whole[:, :k].t(), w)
+            off += n * fw.width * fm.TC_K
+    assert off == fw.tc.numel() == 58 * 512 * 64
 
 
 @pytest.mark.parametrize("name", ["flagship-8x512", "narrow-no-lastf", "tiny-no-pe"])
@@ -121,12 +174,16 @@ def test_wrappers_cpu_plain_empty_and_other_devices_raise():
     h = fm.fused_hidden(torch.zeros(0, fw.x_cols), fw)
     h2, dx = fm.fused_fwd_bwd(torch.zeros(0, fw.x_cols), fw)
     assert h.shape == (0, fw.width) and h2.shape == (0, fw.width) and dx.shape == (0, fw.x_cols)
+    fw16 = fm.prepare_weights(net, torch.bfloat16)
+    assert fm.fused_sdf_value(torch.zeros(0, fw16.x_cols, dtype=torch.bfloat16), fw16).shape == (0,)
     meta = torch.empty(4, fw.x_cols, device="meta")
     with pytest.raises(ValueError):
         fm.fused_hidden(meta, fw)
     with pytest.raises(ValueError):
         fm.fused_fwd_bwd(meta, fw)
-    assert fm.LAUNCHES == {"fused_sdf_hidden": 0, "fused_sdf_fwd_bwd": 0}
+    with pytest.raises(ValueError):
+        fm.fused_sdf_value(meta.to(torch.bfloat16), fw16)
+    assert all(n == 0 for n in fm.LAUNCHES.values())
 
 
 def test_import_needs_no_nvcc_or_triton():

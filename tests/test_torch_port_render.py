@@ -19,7 +19,7 @@ from nefii_tpu.models.idr import IDRNetwork as JIDR
 from nefii_tpu.utils import checkpoints as jck
 from nefii_tpu.utils import exr
 from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
-from nefii_tpu_torch.scripts import render
+from nefii_tpu_torch.scripts import profile_render, render
 
 from test_idr_forward import SMALL_CONF
 
@@ -86,6 +86,22 @@ def test_render_cli_writes_finite_outputs(tmp_path):
     np.testing.assert_array_equal(
         runner.model.envmap_material_network.lgtSGs.detach().numpy(),
         np.asarray(params["envmap_material_network"]["lgtSGs"]))
+
+
+def test_profile_render_script_profiles_three_views(tmp_path):
+    """scripts/profile_render.py on a small conf: a warm-up view, then three
+    views under the profiler, its summary and trace written."""
+    conf_path = tmp_path / "render.conf"
+    conf_path.write_text(CONF)
+    summary = profile_render.main([
+        "--conf", str(conf_path), "--out", str(tmp_path / "prof"), "--res", "8",
+        "--num_rays", "2", "--memory_capacity_level", "6", "--device", "cpu"])
+    assert summary["card"] == "" and len(summary["s_per_view"]) == 3
+    assert all(n > 0 for n in summary["sdf_evals"])
+    assert all(0 < h < 1 for h in summary["hit_fraction"])
+    text = (tmp_path / "prof" / "summary.txt").read_text()
+    assert text.startswith("3 steps:") and "span primary_trace" in text
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
 
 
 def test_port_imports_without_jax():

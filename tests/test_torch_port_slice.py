@@ -126,7 +126,7 @@ def test_all_rays_hit_and_masks_agree(outputs):
     assert jout["network_object_mask"].all()
     np.testing.assert_array_equal(tout["network_object_mask"], jout["network_object_mask"])
     # CPU tensors: the plain versions ran, no CUDA launch
-    assert launches == {"fused_sdf_hidden": 0, "fused_sdf_fwd_bwd": 0}
+    assert launches and all(n == 0 for n in launches.values())
     for k in OVERFLOW_KEYS:
         assert int(tout[k]) == 0
     assert tout["n_sdf_evals"] > 0

@@ -21,7 +21,8 @@ The Monte-Carlo directions are injected on both sides: each sampler is
 replaced by wi = normalize(n + 0.9 t(n)) with t a fixed smooth function of
 the normal per strategy, and the strategy's canonical pdf for it. Both
 packages then draw the same direction for the same surface point, whatever
-order they shade their rays in (the port shades the hit rays only). The
+order they shade their rays in (the port shades the hit rays, and samples
+the secondary rays of the rays that missed apart). The
 port runs the plain versions of K1, K2 and K3 (CPU tensors)."""
 
 import os
@@ -52,7 +53,7 @@ from nefii_tpu_torch.ops.ray_tracing import RayTracer
 from nefii_tpu_torch.scripts import profile_train, render
 from nefii_tpu_torch.training import exp_runner
 from nefii_tpu_torch.training.trainer import (
-    AdamGroup, distillation_loss, multistep_lr, trainable_names,
+    AdamGroup, distillation_loss, multistep_lr, secondary_batch, trainable_names,
 )
 from nefii_tpu_torch.utils import checkpoints as ckpt
 from nefii_tpu_torch.utils.checkpoints import params_from_jax
@@ -144,18 +145,19 @@ def _dir_tables():
         [rs.randn(3).astype(np.float32) for _ in range(3)]
 
 
-def _patch_samplers(mp, mod, xp):
+def _patch_samplers(mp, mod, xp, side=1.0):
     """Replace the three samplers of `mod` (jax.numpy or torch as `xp`) by the
-    deterministic directions of the module docstring."""
+    deterministic directions of the module docstring; `side=-3` turns them
+    into the surface: wi = normalize(-3 n + 0.9 t(n))."""
     A, c = _dir_tables()
 
     def wi_for(k, normal):
         if xp is jnp:
             t = jnp.sin(normal @ jnp.asarray(A[k]) + jnp.asarray(c[k]))
-            w = normal + 0.9 * t / jnp.linalg.norm(t, axis=-1, keepdims=True)
+            w = side * normal + 0.9 * t / jnp.linalg.norm(t, axis=-1, keepdims=True)
             return w / jnp.linalg.norm(w, axis=-1, keepdims=True)
         t = torch.sin(normal @ torch.from_numpy(A[k]) + torch.from_numpy(c[k]))
-        w = normal + 0.9 * t / torch.linalg.norm(t, dim=-1, keepdim=True)
+        w = side * normal + 0.9 * t / torch.linalg.norm(t, dim=-1, keepdim=True)
         return w / torch.linalg.norm(w, dim=-1, keepdim=True)
 
     mp.setattr(mod, "cos_sampling", lambda key, n: (
@@ -317,6 +319,12 @@ def test_loss_all_reduce_sums_the_pairs():
 # one frozen-geometry training step
 # ---------------------------------------------------------------------------
 
+def _whole_pool(batch):
+    """A `secondary_limit` that keeps every strategy's secondary hits: the
+    three strategies times the batch's rays."""
+    return 3 * batch["uv"][..., 0].size
+
+
 @pytest.fixture(scope="module")
 def step_pair(models):
     jmodel, params, model = models
@@ -341,7 +349,8 @@ def step_pair(models):
         ft.reset_launch_counts()
         tout = model.forward_with_uv({k: torch.from_numpy(v) for k, v in batch.items()},
                                      torch.Generator().manual_seed(0), training=True,
-                                     freeze_geo=True, steps01=torch.from_numpy(steps01))
+                                     freeze_geo=True, steps01=torch.from_numpy(steps01),
+                                     secondary_limit=_whole_pool(batch))
         tld = tloss(tout, {k: torch.from_numpy(v) for k, v in gt.items()})
         tld["loss"].backward()
     return jld, jout, jgrads, tld, tout
@@ -374,19 +383,99 @@ def test_training_step_leaves_the_geometry_without_gradient(step_pair, models):
 
 
 def test_training_step_secondary_hits(step_pair):
-    """The shaded rays' secondary hits, per strategy, for the distillation."""
+    """The secondary-hit pool, per strategy, for the distillation: the JAX
+    pipeline's, the hits traced from the points of the rays that missed
+    included."""
     jld, jout, _, _, tout = step_pair
     jm = np.asarray(jout["secondary_mask"])
     tm = tout["secondary_mask"].numpy()
     assert tm.shape == jm.shape and tm.any()
-    # the port shades only the hit rays; their secondary hits are the JAX
-    # package's (whose shaded misses add theirs)
-    hit = np.repeat(tout["network_object_mask"].numpy(), R)  # per ray, before the pixel mean
-    shaded = np.broadcast_to(hit[None, :, None], tm.shape)
-    np.testing.assert_array_equal(tm, jm & shaded)
+    np.testing.assert_array_equal(tm, jm)
     sel = tm[..., 0]
     np.testing.assert_allclose(tout["secondary_points"].numpy()[sel],
                                np.asarray(jout["secondary_points"])[sel], atol=1e-4)
+    np.testing.assert_allclose(tout["secondary_dir"].numpy(), np.asarray(jout["secondary_dir"]),
+                               atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def inward_pool(models):
+    """One training forward of both packages with the injected directions
+    turned into the surface, so that the points of rays that missed send
+    secondary rays that hit. The port runs twice: for the whole pool (the
+    shaded rays recorded), and asked for the pool as far as the first K hits,
+    K one past the first strategy's hits in the JAX pool (so the second
+    strategy is needed and the third is not)."""
+    jmodel, params, model = models
+    batch, _ = _batch()
+    key = jax.random.PRNGKey(1)
+    steps01 = np.array(jax.random.uniform(jax.random.split(key, 3)[0],
+                                          (jmodel.ray_tracer.n_steps,)))
+    shaded = {}
+    pool = IDRNetwork._secondary_pool
+
+    def recording_pool(self, ret, sel, *args, **kwargs):
+        shaded["sel"] = sel.clone()
+        return pool(self, ret, sel, *args, **kwargs)
+
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        _patch_samplers(mp, js, jnp, side=-3.0)
+        _patch_samplers(mp, ts, torch, side=-3.0)
+        jout = jax.jit(lambda p: jmodel.forward(
+            p, {k: jnp.asarray(v) for k, v in batch.items()}, key, training=True,
+            freeze_geo=True))(params)
+        jout = {k: np.asarray(jout[k]) for k in ("secondary_points", "secondary_mask",
+                                                  "secondary_dir")}
+        k_max = int(jout["secondary_mask"][0].sum()) + 1
+
+        def port(limit):
+            return model.forward_with_uv(
+                {k: torch.from_numpy(v) for k, v in batch.items()},
+                torch.Generator().manual_seed(0), training=True, freeze_geo=True,
+                steps01=torch.from_numpy(steps01), secondary_limit=limit)
+
+        mp.setattr(IDRNetwork, "_secondary_pool", recording_pool)
+        full = port(_whole_pool(batch))
+        limited = port(k_max)
+    ray_shaded = np.zeros(full["secondary_mask"].shape[1], bool)
+    ray_shaded[shaded["sel"].numpy()] = True
+    return jout, full, ray_shaded, k_max, limited
+
+
+def test_secondary_pool_of_missed_rays_matches_jax(inward_pool):
+    """Where the points of rays that missed send secondary rays that hit,
+    the port's pool holds those hits, as the JAX pipeline's does."""
+    jout, tout, shaded, _, _ = inward_pool
+    jm = jout["secondary_mask"]
+    tm = tout["secondary_mask"].numpy()
+    assert jm[:, ~shaded].any() and jm[:, shaded].any()
+    np.testing.assert_array_equal(tm, jm)
+    sel = tm[..., 0]
+    np.testing.assert_allclose(tout["secondary_points"].numpy()[sel],
+                               jout["secondary_points"][sel], atol=1e-4)
+    np.testing.assert_allclose(tout["secondary_dir"].numpy(), jout["secondary_dir"], atol=1e-4)
+
+
+def test_distilled_batch_matches_jax(inward_pool):
+    """The batch the secondary step distils -- points, directions and its
+    count K -- is the JAX trainer's selection from the JAX pool (the first K
+    hits in [strategy, ray] order, the padding dropped), from a forward that
+    traced only the strategies those hits need."""
+    jout, _, _, k, tout = inward_pool
+    jm = jout["secondary_mask"]
+    assert jm[1].any() and tout["secondary_mask"].shape[0] == 2 < jm.shape[0]
+    mask = jm.reshape(-1)
+    order = np.argsort(~mask, kind="stable")[:k]  # the JAX trainer's selection
+    order = order[mask[order]]
+    picked = secondary_batch(tout, k, R)
+    assert picked is not None
+    batch, K, n_hit = picked
+    assert K == order.shape[0] == k and n_hit >= k
+    for key, name in (("points", "secondary_points"), ("ray_dirs", "secondary_dir")):
+        ref = jout[name].reshape(-1, 3)[order]
+        assert batch[key].shape == (K, R, 3)
+        np.testing.assert_allclose(batch[key].numpy(), np.broadcast_to(ref[:, None], (K, R, 3)),
+                                   atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
