@@ -8,13 +8,14 @@ Phases, each of which raises on failure (exit code != 0):
    all started together.
 3. kernels: on the full-width confs/conf.conf SDF net (8x512, skip at 4,
    multires 6), run K1 fp32 (FMA pipe), K1 bf16 on the tensor cores (both
-   entries: the hidden state, and the sdf of fused_sdf_value) and K2 (fp32)
-   at 262,144 points, the tensor-core entries also at 1, 63, 64, 65 and 5000
-   points, and hold each against its plain PyTorch version on the same
-   inputs, in the working type; time them with CUDA events, the fp32 FMA K1
-   beside the tensor-core one, and print the tensor-core kernel's TFLOP/s
-   and the L2 weight bytes a call requests by its design (computed, not
-   measured).
+   entries: the hidden state, and the sdf of fused_sdf_value) and K2 (fp32
+   accuracy on the tensor cores in split bf16) at 262,144 points, the
+   tensor-core kernels also at 1, 63, 64, 65 and 5000 points, and hold each
+   against its plain PyTorch version on the same inputs, in the working type
+   (K2 also against its split-bf16 plain version, to tell the scheme's error
+   from the kernel's); time them with CUDA events, the fp32 FMA K1 beside
+   the tensor-core one, and print the tensor-core kernels' TFLOP/s and the
+   L2 weight bytes a call requests by their design (computed, not measured).
 4. trace-kernel: K3, the whole sphere trace, on 262,144 rays of one 512x512
    view of the seeded-init sphere (camera rays, and random pixels in random
    order) against its plain version; the port's gathered tracer through K1
@@ -64,7 +65,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_POINTS = 262_144
 # tolerances of kernel vs plain version, in the working type:
 #  fp32: the two differ only in summation order (FMA chain vs cuBLAS), ~1e-6
-#        relative per layer over 8 layers of 512-long dot products
+#        relative per layer over 8 layers of 512-long dot products; K2's
+#        split bf16 drops ~2^-16 of each product, ~1e-5 over the chain
 #  bf16: h is rounded to bf16 after every layer; an order difference can flip
 #        one rounding (2^-8 relative) and it propagates: the JAX package's
 #        bf16 bound of 1e-2 relative (fused_mlp.py:177-179)
@@ -98,7 +100,7 @@ def phase_build():
     print(f"[build] {', '.join(build.SOURCES)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for name in build.SOURCES:
         for line in build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"[build] {name}:", line.strip(), flush=True)
 
 
@@ -258,27 +260,53 @@ def phase_kernels():
         res["k1_tc"] = dict(max_abs_err=max(errs_h), ms=ms_h, plain_ms=plain_h, **bound_h, **tc)
         res["sdf_value"] = dict(max_abs_err=max(errs_s), ms=ms_s, plain_ms=plain_s, **bound_s, **tc)
 
+        # K2 on the tensor cores in split bf16, against the fp32 plain version
+        # (TOL) and, printed beside, against its split-bf16 plain version
         fw = fm.prepare_weights(net, torch.float32)
+        errs = []
+        for n in RAGGED + (N_POINTS,):
+            x = fm.embed_padded(pts[:n], fw)
+            h, dx = fm.fused_fwd_bwd(x, fw)
+            torch.cuda.synchronize()
+            h_ref, dx_ref = fm.fused_fwd_bwd_plain(x, fw)
+            h_sp, dx_sp = fm.fused_fwd_bwd_split_plain(x, fw)
+            err_h = (h - h_ref).abs().max().item()
+            err_dx = (dx - dx_ref).abs().max().item()
+            dx_scale = dx_ref.abs().max().item()
+            sp_h = (h - h_sp).abs().max().item()
+            sp_dx = (dx - dx_sp).abs().max().item()
+            scheme = max((h_sp - h_ref).abs().max().item(), (dx_sp - dx_ref).abs().max().item())
+            print(f"[kernels] K2 (split bf16, tensor cores) N={n}: against fp32 plain h "
+                  f"max_abs_err={err_h:.3e} dx max_abs_err={err_dx:.3e} (max|dx|={dx_scale:.3e}); "
+                  f"against the split plain version h {sp_h:.3e} dx {sp_dx:.3e}; the split "
+                  f"scheme itself {scheme:.3e}", flush=True)
+            if (not err_h <= TOL["fp32_abs"] or not err_dx <= TOL["grad_rel"] * dx_scale
+                    or not bool(torch.isfinite(h).all() and torch.isfinite(dx).all())):
+                raise RuntimeError(f"K2 disagrees with its plain version at N={n}: h {err_h:.3e} "
+                                   f"dx {err_dx:.3e}")
+            errs.append(max(err_h, err_dx))
         x = fm.embed_padded(pts, fw)
-        h, dx = fm.fused_fwd_bwd(x, fw)
-        torch.cuda.synchronize()
-        h_ref, dx_ref = fm.fused_fwd_bwd_plain(x, fw)
-        torch.cuda.synchronize()
-        err_h = (h - h_ref).abs().max().item()
-        err_dx = (dx - dx_ref).abs().max().item()
-        dx_scale = dx_ref.abs().max().item()
-        ms = _time(lambda: fm.fused_fwd_bwd(x, fw))
+        ms = _time(lambda: fm.fused_fwd_bwd(x, fw), reps=10)
         plain_ms = _time(lambda: fm.fused_fwd_bwd_plain(x, fw))
-        # forward chain plus the input-gradient chain, which repeats its products
-        bound = _bound(N_POINTS * 2 * hidden_flops,
-                       N_POINTS * (2 * fw.emb_dim + fw.real_width) * 4 + fw.buf.numel() * 4,
-                       "fp32")
-        print(f"[kernels] K2 fp32: N={N_POINTS} h max_abs_err={err_h:.3e} dx max_abs_err="
-              f"{err_dx:.3e} (max|dx|={dx_scale:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-              f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']})", flush=True)
-        if err_h > TOL["fp32_abs"] or err_dx > TOL["grad_rel"] * dx_scale:
-            raise RuntimeError(f"K2 disagrees with its plain version: h {err_h:.3e} dx {err_dx:.3e}")
-        res["k2"] = dict(max_abs_err=max(err_h, err_dx), ms=ms, plain_ms=plain_ms, **bound)
+        # forward chain plus the input-gradient chain, which repeats its
+        # products: three bf16 products per multiply-add on the tensor cores;
+        # the fp32 FMA pipe's bound for the same work beside it
+        records = fm.split_weights(fw).numel() * 2
+        nbytes = N_POINTS * (2 * fw.emb_dim + fw.real_width) * 4 + records
+        bound = _bound(N_POINTS * 2 * hidden_flops * 3, nbytes, "bf16")
+        fma = _bound(N_POINTS * 2 * hidden_flops, nbytes, "fp32")
+        # computed from the design, not measured: every 64-row tile requests
+        # every record of both passes from L2
+        l2_bytes = -(-N_POINTS // fm.TC_BLOCK_ROWS) * records
+        tflops = N_POINTS * 2 * hidden_flops * 3 / ms / 1e9
+        print(f"[kernels] K2 (split bf16, tensor cores) N={N_POINTS}: kernel {ms:.3f} ms "
+              f"({tflops:.1f} bf16 TFLOP/s), plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} "
+              f"ms ({bound['bound_by']}, three bf16 products a multiply-add), FP32-pipe bound "
+              f"{fma['bound_ms']:.3f} ms; L2 weight bytes requested a call, computed from the "
+              f"design: {l2_bytes / 1e9:.3f} GB ({l2_bytes / ms / 1e9:.3f} TB/s requested)",
+              flush=True)
+        res["k2"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, **bound,
+                         ragged=list(RAGGED))
     return res
 
 
@@ -387,8 +415,9 @@ def phase_trace_kernel(card):
 
 REF_RES = 16
 # port on the card (K1 fp32 + K2) vs the port on the CPU (plain versions), on
-# the quantities no Monte-Carlo sample touches; both fp32, so they differ by
-# summation order, which the tracer's 5e-5 stopping threshold can amplify
+# the quantities no Monte-Carlo sample touches; both fp32 accurate, so they
+# differ by summation order and K2's split bf16 (~1e-5), which the tracer's
+# 5e-5 stopping threshold can amplify
 REF_TOL = {"mask_agree": 0.99, "abs": 1e-3}
 REF_KEYS = ("points", "normal_values", "idr_rgb_values", "sg_diffuse_albedo_values",
             "sg_roughness_values")
@@ -508,8 +537,9 @@ def phase_render(card):
 TRAIN_REF_PATCHES = 16   # 2x2 patches: 64 pixels
 TRAIN_REF_RAYS = 4
 # one training step through the kernels on the card against the same step
-# through the plain versions on the CPU, both fp32 with the same injected
-# directions and min-SDF vector: they differ by summation order only. The
+# through the plain versions on the CPU, both fp32 accurate with the same
+# injected directions and min-SDF vector: they differ by summation order and
+# K2's split bf16 (~1e-5 in the feature and the normal) only. The
 # gradient gate is the ROADMAP's; the loss gate allows the order differences
 # of a 64-pixel masked mean
 TRAIN_REF_TOL = {"loss_rel": 1e-4, "grad_rel_l2": 2e-3}
@@ -762,11 +792,13 @@ def main():
              render_launches=render_launches["fused_sdf_hidden"],
              reference_launches=ref_launches["fused_sdf_hidden"], dtype="float32",
              design="FMA pipe", library_ms=None, **kern["k1_fp32"]),
-        dict(name="fused_sdf_fwd_bwd", route="cuda", source=src,
+        dict(name="fused_sdf_fwd_bwd", route="cuda",
+             source="nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_split.cuh",
              replaces="nefii_tpu/ops/pallas/fused_mlp.py:240",
              launches=launches["fused_sdf_fwd_bwd"],
              render_launches=render_launches["fused_sdf_fwd_bwd"], dtype="float32",
-             library_ms=None, **kern["k2"]),
+             design="split bf16 (hi.hi + lo.hi + hi.lo) on wgmma m64n256k16, bulk-copy "
+                    "weight ring", library_ms=None, **kern["k2"]),
         dict(name="fused_sphere_trace", route="cuda",
              source="nefii_tpu_torch/ops/kernels/csrc/fused_trace.cu",
              replaces="nefii_tpu/ops/pallas/fused_trace.py:81",

@@ -17,12 +17,14 @@
 //                          [N, 512] hidden state never reaches memory.
 //   _kernel_fwd_bwd (fused_mlp.py:240), reached through
 //   build_fused_sdf_feature_grad: nefii_sdf_fwd_bwd, the same forward in
-//   fp32, storing every pre-activation z, then the input-space backward
-//   seeded by the sdf column of the last linear: g_z = g_h sigmoid(100 z),
-//   g_h = g_z W^T, the skip layer's x part into its own accumulator.
+//   fp32 accuracy, then the input-space backward seeded by the sdf column of
+//   the last linear: g_z = g_h sigmoid(100 z), g_h = g_z W^T, the skip
+//   layer's x part into its own accumulator. It runs on the tensor cores in
+//   split bf16 (three bf16 products per multiply-add); its design and bound
+//   are in sdf_mlp_split.cuh.
 //
-// What bounds the fp32 kernels on this card. The 8x512 chain is ~3.7 MFLOP
-// per point against ~160 B of input and 1-2 KB of output, so it is
+// What bounds the fp32 FMA kernels on this card. The 8x512 chain is ~3.7
+// MFLOP per point against ~160 B of input and 1-2 KB of output, so it is
 // compute-bound; the TPU kernel kept all ~7.5 MB of fp32 weights in VMEM,
 // which an SM (227 KB of shared memory) cannot. The design therefore keeps
 // only the block's activation tile on chip -- 32 rows x 512 features in fp32,
@@ -31,16 +33,16 @@
 // of a block share them. Every thread owns an 8x8 output tile and runs the
 // matmul as fp32 FMAs (64 FMAs per 16 bytes of weights and 32 bytes of
 // broadcast activations read), so the kernel is bound by the FP32 pipe, not
-// by memory: their JAX counterparts are fp32, and TF32 tensor cores would
-// change the numerics. K2's pre-activations (16 KB per row) cannot stay on
-// chip either: each block writes them to its own slot of a scratch buffer
-// sized by the blocks in flight, not by N (the grid is persistent and walks
-// the row tiles). The bf16 design and its bound are in sdf_mlp_tc.cuh.
+// by memory: the JAX counterpart is fp32, and one TF32 or bf16 tensor-core
+// pass would change the numerics (K2's split bf16 keeps them, at three
+// products each). The bf16 design and its bound are in sdf_mlp_tc.cuh.
 //
 // All matmul work happens here, in sdf_mlp.cuh (the layer loop shared with
-// fused_trace.cu) and in sdf_mlp_tc.cuh; no library GEMM is called.
+// fused_trace.cu), sdf_mlp_tc.cuh and sdf_mlp_split.cuh (on the tensor-core
+// building blocks of tc_common.cuh); no library GEMM is called.
 
 #include "sdf_mlp.cuh"
+#include "sdf_mlp_split.cuh"
 #include "sdf_mlp_tc.cuh"
 
 namespace {
@@ -80,80 +82,8 @@ sdf_hidden_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
     load_rows(xs, x, plan.x_cols, base, n_rows);
     __syncthreads();
     for (int l = 0; l < plan.n; ++l)
-      forward_layer(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, nullptr, col0, row0);
+      forward_layer(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, col0, row0);
     store_rows(out, act, base, n_rows);
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-sdf_fwd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
-                   const __grid_constant__ Plan plan,
-                   const float* __restrict__ wlast, float* __restrict__ h_out,
-                   float* __restrict__ dx_out, float* zbuf, long long n_rows) {
-  extern __shared__ __align__(16) float smem[];
-  const int xc = plan.x_cols;
-  float* act = smem;              // [WIDTH][BM]: h in the forward, g in the backward
-  float* xs = act + WIDTH * BM;   // [x_cols][BM]
-  float* gx = xs + xc * BM;       // [x_cols][BM]: skip layers' gradient w.r.t. x
-  float* zs = zbuf + (long long)blockIdx.x * plan.n * BM * WIDTH;  // this block's slot
-  const int tx = threadIdx.x % (WIDTH / TN), ty = threadIdx.x / (WIDTH / TN);
-  const int col0 = tx * TN, row0 = ty * TM;
-  const long long n_tiles = (n_rows + BM - 1) / BM;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long base = tile * BM;
-    load_rows(xs, x, xc, base, n_rows);
-    for (int i = threadIdx.x; i < BM * xc; i += THREADS) gx[i] = 0.0f;
-    __syncthreads();
-
-    // ---- forward, storing the pre-activations -------------------------
-    for (int l = 0; l < plan.n; ++l)
-      forward_layer(plan.l[l], l == 0 ? xs : act, xs, act, wbuf,
-                           zs + (long long)l * BM * WIDTH, col0, row0);
-    store_rows(h_out, act, base, n_rows);
-    __syncthreads();
-
-    // ---- backward of the sdf column ------------------------------------
-    for (int i = threadIdx.x; i < BM * WIDTH; i += THREADS) act[i] = wlast[i / BM];
-    __syncthreads();
-    for (int l = plan.n - 1; l >= 0; --l) {
-      const Layer& L = plan.l[l];
-      const float* z = zs + (long long)l * BM * WIDTH;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        // plain loads: z was written by this kernel, so not through the
-        // read-only (non-coherent) path that load8 uses
-        const float4 z0 = *reinterpret_cast<const float4*>(z + (row0 + i) * WIDTH + col0);
-        const float4 z1 = *reinterpret_cast<const float4*>(z + (row0 + i) * WIDTH + col0 + 4);
-        const float zr[TN] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
-#pragma unroll
-        for (int j = 0; j < TN; ++j) act[(col0 + j) * BM + row0 + i] *= sigmoid100(zr[j]);
-      }
-      __syncthreads();  // g_z complete
-      float acc[TM][TN];
-      if (L.k_x > 0 && col0 < L.k_x) {
-        zero(acc);
-        gemm_acc(acc, act, WIDTH, wbuf + L.wxt, L.k_x, col0, row0);
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) gx[(col0 + j) * BM + row0 + i] += acc[i][j];
-      }
-      zero(acc);
-      if (col0 < L.k_h) gemm_acc(acc, act, WIDTH, wbuf + L.wt, L.k_h, col0, row0);
-      __syncthreads();  // every thread has finished reading g_z
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) act[(col0 + j) * BM + row0 + i] = acc[i][j];
-      __syncthreads();
-    }
-    // act rows [0, x_cols) hold the gradient w.r.t. the layer-0 input
-    for (int i = threadIdx.x; i < BM * xc; i += THREADS) {
-      const int r = i / xc, c = i - r * xc;
-      const long long row = base + r;
-      if (row < n_rows) dx_out[row * xc + c] = act[c * BM + r] + gx[c * BM + r];
-    }
     __syncthreads();
   }
 }
@@ -163,7 +93,7 @@ int launch_tc(const void* x, const void* tc, const void* wbuf, const long long* 
               int n_layers, int x_cols, const void* wlast, float b_last, void* out_h,
               void* out_sdf, long long n_rows, int grid, void* stream) {
   Plan plan;
-  if (!make_plan(desc, n_layers, x_cols, false, &plan) || x_cols > TC_BK || grid <= 0 ||
+  if (!make_plan(desc, n_layers, x_cols, &plan) || x_cols > TC_BK || grid <= 0 ||
       n_rows <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(sdf_tc_kernel<SDF>,
@@ -198,7 +128,7 @@ int nefii_fused_mlp_config(int* width, int* block_rows, int* threads, int* tc_bl
 int nefii_sdf_hidden(const void* x, const void* wbuf, const long long* desc, int n_layers,
                      int x_cols, void* out, long long n_rows, int grid, void* stream) {
   Plan plan;
-  if (!make_plan(desc, n_layers, x_cols, false, &plan) || grid <= 0 || n_rows <= 0)
+  if (!make_plan(desc, n_layers, x_cols, &plan) || grid <= 0 || n_rows <= 0)
     return (int)cudaErrorInvalidValue;
   const int smem = (WIDTH + x_cols) * BM * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(sdf_hidden_kernel,
@@ -228,21 +158,26 @@ int nefii_sdf_value(const void* x, const void* tc, const void* wbuf, const long 
 }
 
 // h_out[n_rows][WIDTH] (last hidden state) and dx_out[n_rows][x_cols]
-// (d sdf / d x) in fp32; zbuf holds grid x n_layers x BM x WIDTH floats.
-int nefii_sdf_fwd_bwd(const void* x, const void* wbuf, const long long* desc, int n_layers,
-                      int x_cols, const void* wlast, void* h_out, void* dx_out, void* zbuf,
-                      long long n_rows, int grid, void* stream) {
+// (d sdf / d x), fp32, on the tensor cores in split bf16; rec holds n_rec
+// records of K2's packed split weights (pack_split), wbuf the fp32 biases;
+// sbuf holds grid x (n_layers - 1) x TC_BM x WIDTH floats.
+int nefii_sdf_fwd_bwd(const void* x, const void* rec, const void* wbuf, const long long* desc,
+                      int n_layers, int x_cols, const void* wlast, void* h_out, void* dx_out,
+                      void* sbuf, int n_rec, long long n_rows, int grid, void* stream) {
   Plan plan;
-  if (!make_plan(desc, n_layers, x_cols, true, &plan) || grid <= 0 || n_rows <= 0)
+  if (!make_plan(desc, n_layers, x_cols, &plan) || x_cols > SP_NX || grid <= 0 || n_rows <= 0)
     return (int)cudaErrorInvalidValue;
-  const int smem = (WIDTH + 2 * x_cols) * BM * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(sdf_fwd_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  for (int l = 0; l < plan.n; ++l)
+    if (plan.l[l].k_h % 16 || plan.l[l].k_x % 16) return (int)cudaErrorInvalidValue;
+  if (n_rec != split_records(plan)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(sdf_split_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SP_SMEM);
   if (e != cudaSuccess) return (int)e;
-  sdf_fwd_bwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wbuf), plan,
-      static_cast<const float*>(wlast), static_cast<float*>(h_out),
-      static_cast<float*>(dx_out), static_cast<float*>(zbuf), n_rows);
+  sdf_split_kernel<<<grid, TC_THREADS, SP_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(rec),
+      static_cast<const float*>(wbuf), plan, static_cast<const float*>(wlast),
+      static_cast<float*>(h_out), static_cast<float*>(dx_out), static_cast<float*>(sbuf), n_rec,
+      n_rows);
   return (int)cudaGetLastError();
 }
 

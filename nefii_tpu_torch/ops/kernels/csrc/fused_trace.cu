@@ -89,7 +89,7 @@ __device__ void sdf_tile(TileState& st, const float* __restrict__ wbuf, const Pl
   embed_tile(st, cfg, xs, plan.x_cols);
   __syncthreads();
   for (int l = 0; l < plan.n; ++l)
-    forward_layer(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, nullptr, col0, row0);
+    forward_layer(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, col0, row0);
   // sdf column: warp w sums features [w COLS_PER_WARP, (w+1) COLS_PER_WARP)
   // for row = lane, then one thread per row adds the warps in order
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -230,7 +230,7 @@ int nefii_sphere_trace(const void* cam, const void* dirs, const void* isect, con
                        void* unf, void* n_evals, long long n_rays, void* stream) {
   Plan plan;
   const int d_emb = 3 * (1 + 2 * multires);
-  if (!make_plan(desc, n_layers, x_cols, false, &plan) || n_rays <= 0 || multires < 0 ||
+  if (!make_plan(desc, n_layers, x_cols, &plan) || n_rays <= 0 || multires < 0 ||
       d_emb > x_cols || ls_iters < 0 || trace_iters < 0)
     return (int)cudaErrorInvalidValue;
   const long long grid = (n_rays + TR - 1) / TR;

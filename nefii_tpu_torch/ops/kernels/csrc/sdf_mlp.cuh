@@ -1,5 +1,6 @@
-// Device-side building blocks of the SDF-MLP hidden chain, shared by the
-// kernels of fused_mlp.cu (K1, K2) and fused_trace.cu (K3).
+// Device-side building blocks of the SDF-MLP hidden chain on the FMA pipe,
+// shared by the fp32 K1 of fused_mlp.cu and by fused_trace.cu (K3); the plan
+// of the layers (Plan, make_plan) serves every kernel.
 //
 // A block owns a tile of BM = 32 rows. Activations live in shared memory,
 // feature-major ([feature][row]), so an 8-row slice of one feature is two
@@ -26,8 +27,6 @@ struct Layer {
   long long w;    // W_h   [k_h][WIDTH]  (input x output, row-major)
   long long wx;   // W_x   [k_x][WIDTH]  skip layers only
   long long b;    // bias  [WIDTH]
-  long long wt;   // W_h^T [WIDTH][k_h]  (backward)
-  long long wxt;  // W_x^T [WIDTH][k_x]  (backward, skip layers)
   int k_h;        // rows of W_h: the width the layer reads from the previous layer (layer 0: x)
   int k_x;        // rows of W_x: x_cols for a skip layer, 0 otherwise
 };
@@ -49,14 +48,6 @@ __device__ __forceinline__ void load8(const float* p, float v[8]) {
 __device__ __forceinline__ float softplus100(float z) {
   const float t = 100.0f * z;
   return (fmaxf(t, 0.0f) + log1pf(expf(-fabsf(t)))) * 0.01f;
-}
-
-// sigmoid(100 z), stable on both sides
-__device__ __forceinline__ float sigmoid100(float z) {
-  const float t = 100.0f * z;
-  if (t >= 0.0f) return 1.0f / (1.0f + expf(-t));
-  const float e = expf(t);
-  return e / (1.0f + e);
 }
 
 // acc[i][j] += sum_k aT[k][row0 + i] * B[k][col0 + j]
@@ -86,11 +77,10 @@ __device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
 }
 
 // One layer of the forward chain for the block's tile. Reads `in` (feature-
-// major, k_h rows) and xs, writes softplus(z) into act, and z into z_out
-// ([BM][WIDTH], row-major) when given.
+// major, k_h rows) and xs, writes softplus(z) into act.
 __device__ __forceinline__ void forward_layer(const Layer& L, const float* in, const float* xs,
                                               float* act, const float* __restrict__ wbuf,
-                                              float* z_out, int col0, int row0) {
+                                              int col0, int row0) {
   float acc[TM][TN];
   zero(acc);
   gemm_acc(acc, in, L.k_h, wbuf + L.w, WIDTH, col0, row0);
@@ -99,40 +89,26 @@ __device__ __forceinline__ void forward_layer(const Layer& L, const float* in, c
   load8(wbuf + L.b + col0, bias);
   __syncthreads();  // every thread has finished reading `in` (it may be act)
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float z[TN];
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      z[j] = acc[i][j] + bias[j];
-      act[(col0 + j) * BM + row0 + i] = softplus100(z[j]);
-    }
-    if (z_out != nullptr) {
-      float4* zp = reinterpret_cast<float4*>(z_out + (row0 + i) * WIDTH + col0);
-      zp[0] = make_float4(z[0], z[1], z[2], z[3]);
-      zp[1] = make_float4(z[4], z[5], z[6], z[7]);
-    }
-  }
+    for (int j = 0; j < TN; ++j) act[(col0 + j) * BM + row0 + i] = softplus100(acc[i][j] + bias[j]);
   __syncthreads();
 }
 
-// desc: n_layers x 7 int64 (w, wx, b, wt, wxt, k_h, k_x) in elements.
-bool make_plan(const long long* desc, int n_layers, int x_cols, bool need_backward, Plan* plan) {
+// desc: n_layers x 5 int64 (w, wx, b, k_h, k_x), offsets in elements.
+bool make_plan(const long long* desc, int n_layers, int x_cols, Plan* plan) {
   if (n_layers < 1 || n_layers > MAX_LAYERS) return false;
   if (x_cols <= 0 || x_cols > WIDTH || x_cols % 8 != 0) return false;
   plan->n = n_layers;
   plan->x_cols = x_cols;
   for (int l = 0; l < n_layers; ++l) {
-    const long long* d = desc + 7 * l;
-    Layer L{d[0], d[1], d[2], d[3], d[4], (int)d[5], (int)d[6]};
+    const long long* d = desc + 5 * l;
+    Layer L{d[0], d[1], d[2], (int)d[3], (int)d[4]};
     if (L.k_h <= 0 || L.k_h > WIDTH || L.k_h % 8 != 0) return false;
     if (l == 0 && (L.k_h != x_cols || L.k_x != 0)) return false;
     if (L.k_x != 0 && L.k_x != x_cols) return false;
     if (L.w < 0 || L.b < 0 || L.w % 8 || L.b % 8) return false;
     if (L.k_x && (L.wx < 0 || L.wx % 8)) return false;
-    if (need_backward) {
-      if (L.wt < 0 || L.wt % 8) return false;
-      if (L.k_x && (L.wxt < 0 || L.wxt % 8)) return false;
-    }
     plan->l[l] = L;
   }
   return true;

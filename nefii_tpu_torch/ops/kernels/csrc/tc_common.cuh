@@ -1,0 +1,211 @@
+// Hopper tensor-core building blocks shared by the two wgmma kernels of the
+// SDF MLP: K1 in bf16 (sdf_mlp_tc.cuh) and K2 in split bf16
+// (sdf_mlp_split.cuh). Both are warp-specialised and persistent: a block of
+// two consumer warpgroups and one producer warpgroup walks 64-row tiles; the
+// producer's one thread streams weight records from global memory into a
+// ring of shared-memory stages with cp.async.bulk and mbarriers, the
+// consumers run wgmma.mma_async (bf16 operands, fp32 accumulators in
+// registers) on the activation tile in shared memory and the record in its
+// stage. What lives here: the tile geometry, the 128-byte swizzle of the
+// activation tile, the wgmma descriptors and wrappers, the mbarriers, the
+// bulk copy and the ring.
+
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include "sdf_mlp.cuh"
+
+namespace {
+
+constexpr int TC_BM = 64;                       // rows a tile: the M of one wgmma
+constexpr int TC_CONSUMERS = 256;               // two warpgroups of 128
+constexpr int TC_THREADS = TC_CONSUMERS + 128;  // and a producer warpgroup
+constexpr int TC_TILE_BYTES = TC_BM * 64 * 2;   // a [64][64] bf16 activation chunk: 8 KB
+constexpr int TC_COPY_BYTES = 16384;            // one bulk copy of a ring record
+
+// byte offset of element (row, k) of a [rows][64] bf16 tile in the 128-byte
+// swizzled layout: the 16-byte group k/8 of a row sits at group (k/8) ^ (row % 8)
+__device__ __forceinline__ uint32_t sw128(int row, int k) {
+  return row * 128 + ((((k >> 3) ^ (row & 7)) << 4) | ((k & 7) << 1));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (the leading byte offset is unused by this layout)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// the same for rows of 32 bytes (16 bf16 of K) in the 32-byte swizzle: 8-row
+// groups 256 bytes apart, the two 16-byte halves of rows 4-7 of a group swapped
+__device__ __forceinline__ uint64_t wgmma_desc32(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// returns once at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads across a wgmma wait
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 256] (+)= A[64 x 16] B[16 x 256], both from shared memory, K-major
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_k16(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  wgmma_m64n256k16(d, da, db, scale_d);
+}
+// d[64 x 32] (+)= A[64 x 16] B[16 x 32]
+__device__ __forceinline__ void wgmma_k16(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// global -> shared bulk copy whose completion counts `bytes` on mbarrier `bar`
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// generic-proxy writes to shared memory become visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// barrier 1 over the two consumer warpgroups (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
+}
+
+// The weight ring: STAGES stages, and at `bars` STAGES full mbarriers (one
+// arrive, the producer's, plus the record's bytes) followed by STAGES empty
+// ones (one arrive per consumer warpgroup). Producer and consumers walk the
+// same sequence of records with a cursor each.
+template <int STAGES>
+struct Ring {
+  uint32_t bars;
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ explicit Ring(uint32_t b) : bars(b) {}
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (STAGES + s); }
+  __device__ void next() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+  // consumer: returns once the current stage's record has landed
+  __device__ void wait_full() const { mbar_wait(full(stage), phase); }
+};
+
+// one thread, before a __syncthreads
+template <int STAGES>
+__device__ __forceinline__ void ring_init(uint32_t bars) {
+  for (int s = 0; s < STAGES; ++s) {
+    mbar_init(bars + 8 * s, 1);
+    mbar_init(bars + 8 * (STAGES + s), 2);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The producer's one thread: streams records 0 .. n_rec - 1 of BYTES each
+// from src into the ring at `ring` (stage s at ring + s * BYTES), once for
+// every tile this block walks, in TC_COPY_BYTES copies.
+template <int STAGES, int BYTES>
+__device__ __forceinline__ void ring_produce(uint32_t ring, uint32_t bars, const uint8_t* src,
+                                             int n_rec, long long n_tiles) {
+  static_assert(BYTES % TC_COPY_BYTES == 0, "a record is whole bulk copies");
+  Ring<STAGES> rg(bars);
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    for (int c = 0; c < n_rec; ++c) {
+      mbar_wait(rg.empty(rg.stage), rg.phase ^ 1u);
+      mbar_arrive_expect_tx(rg.full(rg.stage), BYTES);
+      const uint8_t* s = src + (long long)c * BYTES;
+#pragma unroll
+      for (int q = 0; q < BYTES / TC_COPY_BYTES; ++q)
+        bulk_g2s(ring + rg.stage * BYTES + q * TC_COPY_BYTES, s + q * TC_COPY_BYTES,
+                 TC_COPY_BYTES, rg.full(rg.stage));
+      rg.next();
+    }
+  }
+}
+
+}  // namespace

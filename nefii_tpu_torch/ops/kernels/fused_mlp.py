@@ -15,14 +15,22 @@ ctypes):
   * `fused_fwd_bwd` (K2) replaces the Pallas `_kernel_fwd_bwd`: the forward
     plus the input-space backward of the sdf column, fp32. It gives sdf,
     feature and normal at every shading point and secondary hit
-    (`build_fused_sdf_feature_grad`).
+    (`build_fused_sdf_feature_grad`). It runs on the tensor cores in split
+    bf16 (`csrc/sdf_mlp_split.cuh`): every operand v is split into
+    hi = bf16(v) and lo = bf16(v - hi), and every product is
+    hi.hi + lo.hi + hi.lo in fp32, which keeps the fp32 chain's accuracy
+    (`fused_fwd_bwd_split_plain` is that arithmetic in plain PyTorch).
 
 `prepare_weights` resolves weight norm, pads and folds the skip layer's
 1/sqrt(2) into split weights once per call, into one packed buffer that the
-kernels and the plain versions share; in bf16 it also packs the tensor-core
-kernel's weight chunks (`pack_tc`). The final linear (outside
-`fused_sdf_value`) and the positional encoding's backward stay outside the
-kernels, as in the JAX package.
+kernels and the plain versions share; in bf16 it also packs K1's tensor-core
+chunks (`pack_tc`). K2 packs its split hi/lo records of both passes
+(`split_weights`) at its first launch and keeps them on the FusedWeights.
+`network_weights` keeps one FusedWeights a network and dtype while the
+parameters do not change, so the closures, built at every forward, pack a
+frozen geometry once. The final linear (outside `fused_sdf_value`) and the
+positional encoding's backward stay outside the kernels, as in the JAX
+package.
 
 A wrapper given a CUDA tensor launches its kernel or raises; the plain
 version (`*_plain`) runs only for tensors on the CPU, and it is what the
@@ -50,6 +58,11 @@ KERNEL_WIDTH = 512    # hidden width the CUDA kernels take (WIDTH in csrc/fused_
 FMA_BLOCK_ROWS, FMA_BLOCKS_PER_SM = 32, 2
 TC_BLOCK_ROWS, TC_BLOCKS_PER_SM = 64, 1
 TC_K = 64             # input rows of one tensor-core weight chunk (TC_BK)
+# K2's weight records (csrc/sdf_mlp_split.cuh): a record is SPLIT_REC bf16
+# values, the hi or the lo half of k16 slices of a K-major [N][16] block in
+# the 32-byte swizzle; one slice a record at N = 512, SPLIT_REC // (SPLIT_NX
+# * 16) = 8 at the backward's x_cols-wide outputs, padded to N = SPLIT_NX
+SPLIT_K, SPLIT_REC, SPLIT_NX = 16, 8192, 64
 
 
 def reset_launch_counts() -> None:
@@ -73,8 +86,8 @@ class FusedLayer:
 
 @dataclass
 class FusedWeights:
-    buf: torch.Tensor        # packed weights, biases and transposes, working dtype
-    desc: List[int]          # per layer: w, wx, b, wt, wxt offsets (elements), k_h, k_x
+    buf: torch.Tensor        # packed weights and biases, working dtype
+    desc: List[int]          # per layer: w, wx, b offsets (elements), k_h, k_x
     layers: List[FusedLayer]
     width: int               # padded width of every fused layer's output
     x_cols: int              # padded embedding width
@@ -87,7 +100,10 @@ class FusedWeights:
     multires: int
     d_in: int
     embed_fn: object
-    tc: Optional[torch.Tensor] = None  # bf16: the tensor-core kernel's weight chunks
+    tc: Optional[torch.Tensor] = None     # bf16 only: K1's tensor-core chunks (pack_tc)
+    # fp32 only: K2's split records of both passes in the order it reads
+    # them, packed by split_weights at K2's first launch
+    split: Optional[torch.Tensor] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -140,12 +156,10 @@ def prepare_weights(network, dtype: torch.dtype = torch.float32) -> FusedWeights
         o_w = put(wa)
         o_wx = put(wb) if wb is not None else -1
         o_b = put(b)
-        o_wt = put(wa.t().contiguous())
-        o_wxt = put(wb.t().contiguous()) if wb is not None else -1
-        desc += [o_w, o_wx, o_b, o_wt, o_wxt, k_h, k_x]
+        desc += [o_w, o_wx, o_b, k_h, k_x]
         shapes.append((o_w, o_wx, o_b, k_h, k_x))
         if dtype == torch.bfloat16:
-            tc_parts += [pack_tc(wa)] + ([pack_tc(wb)] if wb is not None else [])
+            tc_parts += [pack_tc(w) for w in ([wa] + ([wb] if wb is not None else []))]
     buf = torch.cat(blocks).to(dtype).contiguous()
 
     layers = []
@@ -166,7 +180,7 @@ def prepare_weights(network, dtype: torch.dtype = torch.float32) -> FusedWeights
         real_width=real_width, w_last=w_last, b_last=b_last, wlast_col=wlast_col,
         b_sdf=float(b_last[0]), multires=network.multires, d_in=network.d_in,
         embed_fn=embed_fn,
-        tc=torch.cat(tc_parts).to(dtype).contiguous() if dtype == torch.bfloat16 else None,
+        tc=torch.cat(tc_parts).to(torch.bfloat16).contiguous() if tc_parts else None,
     )
 
 
@@ -189,6 +203,65 @@ def pack_tc(w: torch.Tensor) -> torch.Tensor:
     n = -(-k // TC_K)
     wt = F.pad(w, (0, 0, 0, n * TC_K - k)).t().reshape(width, n, TC_K).permute(1, 0, 2)
     return _swizzle128(wt.contiguous()).reshape(-1)
+
+
+def _swizzle32(t: torch.Tensor) -> torch.Tensor:
+    """[..., rows, 16] -> the same values in the 32-byte swizzled layout of
+    wgmma: in row r, the 8-element half h is stored at half h ^ ((r // 4) % 2)."""
+    r = torch.arange(t.shape[-2], device=t.device)[:, None]
+    col = torch.arange(SPLIT_K, device=t.device)[None, :]
+    return torch.gather(t, -1, (((col // 8) ^ ((r // 4) % 2)) * 8 + col % 8).expand(t.shape))
+
+
+def split_bf16(t: torch.Tensor):
+    """fp32 t -> (hi, lo) bf16 with hi = bf16(t), lo = bf16(t - hi), both
+    rounded to nearest even, as the split kernel rounds its operands."""
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
+
+
+def pack_split(b: torch.Tensor, n_pad: int, group: int) -> torch.Tensor:
+    """One K-major operand block b [n, k] (row i holds the k inputs of the
+    product's output column i) -> K2's records, flat bf16: n zero padded to n_pad and k to a
+    multiple of 16, cut into k16 slices [n_pad][16] in the 32-byte swizzle,
+    split into hi and lo; every `group` slices give a hi record and then a lo
+    record, so one bulk copy lands a record as the wgmma B descriptor reads it."""
+    n, k = b.shape
+    kp = _round_up(k, SPLIT_K)
+    slices = F.pad(b.float(), (0, kp - k, 0, n_pad - n)).reshape(n_pad, kp // SPLIT_K, SPLIT_K)
+    slices = slices.permute(1, 0, 2).contiguous()
+    hi, lo = (_swizzle32(t).reshape(-1, group * n_pad * SPLIT_K) for t in split_bf16(slices))
+    return torch.stack([hi, lo], 1).reshape(-1)
+
+
+@torch.no_grad()
+def split_weights(fw: FusedWeights) -> torch.Tensor:
+    """K2's records (pack_split) of fp32 weights, packed once and kept in
+    fw.split: per layer the forward's B = W^T ([width out][k in]), then from
+    the top layer the backward's B = W itself ([k in][width out]; N = k
+    padded to width, or to SPLIT_NX for the x_cols-wide outputs of layer 0
+    and the skip layer's x part)."""
+    if fw.split is None:
+        narrow = fw.width // SPLIT_NX
+        parts = [pack_split(w.t(), fw.width, 1) for L in fw.layers for w in (L.w, L.wx)
+                 if w is not None]
+        for l in reversed(range(len(fw.layers))):
+            L = fw.layers[l]
+            parts.append(pack_split(L.w, fw.width, 1) if l else pack_split(L.w, SPLIT_NX, narrow))
+            if L.wx is not None:
+                parts.append(pack_split(L.wx, SPLIT_NX, narrow))
+        fw.split = torch.cat(parts).contiguous()
+    return fw.split
+
+
+def split_records(fw: FusedWeights) -> int:
+    """Records of pack_split that K2 streams a tile, in the kernel's count
+    (split_records in csrc/sdf_mlp_split.cuh): forward, one slice of N =
+    width a record; backward, width / 16 slices of N = width, or of N =
+    SPLIT_NX at width // SPLIT_NX slices a record."""
+    narrow = 2 * (fw.width // SPLIT_K) // (fw.width // SPLIT_NX)
+    return sum(2 * (L.k_h + L.k_x) // SPLIT_K + (2 * fw.width // SPLIT_K if l else narrow)
+               + (narrow if L.k_x else 0) for l, L in enumerate(fw.layers))
 
 
 def embed_padded(pts: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
@@ -229,15 +302,16 @@ def fused_sdf_value_plain(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     return (h @ fw.w_last[:, :1])[:, 0] + fw.b_last[0]
 
 
-def fused_fwd_bwd_plain(x: torch.Tensor, fw: FusedWeights):
-    """K2 in plain PyTorch (fp32): (last hidden [N, width], d sdf/d x [N, x_cols])."""
+def _fwd_bwd(x: torch.Tensor, fw: FusedWeights, mm):
+    """K2's chain with the matrix product `mm`: (last hidden [N, width],
+    d sdf/d x [N, x_cols])."""
     xf = x.float()
     h = xf
     zs = []
     for L in fw.layers:
-        z = h[:, :L.k_h] @ L.w.float()
+        z = mm(h[:, :L.k_h], L.w.float())
         if L.wx is not None:
-            z = z + xf @ L.wx.float()
+            z = z + mm(xf, L.wx.float())
         z = z + L.b.float()
         zs.append(z)
         h = _softplus100(z)
@@ -246,9 +320,28 @@ def fused_fwd_bwd_plain(x: torch.Tensor, fw: FusedWeights):
     for L, z in zip(reversed(fw.layers), reversed(zs)):
         gz = g * torch.sigmoid(z * 100.0)
         if L.wx is not None:
-            gx = gx + gz @ L.wx.float().t()
-        g = F.pad(gz @ L.w.float().t(), (0, fw.width - L.k_h))
+            gx = gx + mm(gz, L.wx.float().t())
+        g = F.pad(mm(gz, L.w.float().t()), (0, fw.width - L.k_h))
     return h, gx + g[:, :fw.x_cols]
+
+
+def fused_fwd_bwd_plain(x: torch.Tensor, fw: FusedWeights):
+    """K2 in plain PyTorch (fp32): (last hidden [N, width], d sdf/d x [N, x_cols])."""
+    return _fwd_bwd(x, fw, torch.matmul)
+
+
+def _split_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    ah, al = (t.float() for t in split_bf16(a))
+    wh, wl = (t.float() for t in split_bf16(w))
+    return ah @ wh + al @ wh + ah @ wl
+
+
+def fused_fwd_bwd_split_plain(x: torch.Tensor, fw: FusedWeights):
+    """K2 in the kernel's split-bf16 arithmetic, in plain PyTorch: every
+    product a.w is a_hi.w_hi + a_lo.w_hi + a_hi.w_lo in fp32 (exact bf16
+    products, fp32 sums). On no path: it tells the scheme's error (against
+    fused_fwd_bwd_plain) from the kernel's (against this)."""
+    return _fwd_bwd(x, fw, _split_mm)
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +361,7 @@ def _lib() -> ctypes.CDLL:
         lib.nefii_sdf_hidden.argtypes = [vp, vp, pll, i, i, vp, ll, i, vp]
         lib.nefii_sdf_hidden_tc.argtypes = [vp, vp, vp, pll, i, i, vp, ll, i, vp]
         lib.nefii_sdf_value.argtypes = [vp, vp, vp, pll, i, i, vp, f, vp, ll, i, vp]
-        lib.nefii_sdf_fwd_bwd.argtypes = [vp, vp, pll, i, i, vp, vp, vp, vp, ll, i, vp]
+        lib.nefii_sdf_fwd_bwd.argtypes = [vp, vp, vp, pll, i, i, vp, vp, vp, vp, i, ll, i, vp]
         for fn in (lib.nefii_sdf_hidden, lib.nefii_sdf_hidden_tc, lib.nefii_sdf_value,
                    lib.nefii_sdf_fwd_bwd):
             fn.restype = i
@@ -391,30 +484,49 @@ def fused_sdf_value(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     return out
 
 
+def _check_split(x: torch.Tensor, fw: FusedWeights, name: str) -> torch.Tensor:
+    """What K2's tensor-core kernel takes beyond _check_cuda: fp32, an
+    embedding of at most SPLIT_NX columns, and its split records (packed
+    here at the first launch) on the device, whole, contiguous and 16-byte
+    aligned (the bulk copies'). -> the records."""
+    _check_cuda(x, fw, name)
+    if fw.dtype != torch.float32:
+        raise ValueError(f"{name}: the forward+backward kernel is fp32 only")
+    if fw.x_cols > SPLIT_NX:
+        raise ValueError(f"{name}: the kernel takes at most {SPLIT_NX} embedding columns, "
+                         f"this network has {fw.x_cols}")
+    rec = split_weights(fw)
+    if rec.device != x.device or rec.dtype != torch.bfloat16 \
+            or rec.numel() != split_records(fw) * SPLIT_REC:
+        raise ValueError(f"{name}: the packed split weights do not match the network")
+    if not rec.is_contiguous() or rec.data_ptr() % 16:
+        raise ValueError(f"{name}: the packed weights must be contiguous and 16-byte aligned")
+    return rec
+
+
 def fused_fwd_bwd(x: torch.Tensor, fw: FusedWeights):
     """K2: embedded points [N, x_cols] fp32 -> (last hidden [N, width],
-    d sdf / d x [N, x_cols]), fp32."""
+    d sdf / d x [N, x_cols]), fp32, on the tensor cores in split bf16."""
     if x.device.type == "cpu":
         return fused_fwd_bwd_plain(x, fw)
-    _check_cuda(x, fw, "fused_fwd_bwd")
-    if fw.dtype != torch.float32:
-        raise ValueError("fused_fwd_bwd: the forward+backward kernel is fp32 only")
+    rec = _check_split(x, fw, "fused_fwd_bwd")
     n = x.shape[0]
     h = torch.empty(n, fw.width, dtype=torch.float32, device=x.device)
     dx = torch.empty(n, fw.x_cols, dtype=torch.float32, device=x.device)
     if n == 0:
         return h, dx
     lib = _lib()
-    grid = _grid(n, x.device, FMA_BLOCK_ROWS, FMA_BLOCKS_PER_SM)
-    # pre-activation scratch: one slot per resident block, not per row
-    zbuf = torch.empty(grid * len(fw.layers) * FMA_BLOCK_ROWS * fw.width,
+    grid = _grid(n, x.device, TC_BLOCK_ROWS, TC_BLOCKS_PER_SM)
+    # s = sigmoid(100 z) of every layer but the last: one slot per resident
+    # block, not per row
+    sbuf = torch.empty(grid * (len(fw.layers) - 1) * TC_BLOCK_ROWS * fw.width,
                        dtype=torch.float32, device=x.device)
     wlast = fw.wlast_col.to(x.device).contiguous()
     desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
     err = lib.nefii_sdf_fwd_bwd(
-        x.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, wlast.data_ptr(),
-        h.data_ptr(), dx.data_ptr(), zbuf.data_ptr(), n, grid,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), rec.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols,
+        wlast.data_ptr(), h.data_ptr(), dx.data_ptr(), sbuf.data_ptr(), rec.numel() // SPLIT_REC,
+        n, grid, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "fused_fwd_bwd", lib)
     LAUNCHES["fused_sdf_fwd_bwd"] += 1
     return h, dx
@@ -423,6 +535,18 @@ def fused_fwd_bwd(x: torch.Tensor, fw: FusedWeights):
 # ---------------------------------------------------------------------------
 # network-level closures (counterparts of build_fused_sdf / _feature_grad)
 # ---------------------------------------------------------------------------
+
+def network_weights(network, dtype: torch.dtype = torch.float32) -> FusedWeights:
+    """prepare_weights(network, dtype), kept on the network and reused while
+    its parameters are the same tensors with no in-place write since (their
+    version counters). The model builds its closures at every forward; on a
+    frozen geometry they so share one packing, K2's records included."""
+    key = tuple((p.device, p.data_ptr(), p._version) for p in network.parameters())
+    cache = network.__dict__.setdefault("_fused_weights", {})
+    if dtype not in cache or cache[dtype][0] != key:
+        cache[dtype] = (key, prepare_weights(network, dtype))
+    return cache[dtype][1]
+
 
 def pe_backward(dx_emb: torch.Tensor, pts: torch.Tensor, multires: int) -> torch.Tensor:
     """VJP of the positional encoding: [N, d(1+2m)] cotangent -> [N, d]."""
@@ -441,7 +565,7 @@ def build_fused_sdf(network, dtype: torch.dtype = torch.float32):
     """fn(pts [N,3]) -> sdf [N]: K1's hidden chain + the sdf column in fp32.
     In bf16 the column is reduced inside the tensor-core kernel
     (fused_sdf_value); in fp32 after the FMA kernel."""
-    fw = prepare_weights(network, dtype)
+    fw = network_weights(network, dtype)
 
     def fn(pts: torch.Tensor) -> torch.Tensor:
         x = embed_padded(pts, fw)
@@ -456,7 +580,7 @@ def build_fused_sdf(network, dtype: torch.dtype = torch.float32):
 def build_fused_sdf_feature_grad(network):
     """fn(pts [N,3]) -> (sdf [N], feature [N,F], grad [N,3]), value-only (K2)."""
     assert network.d_out == 1, "the gradient kernel assumes a single sdf output"
-    fw = prepare_weights(network, torch.float32)
+    fw = network_weights(network, torch.float32)
 
     def fn(pts: torch.Tensor):
         pts = pts.detach()

@@ -26,7 +26,7 @@ from typing import Dict
 import torch
 
 from nefii_tpu_torch.ops.kernels.fused_mlp import (
-    KERNEL_WIDTH, FusedWeights, embed_padded, fused_hidden_plain, prepare_weights,
+    KERNEL_WIDTH, FusedWeights, embed_padded, fused_hidden_plain, network_weights,
 )
 
 # launches of the CUDA kernel; the wrapper adds one where it launches, nowhere else
@@ -195,7 +195,7 @@ def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, t
 def build_fused_sphere_trace(network, tracer):
     """fn(cam, dirs, mask_intersect, near, far) -> (acc_start, acc_end,
     unfinished_start, min_dis, max_dis, n_evals), through K3."""
-    fw = prepare_weights(network, torch.float32)
+    fw = network_weights(network, torch.float32)
 
     def fn(cam, dirs, mask_intersect, near, far):
         acc_s, acc_e, unf, n_evals = fused_sphere_trace(

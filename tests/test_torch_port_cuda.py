@@ -6,10 +6,13 @@ a machine that has only PyTorch:
 
 Tolerances, kernel against its plain PyTorch version on the same CUDA
 tensors: fp32 within 1e-4 absolute (FMA chain vs cuBLAS summation order over
-8 layers of 512-long dot products); bf16 (the tensor-core K1 and its sdf
-entry) within 1e-2 of the largest value (one bf16 rounding of h flipped by
-the order propagates); the input gradient within 1e-3 of its largest value.
+8 layers of 512-long dot products; K2's split bf16 stays within ~1e-5 of the
+fp32 chain); bf16 (the tensor-core K1 and its sdf entry) within 1e-2 of the
+largest value (one bf16 rounding of h flipped by the order propagates); the
+input gradient within 1e-3 of its largest value.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -48,16 +51,22 @@ def test_k1_kernel_matches_plain(dtype):
     assert (h - ref).abs().max().item() <= bound
 
 
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 5000, 262_144])
 @torch.no_grad()
-def test_k2_kernel_matches_plain():
-    net, pts = _flagship()
+def test_k2_kernel_matches_plain(n):
+    """K2 on the tensor cores in split bf16, at ragged sizes around its
+    64-row tile and at 262,144 points, against the fp32 plain version."""
+    net, _ = _flagship()
     fw = fm.prepare_weights(net)
+    pts = torch.randn(n, 3, generator=torch.Generator(device="cuda").manual_seed(n),
+                      device="cuda") * 0.5
     x = fm.embed_padded(pts, fw)
     fm.reset_launch_counts()
     h, dx = fm.fused_fwd_bwd(x, fw)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES["fused_sdf_fwd_bwd"] == 1
+    assert fm.LAUNCHES["fused_sdf_fwd_bwd"] == 1 and sum(fm.LAUNCHES.values()) == 1
     h_r, dx_r = fm.fused_fwd_bwd_plain(x, fw)
+    assert h.shape == (n, 512) and dx.shape == (n, fw.x_cols)
     assert (h - h_r).abs().max().item() <= 1e-4
     assert (dx - dx_r).abs().max().item() <= 1e-3 * dx_r.abs().max().item()
 
@@ -78,6 +87,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         fm.fused_fwd_bwd(fm.embed_padded(pts, fm.prepare_weights(net, torch.bfloat16)),
                          fm.prepare_weights(net, torch.bfloat16))  # K2 is fp32 only
+    with pytest.raises(ValueError):
+        fm.fused_fwd_bwd(x, dataclasses.replace(fw, split=fm.split_weights(fw)[:-8]))  # cut
     with pytest.raises(ValueError):
         fm.fused_sdf_value(x, fw)  # the sdf entry is the bf16 tensor-core kernel
     assert all(n == 0 for n in fm.LAUNCHES.values())

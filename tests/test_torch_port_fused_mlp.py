@@ -127,7 +127,10 @@ def test_tensor_core_chunks_pack_every_layer():
     back exactly."""
     _, _, net = _nets("flagship-8x512")
     fw = fm.prepare_weights(net, torch.bfloat16)
-    assert fm.prepare_weights(net).tc is None  # fp32 runs no tensor-core kernel
+    # fp32 packs no chunks: K2 packs its split records at its first launch
+    # (split_weights, test_split_records_pack_both_passes)
+    fw32 = fm.prepare_weights(net)
+    assert fw32.tc is None and fw32.split is None and fw.split is None
     off = 0
     for L in fw.layers:
         for w, k in ((L.w, L.k_h), (L.wx, L.k_x)):
@@ -162,6 +165,112 @@ def test_k2_plain_matches_pallas(name):
     np.testing.assert_allclose(sdf_t, sdf_j, atol=FP32_TOL)
     np.testing.assert_allclose(feat_t, feat_j, atol=FP32_TOL)
     np.testing.assert_allclose(grad_t, grad_j, atol=GRAD_TOL)
+
+
+def _unpack_split(rec, n_pad, group):
+    """K2's records of one block -> (hi, lo), each [n_pad, k] bf16 (row i
+    holds the K-major data of B row i); the swizzle undoes itself."""
+    r = fm._swizzle32(rec.view(-1, 2, group, n_pad, fm.SPLIT_K))
+
+    def whole(t):
+        return t.reshape(-1, n_pad, fm.SPLIT_K).permute(1, 0, 2).reshape(n_pad, -1)
+
+    return whole(r[:, 0]), whole(r[:, 1])
+
+
+def test_split_records_pack_both_passes():
+    """split_weights' fp32 records for K2's tensor-core kernel, in the order
+    it streams them: per layer the forward B = W^T ([512 out][k in]), then
+    from the top layer the backward B = W itself ([k in][512 out], N padded
+    to 512, or to 64 with 8 slices a record at layer 0 and the skip layer's x
+    part). hi is bf16(w), hi + lo gives w back within 2^-16 relative, the
+    padding is zero, the rows are 32-byte swizzled, and the flagship net has
+    920 records of 16 KB."""
+    _, _, net = _nets("flagship-8x512")
+    fw = fm.prepare_weights(net)
+    rec = fm.SPLIT_REC
+    records = fm.split_weights(fw)
+    assert fw.split is records and fm.split_weights(fw) is records  # packed once, kept
+    assert records.dtype == torch.bfloat16
+    assert records.numel() == fm.split_records(fw) * rec == 920 * rec
+    assert fm.prepare_weights(net, torch.bfloat16).tc.numel() == 58 * 512 * 64  # K1's chunks
+
+    # row r of a slice holds its 8-element half h at half h ^ ((r // 4) % 2)
+    raw = records[:rec].view(512, 16)  # layer 0's first forward slice, hi
+    logical = fw.layers[0].w.t()[:, :16].to(torch.bfloat16)
+    for r in (3, 5, 12):
+        for h in (0, 1):
+            hs = h ^ ((r // 4) % 2)
+            assert torch.equal(raw[r, 8 * hs:8 * hs + 8], logical[r, 8 * h:8 * h + 8])
+
+    off = 0
+
+    def check(n_pad, group, ref):
+        nonlocal off
+        n, k = ref.shape
+        n_rec = 2 * (-(-k // 16)) // group
+        hi, lo = _unpack_split(records[off:off + n_rec * rec], n_pad, group)
+        off += n_rec * rec
+        assert hi.shape == (n_pad, -(-k // 16) * 16)
+        assert torch.equal(hi[:n, :k], ref.to(torch.bfloat16))
+        err = (hi[:n, :k].float() + lo[:n, :k].float() - ref).abs()
+        assert bool((err <= 2.0 ** -16 * ref.abs()).all())
+        assert not hi[n:].any() and not hi[:, k:].any() and not lo[n:].any()
+
+    for L in fw.layers:
+        for w in (L.w, L.wx):
+            if w is not None:
+                check(512, 1, w.t())
+    for l in reversed(range(len(fw.layers))):
+        L = fw.layers[l]
+        check(512, 1, L.w) if l else check(64, 8, L.w)  # W_l itself, not its transpose
+        if L.wx is not None:
+            check(64, 8, L.wx)
+    assert off == records.numel()
+
+
+@pytest.mark.parametrize("name", ["flagship-8x512", "narrow-no-lastf", "tiny-no-pe"])
+def test_k2_split_arithmetic_matches_pallas(name, monkeypatch):
+    """The tensor-core K2's split-bf16 arithmetic (fused_fwd_bwd_split_plain:
+    every product a_hi.w_hi + a_lo.w_hi + a_hi.w_lo in fp32) through
+    build_fused_sdf_feature_grad against the Pallas K2 in interpret mode,
+    under test_k2_plain_matches_pallas's fp32 gates."""
+    jnet, params, net = _nets(name)
+    pts = _pts(300)
+    sdf_j, feat_j, grad_j = (np.asarray(a) for a in jfm.build_fused_sdf_feature_grad(
+        jnet, params, tile=128, interpret=True)(pts))
+    monkeypatch.setattr(fm, "fused_fwd_bwd", fm.fused_fwd_bwd_split_plain)
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        sdf_t, feat_t, grad_t = (a.numpy() for a in
+                                 fm.build_fused_sdf_feature_grad(net)(torch.from_numpy(pts)))
+    assert all(n == 0 for n in fm.LAUNCHES.values())
+    np.testing.assert_allclose(sdf_t, sdf_j, atol=FP32_TOL)
+    np.testing.assert_allclose(feat_t, feat_j, atol=FP32_TOL)
+    np.testing.assert_allclose(grad_t, grad_j, atol=GRAD_TOL)
+
+
+def test_network_weights_pack_once_until_the_parameters_change():
+    """The closures' weights (network_weights): one FusedWeights a network and
+    dtype, reused while the parameters are unchanged, so K2's records are
+    packed once on a frozen geometry; an in-place write to a parameter (a
+    checkpoint load, an optimizer step) packs them anew."""
+    _, _, net = _nets("small-4x64")
+    fw = fm.network_weights(net)
+    assert fm.network_weights(net) is fw
+    assert fm.network_weights(net, torch.bfloat16) is not fw
+    assert fm.network_weights(net, torch.bfloat16) is fm.network_weights(net, torch.bfloat16)
+    fm.split_weights(fw)
+    assert fm.network_weights(net).split is fw.split
+    pts = torch.from_numpy(_pts(50))
+    before = fm.build_fused_sdf_feature_grad(net)(pts)[0]
+    with torch.no_grad():
+        net.layers[0].b.add_(0.25)
+    fresh = fm.network_weights(net)
+    assert fresh is not fw and fresh.split is None
+    assert torch.allclose(fresh.layers[0].b, fw.layers[0].b + 0.25)
+    after = fm.build_fused_sdf_feature_grad(net)(pts)[0]
+    assert not torch.allclose(after, before)
 
 
 def test_wrappers_cpu_plain_empty_and_other_devices_raise():
