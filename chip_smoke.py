@@ -16,11 +16,15 @@ Phases, each of which raises on failure (exit code != 0):
    from the kernel's); time them with CUDA events, the fp32 FMA K1 beside
    the tensor-core one, and print the tensor-core kernels' TFLOP/s and the
    L2 weight bytes a call requests by their design (computed, not measured).
-4. trace-kernel: K3, the whole sphere trace, on 262,144 rays of one 512x512
-   view of the seeded-init sphere (camera rays, and random pixels in random
-   order) against its plain version; the port's gathered tracer through K1
+4. trace-kernel: K3, the whole sphere trace (split fp16 on the tensor cores
+   over a pool of live rays), on 262,144 rays of one 512x512 view of the
+   seeded-init sphere (camera rays and random pixels in random order under
+   the primary tracer, the random pixels under the secondary tracer) against
+   its fp32 plain version (and its split-fp16 plain version, to tell the
+   scheme's error from the kernel's); the port's gathered tracer through K1
    fp32 is timed beside them, and its count of the evaluations the rays need
-   gives K3's bound.
+   gives K3's bounds and must match the kernel's count. Prints the tiles'
+   fill.
 5. reference: a 16x16-ray render of confs/conf.conf (trace switched to fp32)
    through the kernels on the card against the same render through the plain
    versions on the CPU, on what no Monte-Carlo sample touches (hit mask,
@@ -28,7 +32,10 @@ Phases, each of which raises on failure (exit code != 0):
 6. train-reference: one frozen-geometry training step of confs/conf.conf
    (fp32, K3 on) on 64 pixels x 4 rays through the kernels on the card
    against the plain versions on the CPU, with injected directions and
-   min-SDF vector: the loss and each parameter group's gradient.
+   min-SDF vector: the loss and each parameter group's gradient. For each K3
+   call of the step, the rays on which the kernel decides otherwise than
+   the fp32 plain version on the same rays, and whether the split-fp16
+   plain version decides as the kernel does.
 7. render: build confs/conf.conf unchanged with the port's seeded geometric
    init, save the checkpoint in the JAX package's .npz layout, and render two
    128x128 views with 16 rays per pixel through
@@ -311,10 +318,11 @@ def phase_kernels():
 
 
 TRACE_RES = 512
-# K3 on the card against its plain version on the same rays, both fp32: they
-# differ by summation order, which the 5e-5 stop threshold can amplify into a
-# flipped convergence (as REF_TOL below), which moves a ray's unfinished or
-# hit flag; a flip can keep one tile alive for one more evaluation
+# K3 on the card against its plain version on the same rays, both fp32
+# accurate (the kernel in split fp16): they differ by summation order, which
+# the 5e-5 stop threshold can amplify into a flipped convergence (as REF_TOL
+# below), which moves a ray's unfinished or hit flag and its count of
+# evaluations
 TRACE_TOL = {"unfinished_agree": 0.999, "hit_agree": 0.999, "abs": 1e-4, "evals_rel": 0.01}
 
 
@@ -348,20 +356,37 @@ def _trace_rays(tracer, device):
     return sets
 
 
-def _conf_tracer():
+def _conf_tracer(secondary=False):
+    """The primary tracer of confs/conf.conf, or its secondary tracer (the
+    secondary_ray_tracer block over the primary's settings, as IDRNetwork
+    builds it)."""
     from nefii_tpu_torch.models.idr import _dense_tracer_conf
     from nefii_tpu_torch.ops.ray_tracing import RayTracer
 
-    return RayTracer(**_dense_tracer_conf(
-        _model_conf().get_config("model.ray_tracer").as_plain_dict()))
+    conf = _model_conf().get_config("model")
+    tc = _dense_tracer_conf(conf.get_config("ray_tracer").as_plain_dict())
+    if secondary:
+        tc = {**tc, **_dense_tracer_conf(conf.get_config("secondary_ray_tracer").as_plain_dict())}
+    return RayTracer(**tc)
+
+
+def _trace_agreement(out, ref):
+    """(unfinished agreement, hit agreement, max abs distance error on the rays
+    that agree on both) of two traces' (acc_start, acc_end, unfinished)."""
+    from nefii_tpu_torch.ops.kernels.fused_trace import agreement
+
+    unf, hit, err = agreement(out, ref)
+    n = out[0].shape[0]
+    return 1.0 - unf / n, 1.0 - hit / n, err
 
 
 def phase_trace_kernel(card):
-    """K3 at full width on N_POINTS rays in two sets, against its plain version;
-    the gathered tracer through K1 fp32 is timed beside them as a yardstick.
-    K3's bound counts the evaluations the rays need (the gathered tracer's
-    count: live rays only); what K3 executes beyond them (whole tiles while
-    one ray lives, padding) is printed as waste."""
+    """K3 at full width on N_POINTS rays: camera and random rays under the
+    primary tracer, random rays under the secondary tracer; against its fp32
+    plain version (the gate) and its split-fp16 plain version (the scheme's
+    own error beside the kernel's). The gathered tracer through K1 fp32 is
+    timed beside them; its count is the evaluations the rays need, which
+    gives K3's bounds and which the kernel's count must match."""
     import torch
 
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
@@ -369,47 +394,66 @@ def phase_trace_kernel(card):
 
     dev = torch.device("cuda", 0)
     net = _flagship_net(dev)
-    tracer = _conf_tracer()
+    tracer, secondary = _conf_tracer(), _conf_tracer(secondary=True)
     fw = fm.prepare_weights(net, torch.float32)
     sdf_k1 = fm.build_fused_sdf(net, torch.float32)
     hidden_flops, col_flops = _chain_flops(net)
+    sets = _trace_rays(tracer, dev)
+    cases = (("camera", tracer, sets["camera"]), ("random", tracer, sets["random"]),
+             ("random_secondary", secondary, sets["random"]))
     res = {}
     with torch.no_grad():
-        for name, rays in _trace_rays(tracer, dev).items():
-            out = ft.fused_sphere_trace(*rays, fw, tracer)
+        for name, tr, rays in cases:
+            stats = {}
+            out = ft.fused_sphere_trace(*rays, fw, tr, stats=stats)
             torch.cuda.synchronize()
-            ref = ft.fused_sphere_trace_plain(*rays, fw, tracer)
-            unf_same = out[2] == ref[2]
-            hit_same = (out[0] < out[1]) == (ref[0] < ref[1])
-            same = unf_same & hit_same
-            err = max((out[0] - ref[0])[same].abs().max().item(),
-                      (out[1] - ref[1])[same].abs().max().item())
-            unf_agree = unf_same.float().mean().item()
-            hit_agree = hit_same.float().mean().item()
+            ref = ft.fused_sphere_trace_plain(*rays, fw, tr)
+            split = ft.fused_sphere_trace_plain(*rays, fw, tr, split=True)
+            unf_agree, hit_agree, err = _trace_agreement(out, ref)
+            sp_unf, sp_hit, sp_err = _trace_agreement(out, split)
+            sc_unf, sc_hit, sc_err = _trace_agreement(split, ref)
+            needed = int(tr._sphere_trace(sdf_k1, *rays)[3])
             evals_rel = abs(out[3] - ref[3]) / ref[3]
+            needed_rel = abs(out[3] - needed) / needed
             hits = float((out[0] < out[1]).float().mean())
-            needed = int(tracer._sphere_trace(sdf_k1, *rays)[3])
-            ms = _time(lambda: ft.fused_sphere_trace(*rays, fw, tracer), reps=3)
-            plain_ms = _time(lambda: ft.fused_sphere_trace_plain(*rays, fw, tracer), reps=1)
-            gathered_ms = _time(lambda: tracer._sphere_trace(sdf_k1, *rays), reps=1)
+            ms = _time(lambda: ft.fused_sphere_trace(*rays, fw, tr), reps=3)
+            plain_ms = _time(lambda: ft.fused_sphere_trace_plain(*rays, fw, tr), reps=1)
+            gathered_ms = _time(lambda: tr._sphere_trace(sdf_k1, *rays), reps=1)
             n = rays[0].shape[0]
-            bound = _bound(needed * (hidden_flops + col_flops),
-                           n * (8 * 4 + 1) + n * (2 * 4 + 1) + fw.buf.numel() * 4, "fp32")
-            waste = 1.0 - needed / out[3]
-            print(f"[trace-kernel] K3 {name} rays: N={n} hit fraction {hits:.3f} unfinished "
-                  f"agreement {unf_agree:.6f} hit agreement {hit_agree:.6f} max_abs_err "
-                  f"{err:.3e} evals kernel {out[3]} plain {ref[3]} ({evals_rel:.2e} rel, "
-                  f"{out[3] / n:.2f}/ray) needed {needed} ({needed / n:.2f}/ray; {waste:.1%} of "
-                  f"the executed are waste) kernel {ms:.3f} ms plain {plain_ms:.3f} ms gathered "
-                  f"K1-fp32 tracer {gathered_ms:.3f} ms bound {bound['bound_ms']:.3f} ms "
-                  f"({bound['bound_by']}) [{card}]", flush=True)
+            rows = stats["tiles"] * fm.TC_BLOCK_ROWS
+            fill, waste = out[3] / rows, stats["empty_rows"] / rows
+            # the work the rays need, three fp16 products a multiply-add on
+            # the tensor cores (bf16's rate); the FP32 pipe's bound beside it
+            rec_bytes = ft.forward_records(fw) * fm.SPLIT_REC * 2
+            nbytes = n * (8 * 4 + 1) + n * (2 * 4 + 1) + rec_bytes
+            bound = _bound(needed * (hidden_flops + col_flops) * 3, nbytes, "bf16")
+            fp32 = _bound(needed * (hidden_flops + col_flops), nbytes, "fp32")
+            # computed from the design, not measured: every tile requests every
+            # forward record from L2
+            l2_bytes = stats["tiles"] * rec_bytes
+            print(f"[trace-kernel] K3 {name} rays (sphere_tracing_iters {tr.sphere_tracing_iters}, "
+                  f"line_step_iters {tr.line_step_iters}): N={n} hit fraction {hits:.3f}; against "
+                  f"the fp32 plain version: unfinished agreement {unf_agree:.6f} hit agreement "
+                  f"{hit_agree:.6f} max_abs_err {err:.3e}; against the split-fp16 plain version: "
+                  f"{sp_unf:.6f} / {sp_hit:.6f} / {sp_err:.3e}; the split-fp16 scheme itself "
+                  f"against fp32: {sc_unf:.6f} / {sc_hit:.6f} / {sc_err:.3e}; evals kernel {out[3]} "
+                  f"({out[3] / n:.2f}/ray) plain {ref[3]} ({evals_rel:.2e} rel) needed {needed} "
+                  f"({needed / n:.2f}/ray, {needed_rel:.2e} rel); tiles {stats['tiles']}, fill "
+                  f"{fill:.4f}, empty rows {stats['empty_rows']} ({waste:.2%}); kernel {ms:.3f} ms "
+                  f"plain {plain_ms:.3f} ms gathered K1-fp32 tracer {gathered_ms:.3f} ms; bound "
+                  f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, split fp16), FP32-pipe bound "
+                  f"{fp32['bound_ms']:.3f} ms; L2 weight bytes requested, computed from the "
+                  f"design: {l2_bytes / 1e9:.3f} GB ({l2_bytes / ms / 1e9:.3f} TB/s) [{card}]",
+                  flush=True)
             if (unf_agree < TRACE_TOL["unfinished_agree"] or hit_agree < TRACE_TOL["hit_agree"]
-                    or not err <= TRACE_TOL["abs"] or evals_rel > TRACE_TOL["evals_rel"]):
+                    or not err <= TRACE_TOL["abs"] or evals_rel > TRACE_TOL["evals_rel"]
+                    or needed_rel > TRACE_TOL["evals_rel"]):
                 raise RuntimeError(f"K3 disagrees with its plain version on the {name} rays")
             res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, gathered_ms=gathered_ms,
-                             evals_executed=out[3], evals_needed=needed, waste=waste,
-                             hit_fraction=hits, unfinished_agreement=unf_agree,
-                             hit_agreement=hit_agree, **bound)
+                             evals_executed=out[3], evals_needed=needed, evals_plain=ref[3],
+                             tiles=stats["tiles"], fill=fill, waste=waste, hit_fraction=hits,
+                             unfinished_agreement=unf_agree, hit_agreement=hit_agree,
+                             split_scheme_err=sc_err, err_vs_split_plain=sp_err, **bound)
     return res
 
 
@@ -544,6 +588,7 @@ TRAIN_REF_RAYS = 4
 # of a 64-pixel masked mean
 TRAIN_REF_TOL = {"loss_rel": 1e-4, "grad_rel_l2": 2e-3}
 GRAD_GROUPS = ("rendering_network", "envmap_material_network")
+STEP_KEYS = ("points", "idr_rgb_values", "sg_rgb_values")
 
 
 class _InjectedDirections:
@@ -585,6 +630,94 @@ class _InjectedDirections:
             setattr(self.module, k, v)
 
 
+class _RecordTraces:
+    """Record each K3 call (the rays, weights and tracer, and the returned
+    acc_start, acc_end, unfinished, on the CPU) by the device of its rays."""
+
+    def __enter__(self):
+        from nefii_tpu_torch.ops.kernels import fused_trace as ft
+
+        self.module, self.real = ft, ft.fused_sphere_trace
+        self.calls = {"cuda": [], "cpu": []}
+
+        def recording(*args, **kw):
+            out = self.real(*args, **kw)
+            self.calls[args[0].device.type].append(
+                (tuple(t.detach().cpu() for t in args[:5]), args[5], args[6],
+                 tuple(t.detach().cpu() for t in out[:3])))
+            return out
+
+        ft.fused_sphere_trace = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fused_sphere_trace = self.real
+
+
+def _rays_that_differ(a, b):
+    """Indices of the rays whose unfinished flag or hit differs between two
+    traces' (acc_start, acc_end, unfinished), or an end by more than
+    TRACE_TOL['abs']."""
+    far = ((a[0] - b[0]).abs() > TRACE_TOL["abs"]) | ((a[1] - b[1]).abs() > TRACE_TOL["abs"])
+    return ((a[2] != b[2]) | ((a[0] < a[1]) != (b[0] < b[1])) | far).nonzero()[:, 0].tolist()
+
+
+def _largest_gap(a, b):
+    """(the largest |acc_start| or |acc_end| difference of two traces, its ray)."""
+    import torch
+
+    d = torch.maximum((a[0] - b[0]).abs(), (a[1] - b[1]).abs())
+    if not d.numel():
+        return 0.0, 0
+    i = int(d.argmax())
+    return float(d[i]), i
+
+
+def _trace_divergence(calls):
+    """For each K3 call of the card's step, on its rays: where the kernel and
+    the fp32 plain version (run on the CPU) differ, where the split-fp16
+    plain version differs from each, and where the CPU step's own trace (of
+    its own rays, which carry the step's earlier differences) differs from
+    the kernel and from the fp32 plain version."""
+    import torch
+
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+
+    report = []
+    for k, ((rays, _, tracer, out), (rays_c, fw_c, _, out_c)) in enumerate(
+            zip(calls["cuda"], calls["cpu"])):
+        with torch.no_grad():
+            plain = ft.fused_sphere_trace_plain(*rays, fw_c, tracer)
+            split = ft.fused_sphere_trace_plain(*rays, fw_c, tracer, split=True)
+        r = dict(call=k, rays=rays[0].shape[0], iters=tracer.sphere_tracing_iters,
+                 kernel_vs_plain=_rays_that_differ(out, plain),
+                 kernel_vs_split=_rays_that_differ(out, split),
+                 split_vs_plain=_rays_that_differ(split, plain),
+                 gap_kernel_plain=_largest_gap(out, plain), gap_kernel_split=_largest_gap(out, split),
+                 gap_split_plain=_largest_gap(split, plain))
+        same_rays = rays_c[0].shape == rays[0].shape
+        if same_rays:
+            # per ray, how far the CPU step's ray lies from the card step's
+            ray_gap = torch.stack([(a.float() - b.float()).abs().reshape(a.shape[0], -1).amax(1)
+                                   for a, b in zip(rays, rays_c)], 1)
+            r["input_max_diff"] = dict(zip(("cam", "dirs", "mask", "near", "far"),
+                                           ray_gap.amax(0).tolist()))
+            r["cpu_step_vs_kernel"] = _rays_that_differ(out_c, out)
+            r["cpu_step_vs_plain"] = _rays_that_differ(out_c, plain)
+            r["gap_cpu_step_kernel"] = _largest_gap(out_c, out)
+        for i in sorted(set(r["kernel_vs_plain"]) | set(r.get("cpu_step_vs_kernel", ())))[:4]:
+            ends = {"kernel": out, "fp32 plain": plain, "split plain": split}
+            if same_rays:
+                ends["cpu step"] = out_c
+            r[f"ray {i}"] = {n: (float(t[0][i]), float(t[1][i]), bool(t[2][i]))
+                             for n, t in ends.items()}
+            if same_rays:
+                r[f"ray {i}"]["input_diff"] = ray_gap[i].tolist()
+        print(f"[train-reference] K3 call {k}: {r}", flush=True)
+        report.append(r)
+    return report
+
+
 def phase_train_reference():
     """One frozen-geometry training step of confs/conf.conf (fp32 trace, K3 on)
     on TRAIN_REF_PATCHES x 4 pixels x TRAIN_REF_RAYS rays: through the kernels
@@ -616,7 +749,7 @@ def phase_train_reference():
     gt = rng.random((1, n_px, 3)).astype(np.float32)
     steps01 = torch.from_numpy(rng.random(gpu.ray_tracer.n_steps).astype(np.float32))
     res = {}
-    with _InjectedDirections():
+    with _InjectedDirections(), _RecordTraces() as traces:
         for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
             fm.reset_launch_counts()
             ft.reset_launch_counts()
@@ -632,16 +765,24 @@ def phase_train_reference():
                      for g in GRAD_GROUPS}
             res[dev] = dict(loss=float(ld["loss"].detach()), grads=grads,
                             mask=out["network_object_mask"].cpu(),
+                            out={k: out[k].detach().cpu() for k in STEP_KEYS},
                             launches={**fm.LAUNCHES, **ft.LAUNCHES})
     g, c = res["cuda"], res["cpu"]
     loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
     grad_rel = {k: float((g["grads"][k] - c["grads"][k]).norm() / c["grads"][k].norm())
                 for k in GRAD_GROUPS}
     mask_agree = float((g["mask"] == c["mask"]).float().mean())
+    # the rays whose outputs differ by more than REF_TOL['abs'], by output
+    ray_diff = {}
+    for k in STEP_KEYS:
+        d = (g["out"][k] - c["out"][k]).abs().reshape(g["out"][k].shape[0], -1).amax(1)
+        ray_diff[k] = {int(i): float(d[i]) for i in (d > REF_TOL["abs"]).nonzero()[:8, 0]}
     print(f"[train-reference] {n_px} px x {TRAIN_REF_RAYS} rays, kernels on cuda vs plain on "
           f"cpu: loss {g['loss']:.6f} vs {c['loss']:.6f} (rel {loss_rel:.2e}), grad rel L2 "
-          f"{grad_rel}, hit mask agreement {mask_agree:.4f}, launches {g['launches']}",
+          f"{grad_rel}, hit mask agreement {mask_agree:.4f}, rays whose outputs differ by "
+          f"more than {REF_TOL['abs']:g}: {ray_diff}, launches {g['launches']}",
           flush=True)
+    divergence = _trace_divergence(traces.calls)
     if not loss_rel <= TRAIN_REF_TOL["loss_rel"]:
         raise RuntimeError(f"training loss on the card disagrees: rel {loss_rel:.2e}")
     bad = {k: v for k, v in grad_rel.items() if not v <= TRAIN_REF_TOL["grad_rel_l2"]}
@@ -652,7 +793,7 @@ def phase_train_reference():
     if any(n != 0 for n in c["launches"].values()):
         raise RuntimeError("the CPU step launched a kernel")
     return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, mask_agreement=mask_agree,
-                launches=g["launches"])
+                rays_that_differ=ray_diff, trace_divergence=divergence, launches=g["launches"])
 
 
 TRAIN_RES = 128
@@ -802,11 +943,14 @@ def main():
         dict(name="fused_sphere_trace", route="cuda",
              source="nefii_tpu_torch/ops/kernels/csrc/fused_trace.cu",
              replaces="nefii_tpu/ops/pallas/fused_trace.py:81",
-             launches=launches["fused_sphere_trace"], dtype="float32", library_ms=None,
+             launches=launches["fused_sphere_trace"], dtype="float32",
+             design="split fp16 (hi.hi + lo.hi + hi.lo, weights scaled by 2^s per layer) on "
+                    "wgmma m64n256k16 over a refilled pool of 32 live rays a block, bulk-copy "
+                    "weight ring", library_ms=None,
              **{k: trace["camera"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                "bound_by", "evals_needed", "evals_executed",
-                                                "waste")},
-             random_rays=trace["random"]),
+                                                "bound_by", "fill", "waste", "evals_needed",
+                                                "evals_executed")},
+             random_rays=trace["random"], random_rays_secondary_conf=trace["random_secondary"]),
     ]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

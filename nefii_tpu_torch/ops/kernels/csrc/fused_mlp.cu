@@ -8,7 +8,7 @@
 //   z = h W + b (the skip layer adds x Wx, the concat(h, x)/sqrt(2) folded
 //   into split weights), h = softplus(100 z)/100. Three entries:
 //     nefii_sdf_hidden     fp32, on the FMA pipe (the layer loop of
-//                          sdf_mlp.cuh, shared with K3);
+//                          sdf_mlp.cuh);
 //     nefii_sdf_hidden_tc  bf16 operands, fp32 accumulation, h rounded to
 //                          bf16 after every layer, on the tensor cores
 //                          (sdf_mlp_tc.cuh: wgmma, bulk-copy weight ring);
@@ -37,9 +37,9 @@
 // pass would change the numerics (K2's split bf16 keeps them, at three
 // products each). The bf16 design and its bound are in sdf_mlp_tc.cuh.
 //
-// All matmul work happens here, in sdf_mlp.cuh (the layer loop shared with
-// fused_trace.cu), sdf_mlp_tc.cuh and sdf_mlp_split.cuh (on the tensor-core
-// building blocks of tc_common.cuh); no library GEMM is called.
+// All matmul work happens here, in sdf_mlp.cuh (the FMA layer loop),
+// sdf_mlp_tc.cuh and sdf_mlp_split.cuh (on the tensor-core building blocks
+// of tc_common.cuh); no library GEMM is called.
 
 #include "sdf_mlp.cuh"
 #include "sdf_mlp_split.cuh"

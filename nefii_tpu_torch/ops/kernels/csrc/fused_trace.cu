@@ -2,207 +2,492 @@
 // a plain C interface (ctypes) by nefii_tpu_torch/ops/kernels/fused_trace.py.
 //
 // Replaces the Pallas TPU kernel _trace_kernel (nefii_tpu/ops/pallas/
-// fused_trace.py:81), reached through build_fused_sphere_trace. For a tile
-// of rays it runs every iteration of the tracer in one launch: positional
-// encoding of the start and end points, the SDF-MLP hidden chain, the sdf
-// column, the step in from both ends, the back-step line search with factor
-// (1 - step) 2^-j, and the per-tile early exit. Per-ray results equal the
-// dense tracer's (converged rays are frozen by their masks); only the count
-// of executed evaluations depends on the tiling.
+// fused_trace.py:81), reached through build_fused_sphere_trace. One launch
+// runs every iteration of the tracer for every ray: the step in from both
+// ends, the back-step line search with factor (1 - step) 2^-j for j <
+// line_step_iters, not_crossed, the head masks, at most sphere_tracing_iters
+// iterations; each evaluation is the positional encoding of the point, the
+// SDF-MLP hidden chain and the sdf column of the final linear. fp32 in, fp32
+// accurate, as the TPU kernel.
 //
-// What bounds it on this card. Each evaluation is the 8x512 chain, ~3.7
-// MFLOP per point, so the kernel is bound by the FP32 pipe like K1, whose
-// layer loop it reuses (sdf_mlp.cuh): a block owns TR = 16 rays, i.e. a
-// 32-row tile of start and end points, 64 KB of activations in shared
-// memory, weights streamed through L2. The TPU kernel's tile of 256 rays
-// came from 16 MB of VMEM and does not carry over. The design removes what
-// the gathered PyTorch tracer pays besides the MLP: two host syncs per
-// iteration and the gathers and scatters around every evaluation. The
-// decisions that the TPU kernel took with lax.cond(any(...)) are
-// __syncthreads_or over the tile; the masks are plain registers of the
-// thread that owns the ray. The count of executed evaluations, which the TPU
-// accumulated in one SMEM cell over grid steps that run in order, is added
-// with one 64-bit atomicAdd per block into a counter the wrapper zeroes.
+// What bounds it on this card. Every evaluation is the 8x512 chain, 3.7
+// MFLOP a point. On the FP32 pipe (the first port's design) that pipe was
+// the ceiling. Here the chain runs on the tensor cores in split fp16: every
+// operand v is hi = fp16(v) and lo = fp16(v - hi), every product hi.hi +
+// lo.hi + hi.lo, K2's scheme (sdf_mlp_split.cuh) with fp16's 11 significand
+// bits in place of bf16's 8. The trace holds it to more than K2: its 5e-5
+// stop threshold, its line search and the crossing test acc_s < acc_e turn a
+// small error into a flipped decision that moves a ray's end by a whole
+// step. Split bf16 keeps ~16 bits, and one tensor-core accumulator running
+// over a layer adds with truncation, ~5e-6 of z; both flip such decisions.
+// So: split fp16 (~22 bits), and each slice's products summed fresh on the
+// tensor cores and added into fp32 registers (trace_gemm), which keeps the
+// chain as close to fp32 as fp32 sums in another order. fp16's range is
+// enough for the forward chain: activations (x, softplus h) are O(1) and
+// stay unscaled; each layer's weights are scaled by a power of two 2^s_l so
+// that their largest lies in [2^13, 2^14) and their lo parts stay normal, and
+// the epilogue multiplies the sum by 2^-s_l (exact). The bound is three fp16
+// products a multiply-add of the evaluations the rays need, on the tensor
+// cores at bf16's rate. The forward records (7.47 MB on the flagship net) do
+// not fit on chip, so each 64-row tile streams them from L2: the tiles must
+// be full of work.
+//
+// Design. The TPU kernel gave a tile of rays to a grid step and evaluated
+// the tile's start and end points while any of its rays lived, so a tile of
+// incoherent rays lived as long as its slowest ray. Here a row of a tile is
+// a point query, not a ray:
+//   * a persistent block (K2's skeleton: two consumer warpgroups, one
+//     producer warpgroup streaming records through a 5-stage ring) keeps a
+//     pool of TR_SLOTS = 32 rays. Each ray is a state machine (initial
+//     evaluation, trace step, line-search step) that asks for its start
+//     point while unf_s, its end point while unf_e, or its back-stepped
+//     points while their sdf is negative: at most 2 queries a ray, so the
+//     pool's queries always fit one tile of 64 rows.
+//   * between tiles, consumer thread s < 32 owns slot s: it reads the sdf of
+//     its rows, advances its ray, retires it (writes its results) when both
+//     ends are finished or it ran sphere_tracing_iters iterations, and
+//     refills the slot with the next ray index from a device counter that the
+//     wrapper zeroes (one warp-aggregated atomicAdd a round, rays in index
+//     order, so camera rays stay coherent). A prefix sum over the warp gives
+//     each query its row; the slot lives in a per-block global scratch, so
+//     the ray logic holds no register of the consumers' hot loop.
+//   * the tile: the embedding of each row's point into the X tile (hi, lo),
+//     the forward chain (trace_gemm on K2's forward record layout, in fp16:
+//     trace_weights in fused_trace.py; a warpgroup's 64x256 sums in fp32
+//     registers beside one 64x128 tensor-core partial), and the last layer's epilogue
+//     reduces h . w_last[:, 0] per row in a fixed order (as K1's sdf entry):
+//     the 64x512 h never leaves the chip. A wgmma row's sums do not depend on
+//     the other rows, so a ray's results do not depend on which rays share
+//     its tiles.
+//   * the weight sequence is the same for every tile, so the producer cycles
+//     the ring without waiting on the ray logic and runs into the next tile's
+//     layer 0. The consumers do not know a tile ahead whether there is one:
+//     when the pool is dry they raise a stop flag, the producer sees it while
+//     it waits for a stage and waits for its copies in flight before it exits.
+//   * the count: the rows that held a query (the evaluations executed, what
+//     the gathered tracer counts) and the empty rows of partly filled tiles,
+//     added by each block with one 64-bit atomicAdd each when it exits.
 // Points and steps use explicitly rounded adds and multiplies (no FMA
-// contraction), so they round as the plain PyTorch version does; the sdf
-// column is reduced in a fixed order. fp32 only, as the TPU kernel.
+// contraction), so they round as the plain PyTorch version does; the
+// encoding uses sinf/cosf, not the fast intrinsics.
 
-#include "sdf_mlp.cuh"
+#include "sdf_mlp_split.cuh"
 
 namespace {
 
-constexpr int TR = BM / 2;             // rays per block: start and end points fill the tile
-constexpr int WARPS = THREADS / 32;
-constexpr int COLS_PER_WARP = WIDTH / WARPS;
+constexpr int TR_SLOTS = 32;                        // rays in a block's pool
+constexpr int TR_PTS_OFF = SP_BAR_OFF + 2 * SP_STAGES * 8;  // float4 point of each row
+constexpr int TR_RED_OFF = TR_PTS_OFF + TC_BM * 16;        // [2][TC_BM] sdf partial sums
+constexpr int TR_CTL_OFF = TR_RED_OFF + 2 * TC_BM * 4;     // queries this tile, stop flag
+constexpr int TR_SMEM = TR_CTL_OFF + 16 + 1024;            // + alignment slack
+static_assert(TR_SMEM <= 232448, "K3 needs more shared memory than a block may use");
+static_assert(2 * TR_SLOTS <= TC_BM, "the pool's queries must fit one tile");
+static_assert(TR_PTS_OFF % 16 == 0, "the points are float4");
+
+constexpr int SLOT_EMPTY = -1;  // a slot waiting for a ray
+constexpr int SLOT_DRY = -2;    // no ray is left to take
+enum : int { PH_INIT = 0, PH_STEP = 1, PH_LS = 2 };  // what the pending queries are
 
 struct TraceCfg {
   float thresh;     // sdf_threshold
   float ls_factor;  // 1 - line_search_step; line-search step j scales it by 2^-j
   int ls_iters;     // line_step_iters
   int trace_iters;  // sphere_tracing_iters
-  int multires;
   int d_emb;        // real embedding width, 3 (1 + 2 multires)
+  float b_last;     // bias of the sdf column
+  float unscale[MAX_LAYERS];  // 2^-s_l: layer l's weights are packed times 2^s_l
 };
 
-struct TileState {
-  float cam[TR][3];
-  float dir[TR][3];
-  float t[BM];                 // distance of each row's point: rows [0, TR) start, [TR, BM) end
-  float part[WARPS][BM];       // per-warp partial sums of the sdf column
-  float sdf[BM];
+struct Rays {
+  const float* cam;  // [n][3]
+  const float* dir;  // [n][3]
+  const uint8_t* isect;
+  const float* near;
+  const float* far;
+  float* acc_s;  // out [n]
+  float* acc_e;
+  uint8_t* unf;
+  long long n;
 };
 
-// xs[c][r] = the embedding of row r's point, zero past d_emb
-__device__ __forceinline__ void embed_tile(const TileState& st, const TraceCfg& cfg, float* xs,
-                                           int x_cols) {
-  for (int i = threadIdx.x; i < BM * x_cols; i += THREADS) {
-    const int c = i / BM, r = i - c * BM;
-    const int ray = r % TR;
-    float v = 0.0f;
-    if (c < cfg.d_emb) {
-      int j = c, k = -1;
-      bool use_cos = false;
-      if (c >= 3) {
-        const int q = c - 3;
-        k = q / 6;
-        j = q % 6;
-        use_cos = j >= 3;
-        if (use_cos) j -= 3;
-      }
-      const float p = __fadd_rn(st.cam[ray][j], __fmul_rn(st.t[r], st.dir[ray][j]));
-      if (k < 0) {
-        v = p;
-      } else {
-        const float a = __fmul_rn(p, ldexpf(1.0f, k));
-        v = use_cos ? cosf(a) : sinf(a);
-      }
+// one ray of a block's pool, in global scratch, read and written only by the
+// consumer thread that owns the slot
+struct Slot {
+  float cam[3], dir[3];
+  float acc_s, acc_e, curr_s, curr_e, next_s, next_e;
+  int ray;             // >= 0, SLOT_EMPTY or SLOT_DRY
+  int it, j, phase;    // trace iteration, line-search step, PH_*
+  int unf_s, unf_e;
+  int q_s, q_e;        // queries pending: the start point, the end point
+  int row_s, row_e;    // their rows in the tile
+};
+
+__device__ __forceinline__ void head(Slot& s, float thresh) {
+  s.curr_s = s.unf_s ? s.next_s : 0.0f;
+  if (s.curr_s <= thresh) s.curr_s = 0.0f;
+  s.curr_e = s.unf_e ? s.next_e : 0.0f;
+  if (s.curr_e <= thresh) s.curr_e = 0.0f;
+  s.unf_s = s.unf_s && s.curr_s > thresh;
+  s.unf_e = s.unf_e && s.curr_e > thresh;
+}
+
+__device__ __forceinline__ void retire(Slot& s, const Rays& R) {
+  R.acc_s[s.ray] = s.acc_s;
+  R.acc_e[s.ray] = s.acc_e;
+  R.unf[s.ray] = s.unf_s ? 1 : 0;
+  s.ray = SLOT_EMPTY;
+  s.q_s = s.q_e = 0;
+}
+
+// the sdf at the slot's pending queries -> its next queries, or it retires
+__device__ void advance(Slot& s, float sd_s, float sd_e, const TraceCfg& cfg, const Rays& R) {
+  if (s.phase == PH_INIT) {
+    s.next_s = sd_s;
+    s.next_e = sd_e;
+    head(s, cfg.thresh);
+    s.it = 0;
+  } else {
+    if (s.phase == PH_STEP) {
+      s.next_s = s.unf_s ? sd_s : 0.0f;
+      s.next_e = s.unf_e ? sd_e : 0.0f;
+      s.j = 0;
+    } else {
+      if (s.q_s) s.next_s = sd_s;
+      if (s.q_e) s.next_e = sd_e;
+      ++s.j;
     }
-    xs[i] = v;
+    // back-step line search for an end that crossed the surface
+    if (s.j < cfg.ls_iters && (s.next_s < 0.0f || s.next_e < 0.0f)) {
+      s.q_s = s.next_s < 0.0f;
+      s.q_e = s.next_e < 0.0f;
+      const float factor = ldexpf(cfg.ls_factor, -s.j);
+      if (s.q_s) s.acc_s = __fsub_rn(s.acc_s, __fmul_rn(factor, s.curr_s));
+      if (s.q_e) s.acc_e = __fadd_rn(s.acc_e, __fmul_rn(factor, s.curr_e));
+      s.phase = PH_LS;
+      return;
+    }
+    const bool not_crossed = s.acc_s < s.acc_e;
+    s.unf_s = s.unf_s && not_crossed;
+    s.unf_e = s.unf_e && not_crossed;
+    head(s, cfg.thresh);
+    ++s.it;
   }
+  if (s.it >= cfg.trace_iters || !(s.unf_s || s.unf_e)) {
+    retire(s, R);
+    return;
+  }
+  s.acc_s = __fadd_rn(s.acc_s, s.curr_s);
+  s.acc_e = __fsub_rn(s.acc_e, s.curr_e);
+  s.q_s = s.unf_s;
+  s.q_e = s.unf_e;
+  s.phase = PH_STEP;
 }
 
-// st.sdf[r] = sdf of row r's point; begins and ends with a barrier
-__device__ void sdf_tile(TileState& st, const float* __restrict__ wbuf, const Plan& plan,
-                         const float* __restrict__ wlast, float bl, const TraceCfg& cfg,
-                         float* act, float* xs, int col0, int row0) {
-  __syncthreads();  // the owners' distances are written
-  embed_tile(st, cfg, xs, plan.x_cols);
-  __syncthreads();
-  for (int l = 0; l < plan.n; ++l)
-    forward_layer(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, col0, row0);
-  // sdf column: warp w sums features [w COLS_PER_WARP, (w+1) COLS_PER_WARP)
-  // for row = lane, then one thread per row adds the warps in order
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float s = 0.0f;
-  for (int c = warp * COLS_PER_WARP; c < (warp + 1) * COLS_PER_WARP; ++c)
-    s = fmaf(act[c * BM + lane], __ldg(wlast + c), s);
-  st.part[warp][lane] = s;
-  __syncthreads();
-  if (threadIdx.x < BM) {
-    float total = 0.0f;
+// every lane of the warp: fill the empty slots with the next rays, one
+// atomicAdd a round; a ray that misses the bounding sphere is written at once
+__device__ void refill(Slot& s, unsigned long long* next_ray, const Rays& R, int lane) {
+  for (;;) {
+    const unsigned need = __ballot_sync(0xffffffffu, s.ray == SLOT_EMPTY);
+    if (!need) return;
+    const int leader = __ffs(need) - 1;
+    unsigned long long base = 0;
+    if (lane == leader) base = atomicAdd(next_ray, (unsigned long long)__popc(need));
+    base = __shfl_sync(0xffffffffu, base, leader);
+    if (s.ray != SLOT_EMPTY) continue;
+    const long long r = (long long)base + __popc(need & ((1u << lane) - 1u));
+    if (r >= R.n) {
+      s.ray = SLOT_DRY;
+    } else if (!R.isect[r]) {
+      R.acc_s[r] = 0.0f;
+      R.acc_e[r] = 0.0f;
+      R.unf[r] = 0;
+    } else {
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) total += st.part[w][threadIdx.x];
-    st.sdf[threadIdx.x] = total + bl;
+      for (int k = 0; k < 3; ++k) {
+        s.cam[k] = R.cam[r * 3 + k];
+        s.dir[k] = R.dir[r * 3 + k];
+      }
+      s.ray = (int)r;
+      s.acc_s = R.near[r];
+      s.acc_e = R.far[r];
+      s.curr_s = s.curr_e = s.next_s = s.next_e = 0.0f;
+      s.unf_s = s.unf_e = 1;
+      s.q_s = s.q_e = 1;
+      s.it = s.j = 0;
+      s.phase = PH_INIT;
+    }
   }
-  __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-sphere_trace_kernel(const float* __restrict__ cam, const float* __restrict__ dirs,
-                    const uint8_t* __restrict__ isect, const float* __restrict__ near,
-                    const float* __restrict__ far, const float* __restrict__ wbuf,
-                    const __grid_constant__ Plan plan, const float* __restrict__ wlast,
-                    float bl, const TraceCfg cfg, float* __restrict__ acc_s_out,
-                    float* __restrict__ acc_e_out, uint8_t* __restrict__ unf_out,
-                    unsigned long long* __restrict__ n_evals, long long n_rays) {
-  extern __shared__ __align__(16) float smem[];
-  float* act = smem;              // [WIDTH][BM]
-  float* xs = smem + WIDTH * BM;  // [x_cols][BM]
-  __shared__ TileState st;
+__device__ __forceinline__ float4 point_at(const Slot& s, float t) {
+  return make_float4(__fadd_rn(s.cam[0], __fmul_rn(t, s.dir[0])),
+                     __fadd_rn(s.cam[1], __fmul_rn(t, s.dir[1])),
+                     __fadd_rn(s.cam[2], __fmul_rn(t, s.dir[2])), 0.0f);
+}
+
+__device__ __forceinline__ float coord(const float4& p, int j) {
+  return j == 0 ? p.x : (j == 1 ? p.y : p.z);
+}
+
+// column c < d_emb of the positional encoding of p:
+// [p, sin(p), cos(p), sin(2p), cos(2p), ...], 3 columns each
+__device__ __forceinline__ float embed_value(const float4& p, int c) {
+  if (c < 3) return coord(p, c);
+  const int q = c - 3, k = q / 6;
+  int j = q % 6;
+  const bool use_cos = j >= 3;
+  if (use_cos) j -= 3;
+  const float a = __fmul_rn(coord(p, j), ldexpf(1.0f, k));
+  return use_cos ? cosf(a) : sinf(a);
+}
+
+// sum += A . B over n_slices k16 slices, fp32-accurate. B comes from the
+// ring: per slice a hi record and a lo record of N = 512, of which this
+// warpgroup reads its 256 rows. Each slice and each half of the warpgroup's
+// columns is a fresh tensor-core sum, A_lo.B_hi + A_hi.B_lo + A_hi.B_hi (the
+// small products first), added to `sum` with fp32 adds that round to
+// nearest. The tensor cores add in fp32 with truncation: one accumulator
+// running over a 512-deep layer's 96 products gathers that bias (~5e-6 of z
+// on the flagship net); a fresh sum a slice leaves one truncation of a
+// slice's partial sum, of either sign, so the chain stays as close to fp32
+// as fp32 sums in another order.
+__device__ __forceinline__ void trace_gemm(float (&sum)[128], float (&tmp)[64], uint32_t a_hi,
+                                           uint32_t a_lo, int n_slices, uint32_t ring,
+                                           Ring<SP_STAGES>& rg, int wg, bool leader) {
+  for (int j = 0; j < n_slices; ++j) {
+    const int st_hi = rg.stage;
+    rg.wait_full();
+    rg.next();
+    const int st_lo = rg.stage;
+    rg.wait_full();
+    rg.next();
+    const uint32_t b_hi = ring + st_hi * SP_REC + wg * 256 * 32;
+    const uint32_t b_lo = ring + st_lo * SP_REC + wg * 256 * 32;
+    const uint32_t ak = (j / 4) * TC_TILE_BYTES + 32 * (j % 4);
+    const uint64_t d_hi = wgmma_desc(a_hi + ak), d_lo = wgmma_desc(a_lo + ak);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      wgmma_fence();
+      wgmma_m64n128k16_f16(tmp, d_lo, wgmma_desc32(b_hi + h * 128 * 32), 0);
+      wgmma_m64n128k16_f16(tmp, d_hi, wgmma_desc32(b_lo + h * 128 * 32), 1);
+      wgmma_m64n128k16_f16(tmp, d_hi, wgmma_desc32(b_hi + h * 128 * 32), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(tmp);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[64 * h + i] += tmp[i];
+    }
+    if (leader) {
+      mbar_arrive(rg.empty(st_hi));
+      mbar_arrive(rg.empty(st_lo));
+    }
+  }
+}
+
+// The producer's one thread: the n_rec forward records, once a tile, until
+// the consumers raise `stop`; then it waits for the copies still in flight,
+// so none lands in the shared memory of an exited block.
+__device__ void trace_produce(uint32_t ring, uint32_t bars, const uint8_t* src, int n_rec,
+                              const volatile int* stop) {
+  Ring<SP_STAGES> rg(bars);
+  long long issued = 0;
+  for (;;) {
+    for (int c = 0; c < n_rec; ++c) {
+      while (!mbar_try_wait(rg.empty(rg.stage), rg.phase ^ 1u))
+        if (*stop) goto drain;
+      mbar_arrive_expect_tx(rg.full(rg.stage), SP_REC);
+      bulk_g2s(ring + rg.stage * SP_REC, src + (long long)c * SP_REC, SP_REC, rg.full(rg.stage));
+      rg.next();
+      ++issued;
+    }
+  }
+drain:
+  // the last copy into each stage, newest first
+  for (long long k = 0; k < issued && k < SP_STAGES; ++k) {
+    if (rg.stage == 0) {
+      rg.stage = SP_STAGES - 1;
+      rg.phase ^= 1u;
+    } else {
+      --rg.stage;
+    }
+    mbar_wait(rg.full(rg.stage), rg.phase);
+  }
+}
+
+// rec: the n_rec split-fp16 records of the forward chain; wbuf:
+// the fp32 buffer the biases are read from; wlast [WIDTH]: the sdf column of
+// the final linear; pool: gridDim.x x TR_SLOTS slots; counters: the next ray
+// to take, the evaluations executed, the empty rows (zeroed by the caller).
+__global__ void __launch_bounds__(TC_THREADS, 1)
+sphere_trace_split_kernel(const __grid_constant__ Rays R, const __half* __restrict__ rec, int n_rec,
+                          const float* __restrict__ wbuf, const __grid_constant__ Plan plan,
+                          const float* __restrict__ wlast, const __grid_constant__ TraceCfg cfg,
+                          Slot* __restrict__ pool, unsigned long long* __restrict__ counters) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (sbase - raw);
+  const uint32_t ring = sbase + SP_RING_OFF, bars = sbase + SP_BAR_OFF;
+  const uint32_t a_hi = sbase + SP_AHI_OFF, a_lo = sbase + SP_ALO_OFF;
+  const uint32_t x_hi = sbase + SP_XHI_OFF, x_lo = sbase + SP_XLO_OFF;
+  float4* pts = reinterpret_cast<float4*>(sm + TR_PTS_OFF);
+  float* red = reinterpret_cast<float*>(sm + TR_RED_OFF);
+  volatile int* ctl = reinterpret_cast<volatile int*>(sm + TR_CTL_OFF);  // [0] queries, [1] stop
   const int tid = threadIdx.x;
-  const int tx = tid % (WIDTH / TN), ty = tid / (WIDTH / TN);
-  const int col0 = tx * TN, row0 = ty * TM;
-  const long long ray = (long long)blockIdx.x * TR + tid;
-  // threads [0, TR) each own one ray's state, in registers
-  const bool owner = tid < TR;
-  const bool valid = owner && ray < n_rays;
 
-  bool unf_s = false, unf_e = false;
-  float acc_s = 0.0f, acc_e = 0.0f, curr_s = 0.0f, curr_e = 0.0f, next_s = 0.0f, next_e = 0.0f;
-  if (owner) {
-    const bool m = valid && isect[ray] != 0;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      st.cam[tid][j] = valid ? cam[ray * 3 + j] : 0.0f;
-      st.dir[tid][j] = valid ? dirs[ray * 3 + j] : 0.0f;
-    }
-    acc_s = m ? near[ray] : 0.0f;
-    acc_e = m ? far[ray] : 0.0f;
-    unf_s = unf_e = m;
-    st.t[tid] = acc_s;
-    st.t[TR + tid] = acc_e;
+  if (tid == 0) {
+    ring_init<SP_STAGES>(bars);
+    ctl[1] = 0;
   }
-  auto head = [&]() {
-    curr_s = unf_s ? next_s : 0.0f;
-    if (curr_s <= cfg.thresh) curr_s = 0.0f;
-    curr_e = unf_e ? next_e : 0.0f;
-    if (curr_e <= cfg.thresh) curr_e = 0.0f;
-    unf_s = unf_s && curr_s > cfg.thresh;
-    unf_e = unf_e && curr_e > cfg.thresh;
-  };
+  __syncthreads();
 
-  sdf_tile(st, wbuf, plan, wlast, bl, cfg, act, xs, col0, row0);
-  unsigned long long n_ev = 2 * TR;
-  if (owner) {
-    next_s = unf_s ? st.sdf[tid] : 0.0f;
-    next_e = unf_e ? st.sdf[TR + tid] : 0.0f;
-    head();
+  if (tid >= TC_CONSUMERS) {
+    // ---- producer warpgroup: one thread streams the forward records
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == TC_CONSUMERS)
+      trace_produce(ring, bars, reinterpret_cast<const uint8_t*>(rec), n_rec, ctl + 1);
+    return;
   }
 
-  for (int it = 0; it < cfg.trace_iters; ++it) {
-    if (!__syncthreads_or(owner && (unf_s || unf_e))) break;  // per-tile early exit
-    if (owner) {
-      acc_s = __fadd_rn(acc_s, curr_s);
-      acc_e = __fsub_rn(acc_e, curr_e);
-      st.t[tid] = acc_s;
-      st.t[TR + tid] = acc_e;
-    }
-    sdf_tile(st, wbuf, plan, wlast, bl, cfg, act, xs, col0, row0);
-    n_ev += 2 * TR;
-    if (owner) {
-      next_s = unf_s ? st.sdf[tid] : 0.0f;
-      next_e = unf_e ? st.sdf[TR + tid] : 0.0f;
-    }
-    // back-step line search for the rays that crossed the surface
-    for (int j = 0; j < cfg.ls_iters; ++j) {
-      if (!__syncthreads_or(owner && (next_s < 0.0f || next_e < 0.0f))) break;
-      const bool np_s = owner && next_s < 0.0f, np_e = owner && next_e < 0.0f;
-      if (owner) {
-        const float factor = ldexpf(cfg.ls_factor, -j);
-        if (np_s) acc_s = __fsub_rn(acc_s, __fmul_rn(factor, curr_s));
-        if (np_e) acc_e = __fadd_rn(acc_e, __fmul_rn(factor, curr_e));
-        st.t[tid] = acc_s;
-        st.t[TR + tid] = acc_e;
+  // ---- consumers ----------------------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128;                           // output columns [256 wg, 256 wg + 256)
+  const int lane = tid % 32;
+  const bool leader = tid % 128 == 0;
+  const int r0 = 16 * ((tid % 128) / 32) + lane / 4;  // this thread's rows r0, r0 + 8
+  const int cq = 2 * (lane % 4);
+  const int c0 = 256 * wg + cq;                       // its columns c0 + 8 j, c0 + 8 j + 1
+  uint8_t* arow = sm + SP_AHI_OFF + 4 * wg * TC_TILE_BYTES + r0 * 128 + cq * 2;
+  Slot* slot = pool + (long long)blockIdx.x * TR_SLOTS + tid;
+  float sum[128], tmp[64];  // this warpgroup's 64 x 256 sums; one fresh half-slice partial
+  Ring<SP_STAGES> rg(bars);
+  unsigned long long executed = 0, tiles = 0;
+
+  for (bool first = true;; first = false) {
+    // ---- the pool: answers, retirements, refills, the next tile's queries
+    if (tid < TR_SLOTS) {
+      Slot s;
+      if (first) {
+        s.ray = SLOT_EMPTY;
+        s.q_s = s.q_e = 0;
+      } else {
+        s = *slot;
+        if (s.ray >= 0) {
+          const float sd_s = s.q_s ? red[s.row_s] + red[TC_BM + s.row_s] + cfg.b_last : 0.0f;
+          const float sd_e = s.q_e ? red[s.row_e] + red[TC_BM + s.row_e] + cfg.b_last : 0.0f;
+          advance(s, sd_s, sd_e, cfg, R);
+        }
       }
-      sdf_tile(st, wbuf, plan, wlast, bl, cfg, act, xs, col0, row0);
-      n_ev += 2 * TR;
-      if (np_s) next_s = st.sdf[tid];
-      if (np_e) next_e = st.sdf[TR + tid];
+      refill(s, counters, R, lane);
+      const int q = s.q_s + s.q_e;
+      int incl = q;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += v;
+      }
+      const int row = incl - q;
+      if (s.q_s) {
+        s.row_s = row;
+        pts[row] = point_at(s, s.acc_s);
+      }
+      if (s.q_e) {
+        s.row_e = row + s.q_s;
+        pts[row + s.q_s] = point_at(s, s.acc_e);
+      }
+      *slot = s;
+      if (lane == 31) ctl[0] = incl;
     }
-    if (owner) {
-      const bool not_crossed = acc_s < acc_e;
-      unf_s = unf_s && not_crossed;
-      unf_e = unf_e && not_crossed;
-      head();
+    consumers_sync();
+    const int n_q = ctl[0];
+    if (n_q == 0) break;
+    executed += n_q;
+    ++tiles;
+
+    // ---- X tile [64][64] in hi and lo: each row's encoded point, zero past
+    // the queries and past d_emb
+    for (int u = tid; u < TC_BM * 8; u += TC_CONSUMERS) {
+      const int r = u / 8, g = u % 8;
+      float v[8];
+      const float4 p = pts[r];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k] = (r < n_q && g * 8 + k < cfg.d_emb) ? embed_value(p, g * 8 + k) : 0.0f;
+      uint4 hi, lo;
+      split2u<true>(v[0], v[1], hi.x, lo.x);
+      split2u<true>(v[2], v[3], hi.y, lo.y);
+      split2u<true>(v[4], v[5], hi.z, lo.z);
+      split2u<true>(v[6], v[7], hi.w, lo.w);
+      *reinterpret_cast<uint4*>(sm + SP_XHI_OFF + sw128(r, g * 8)) = hi;
+      *reinterpret_cast<uint4*>(sm + SP_XLO_OFF + sw128(r, g * 8)) = lo;
+    }
+    fence_proxy_async();
+    consumers_sync();
+
+    // ---- the forward chain
+    for (int l = 0; l < plan.n; ++l) {
+      const Layer& L = plan.l[l];
+#pragma unroll
+      for (int i = 0; i < 128; ++i) sum[i] = 0.0f;
+      trace_gemm(sum, tmp, l == 0 ? x_hi : a_hi, l == 0 ? x_lo : a_lo, L.k_h / 16, ring, rg,
+                 wg, leader);
+      if (L.k_x > 0) trace_gemm(sum, tmp, x_hi, x_lo, L.k_x / 16, ring, rg, wg, leader);
+      consumers_sync();  // every product of both warpgroups has read the A tile
+      const float* bias = wbuf + L.b + c0;
+      const float sc = cfg.unscale[l];
+      float h0, h1, h2, h3, s;
+      if (l < plan.n - 1) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j));
+          softplus_sigmoid100(sum[4 * j] * sc + b.x, h0, s);
+          softplus_sigmoid100(sum[4 * j + 1] * sc + b.y, h1, s);
+          softplus_sigmoid100(sum[4 * j + 2] * sc + b.x, h2, s);
+          softplus_sigmoid100(sum[4 * j + 3] * sc + b.y, h3, s);
+          put_split<true>(arow, j, r0, h0, h1, h2, h3);
+        }
+        fence_proxy_async();
+      } else {
+        // the sdf column: this thread's 64 columns of rows r0 and r0 + 8,
+        // then the 4 lanes of a row, then the two warpgroups, in that order
+        float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j));
+          const float2 w = __ldg(reinterpret_cast<const float2*>(wlast + c0 + 8 * j));
+          softplus_sigmoid100(sum[4 * j] * sc + b.x, h0, s);
+          softplus_sigmoid100(sum[4 * j + 1] * sc + b.y, h1, s);
+          softplus_sigmoid100(sum[4 * j + 2] * sc + b.x, h2, s);
+          softplus_sigmoid100(sum[4 * j + 3] * sc + b.y, h3, s);
+          s0 += h0 * w.x + h1 * w.y;
+          s1 += h2 * w.x + h3 * w.y;
+        }
+        s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+        s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+        if (lane % 4 == 0) {
+          red[wg * TC_BM + r0] = s0;
+          red[wg * TC_BM + r0 + 8] = s1;
+        }
+      }
+      consumers_sync();
     }
   }
 
-  if (valid) {
-    acc_s_out[ray] = acc_s;
-    acc_e_out[ray] = acc_e;
-    unf_out[ray] = unf_s ? 1 : 0;
+  if (tid == 0) {
+    ctl[1] = 1;  // the producer stops
+    atomicAdd(counters + 1, executed);
+    atomicAdd(counters + 2, (unsigned long long)TC_BM * tiles - executed);
   }
-  if (tid == 0) atomicAdd(n_evals, n_ev);
+}
+
+// records of the forward chain: per layer the h part then the x part, one
+// k16 slice of N = 512 a record, hi then lo (K2's forward records)
+inline int forward_records(const Plan& p) {
+  int r = 0;
+  for (int l = 0; l < p.n; ++l) r += 2 * (p.l[l].k_h + p.l[l].k_x) / 16;
+  return r;
 }
 
 }  // namespace
@@ -213,40 +498,52 @@ const char* nefii_trace_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int nefii_fused_trace_config(int* width, int* rays_per_block, int* threads) {
+int nefii_fused_trace_config(int* width, int* slots, int* tile_rows, int* slot_bytes) {
   *width = WIDTH;
-  *rays_per_block = TR;
-  *threads = THREADS;
+  *slots = TR_SLOTS;
+  *tile_rows = TC_BM;
+  *slot_bytes = (int)sizeof(Slot);
   return 0;
 }
 
 // One launch traces n_rays rays: cam, dirs [n_rays][3], isect (uint8 mask),
 // near, far [n_rays] fp32 in; acc_s, acc_e [n_rays] fp32, unf [n_rays] uint8
-// and the executed-evaluation count (uint64, zeroed by the caller) out.
+// out. rec: n_rec records of the forward chain in split fp16, layer l's
+// weights times 2^shift[l] (trace_weights); pool: grid x TR_SLOTS
+// slots of scratch; counters: 3 uint64 zeroed by the caller (the next ray,
+// then out: the evaluations executed and the empty rows of the tiles).
 int nefii_sphere_trace(const void* cam, const void* dirs, const void* isect, const void* near,
-                       const void* far, const void* wbuf, const long long* desc, int n_layers,
-                       int x_cols, const void* wlast, float bl, float thresh, float ls_factor,
-                       int ls_iters, int trace_iters, int multires, void* acc_s, void* acc_e,
-                       void* unf, void* n_evals, long long n_rays, void* stream) {
+                       const void* far, const void* rec, int n_rec, const int* shift,
+                       const void* wbuf, const long long* desc, int n_layers, int x_cols,
+                       const void* wlast,
+                       float b_last, float thresh, float ls_factor, int ls_iters, int trace_iters,
+                       int multires, void* acc_s, void* acc_e, void* unf, void* pool,
+                       void* counters, long long n_rays, int grid, void* stream) {
   Plan plan;
   const int d_emb = 3 * (1 + 2 * multires);
-  if (!make_plan(desc, n_layers, x_cols, &plan) || n_rays <= 0 || multires < 0 ||
-      d_emb > x_cols || ls_iters < 0 || trace_iters < 0)
+  if (!make_plan(desc, n_layers, x_cols, &plan) || x_cols > SP_NX || n_rays <= 0 ||
+      n_rays > 0x7fffffffLL || grid <= 0 || multires < 0 || d_emb > x_cols || ls_iters < 0 ||
+      trace_iters < 0)
     return (int)cudaErrorInvalidValue;
-  const long long grid = (n_rays + TR - 1) / TR;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const TraceCfg cfg{thresh, ls_factor, ls_iters, trace_iters, multires, d_emb};
-  const int smem = (WIDTH + x_cols) * BM * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(sphere_trace_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  for (int l = 0; l < plan.n; ++l)
+    if (plan.l[l].k_h % 16 || plan.l[l].k_x % 16) return (int)cudaErrorInvalidValue;
+  if (n_rec != forward_records(plan)) return (int)cudaErrorInvalidValue;
+  TraceCfg cfg{thresh, ls_factor, ls_iters, trace_iters, d_emb, b_last, {}};
+  for (int l = 0; l < plan.n; ++l) {
+    if (shift[l] < -60 || shift[l] > 60) return (int)cudaErrorInvalidValue;
+    cfg.unscale[l] = ldexpf(1.0f, -shift[l]);
+  }
+  const Rays R{static_cast<const float*>(cam), static_cast<const float*>(dirs),
+               static_cast<const uint8_t*>(isect), static_cast<const float*>(near),
+               static_cast<const float*>(far), static_cast<float*>(acc_s),
+               static_cast<float*>(acc_e), static_cast<uint8_t*>(unf), n_rays};
+  cudaError_t e = cudaFuncSetAttribute(sphere_trace_split_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, TR_SMEM);
   if (e != cudaSuccess) return (int)e;
-  sphere_trace_kernel<<<(unsigned)grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cam), static_cast<const float*>(dirs),
-      static_cast<const uint8_t*>(isect), static_cast<const float*>(near),
-      static_cast<const float*>(far), static_cast<const float*>(wbuf), plan,
-      static_cast<const float*>(wlast), bl, cfg, static_cast<float*>(acc_s),
-      static_cast<float*>(acc_e), static_cast<uint8_t*>(unf),
-      static_cast<unsigned long long*>(n_evals), n_rays);
+  sphere_trace_split_kernel<<<grid, TC_THREADS, TR_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      R, static_cast<const __half*>(rec), n_rec, static_cast<const float*>(wbuf), plan,
+      static_cast<const float*>(wlast), cfg, static_cast<Slot*>(pool),
+      static_cast<unsigned long long*>(counters));
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Device-side building blocks of the SDF-MLP hidden chain on the FMA pipe,
-// shared by the fp32 K1 of fused_mlp.cu and by fused_trace.cu (K3); the plan
-// of the layers (Plan, make_plan) serves every kernel.
+// for the fp32 K1 of fused_mlp.cu; the plan of the layers (Plan, make_plan)
+// serves every kernel.
 //
 // A block owns a tile of BM = 32 rows. Activations live in shared memory,
 // feature-major ([feature][row]), so an 8-row slice of one feature is two

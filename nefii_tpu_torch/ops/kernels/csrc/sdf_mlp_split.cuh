@@ -106,33 +106,39 @@ __device__ __forceinline__ void softplus_sigmoid100(float z, float& h, float& s)
   s = t >= 0.0f ? inv : e * inv;
 }
 
-// hi = bf16(a), lo = bf16(a - hi), two values at a time
-__device__ __forceinline__ void split2(float a, float b, __nv_bfloat162& hi, __nv_bfloat162& lo) {
-  hi = __floats2bfloat162_rn(a, b);
-  const float2 f = __bfloat1622float2(hi);
-  lo = __floats2bfloat162_rn(a - f.x, b - f.y);
-}
-
+// hi = bf16(a), lo = bf16(a - hi), two values at a time, as two packed
+// pairs; with F16 the same in fp16 (K3's split)
+template <bool F16 = false>
 __device__ __forceinline__ void split2u(float a, float b, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h, l;
-  split2(a, b, h, l);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+  if constexpr (F16) {
+    const __half2 h = __floats2half2_rn(a, b);
+    const float2 f = __half22float2(h);
+    const __half2 l = __floats2half2_rn(a - f.x, b - f.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 f = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(a - f.x, b - f.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  }
 }
 
 // this thread's values (r0, c), (r0, c + 1), (r0 + 8, c), (r0 + 8, c + 1)
 // of column group j into the A tile, hi at `arow`, lo SP_ACT beyond it
 // (arow: the thread's row r0 and columns in the warpgroup's first chunk)
+template <bool F16 = false>
 __device__ __forceinline__ void put_split(uint8_t* arow, int j, int r0, float v0, float v1,
                                           float v2, float v3) {
   const uint32_t off = (j / 8) * TC_TILE_BYTES + (((j & 7) ^ (r0 & 7)) << 4);
-  __nv_bfloat162 hi, lo;
-  split2(v0, v1, hi, lo);
-  *reinterpret_cast<__nv_bfloat162*>(arow + off) = hi;
-  *reinterpret_cast<__nv_bfloat162*>(arow + SP_ACT + off) = lo;
-  split2(v2, v3, hi, lo);
-  *reinterpret_cast<__nv_bfloat162*>(arow + off + 8 * 128) = hi;
-  *reinterpret_cast<__nv_bfloat162*>(arow + SP_ACT + off + 8 * 128) = lo;
+  uint32_t hi, lo;
+  split2u<F16>(v0, v1, hi, lo);
+  *reinterpret_cast<uint32_t*>(arow + off) = hi;
+  *reinterpret_cast<uint32_t*>(arow + SP_ACT + off) = lo;
+  split2u<F16>(v2, v3, hi, lo);
+  *reinterpret_cast<uint32_t*>(arow + off + 8 * 128) = hi;
+  *reinterpret_cast<uint32_t*>(arow + SP_ACT + off + 8 * 128) = lo;
 }
 
 // Each record's products are one commit group. Commit the group reading

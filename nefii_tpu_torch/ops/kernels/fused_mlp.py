@@ -104,6 +104,9 @@ class FusedWeights:
     # fp32 only: K2's split records of both passes in the order it reads
     # them, packed by split_weights at K2's first launch
     split: Optional[torch.Tensor] = None
+    # fp32 only: K3's split-fp16 records of the forward chain and each
+    # layer's weight scale exponent, packed by fused_trace.trace_weights
+    trace: Optional[tuple] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -213,16 +216,18 @@ def _swizzle32(t: torch.Tensor) -> torch.Tensor:
     return torch.gather(t, -1, (((col // 8) ^ ((r // 4) % 2)) * 8 + col % 8).expand(t.shape))
 
 
-def split_bf16(t: torch.Tensor):
-    """fp32 t -> (hi, lo) bf16 with hi = bf16(t), lo = bf16(t - hi), both
-    rounded to nearest even, as the split kernel rounds its operands."""
-    hi = t.to(torch.bfloat16)
-    return hi, (t - hi.float()).to(torch.bfloat16)
+def split_pair(t: torch.Tensor, dtype: torch.dtype = torch.bfloat16):
+    """fp32 t -> (hi, lo) in `dtype` with hi = dtype(t), lo = dtype(t - hi),
+    both rounded to nearest even, as the split kernels round their operands
+    (K2 in bf16, K3 in fp16)."""
+    hi = t.to(dtype)
+    return hi, (t - hi.float()).to(dtype)
 
 
-def pack_split(b: torch.Tensor, n_pad: int, group: int) -> torch.Tensor:
+def pack_split(b: torch.Tensor, n_pad: int, group: int,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """One K-major operand block b [n, k] (row i holds the k inputs of the
-    product's output column i) -> K2's records, flat bf16: n zero padded to n_pad and k to a
+    product's output column i) -> K2's records, flat in `dtype`: n zero padded to n_pad and k to a
     multiple of 16, cut into k16 slices [n_pad][16] in the 32-byte swizzle,
     split into hi and lo; every `group` slices give a hi record and then a lo
     record, so one bulk copy lands a record as the wgmma B descriptor reads it."""
@@ -230,7 +235,8 @@ def pack_split(b: torch.Tensor, n_pad: int, group: int) -> torch.Tensor:
     kp = _round_up(k, SPLIT_K)
     slices = F.pad(b.float(), (0, kp - k, 0, n_pad - n)).reshape(n_pad, kp // SPLIT_K, SPLIT_K)
     slices = slices.permute(1, 0, 2).contiguous()
-    hi, lo = (_swizzle32(t).reshape(-1, group * n_pad * SPLIT_K) for t in split_bf16(slices))
+    hi, lo = (_swizzle32(t).reshape(-1, group * n_pad * SPLIT_K)
+              for t in split_pair(slices, dtype))
     return torch.stack([hi, lo], 1).reshape(-1)
 
 
@@ -330,9 +336,10 @@ def fused_fwd_bwd_plain(x: torch.Tensor, fw: FusedWeights):
     return _fwd_bwd(x, fw, torch.matmul)
 
 
-def _split_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    ah, al = (t.float() for t in split_bf16(a))
-    wh, wl = (t.float() for t in split_bf16(w))
+def _split_mm(a: torch.Tensor, w: torch.Tensor,
+              dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    ah, al = (t.float() for t in split_pair(a, dtype))
+    wh, wl = (t.float() for t in split_pair(w, dtype))
     return ah @ wh + al @ wh + ah @ wl
 
 

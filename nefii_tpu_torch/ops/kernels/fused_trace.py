@@ -5,34 +5,49 @@
 fn(cam [N,3], dirs [N,3], mask_intersect [N], near [N], far [N]) ->
 (acc_start, acc_end, unfinished_start, min_dis, max_dis, n_evals): the
 contract of RayTracer._sphere_trace. For a CUDA tensor it launches
-`sphere_trace_kernel` (`csrc/fused_trace.cu`), one launch for the whole
-trace; for a CPU tensor it runs `fused_sphere_trace_plain`.
+`sphere_trace_split_kernel` (`csrc/fused_trace.cu`), one launch for the
+whole trace; for a CPU tensor it runs `fused_sphere_trace_plain`.
 
-Both cut the rays into tiles of `tile` rays (the kernel: RAYS_PER_BLOCK)
-and give a tile the kernel's semantics: a tile runs another trace iteration
-only while one of its rays is unfinished, and another line-search step only
-while one of its rays has a negative sdf; every evaluation of a tile counts
-its 2 * tile start and end points in `n_evals`. Per-ray results do not
-depend on the tiling (converged rays are frozen by their masks), the count
-does. fp32 only, as the TPU kernel. Each wrapper launch adds one to
-`LAUNCHES`.
+The kernel runs the SDF chain on the tensor cores in split fp16 over a pool
+of live rays. Split fp16 is K2's split-bf16 scheme (hi.hi + lo.hi + hi.lo)
+with fp16's 11 significand bits: ~22 bits kept where split bf16 keeps ~16.
+Each layer's weights are scaled by a power of two 2^s_l so that their lo
+parts stay normal (`trace_weights` packs them once). A 64-row tile holds
+the point queries that the rays' state machines ask for (a start point
+while unf_s, an end point while unf_e, a back-stepped point while its sdf
+is negative), and a ray leaves the pool when it is finished. So `n_evals`
+counts the point queries evaluated, the count of the gathered tracer
+(`RayTracer._sphere_trace`); the kernel's tiles and their empty rows are
+reported beside it (`stats`). Per-ray results do not depend on which rays
+share a tile.
+
+The plain version has two modes: `tile=None` (the default) evaluates and
+counts the live queries, as the kernel does; `tile=T` gives a tile of T rays
+the Pallas kernel's semantics (another iteration while one of its rays is
+unfinished, every evaluation counting the tile's 2 T points), for the count
+parity with the Pallas kernel. `split=True` runs its chain in the kernel's
+arithmetic, so that the card can tell the scheme's error from the
+kernel's (`agreement` compares two traces). fp32 only, as the TPU kernel.
+Each wrapper launch adds one to `LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import math
+from typing import Dict, List, Optional
 
 import torch
 
 from nefii_tpu_torch.ops.kernels.fused_mlp import (
-    KERNEL_WIDTH, FusedWeights, embed_padded, fused_hidden_plain, network_weights,
+    KERNEL_WIDTH, SPLIT_K, SPLIT_NX, SPLIT_REC, TC_BLOCK_ROWS, FusedWeights, _grid,
+    _softplus100, _split_mm, embed_padded, fused_hidden_plain, network_weights, pack_split,
 )
 
 # launches of the CUDA kernel; the wrapper adds one where it launches, nowhere else
 LAUNCHES: Dict[str, int] = {"fused_sphere_trace": 0}
 
-RAYS_PER_BLOCK = 16   # rays per block tile of the CUDA kernel (TR in csrc/fused_trace.cu)
+POOL_SLOTS = 32   # rays in a block's pool (TR_SLOTS in csrc/fused_trace.cu)
 
 
 def reset_launch_counts() -> None:
@@ -40,19 +55,66 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _sdf_plain(pts: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
-    h = fused_hidden_plain(embed_padded(pts, fw), fw)
+def forward_records(fw: FusedWeights) -> int:
+    """Records that K3 streams a tile: the forward chain's, in K2's forward
+    record layout (forward_records in csrc/fused_trace.cu)."""
+    return sum(2 * (L.k_h + L.k_x) // SPLIT_K for L in fw.layers)
+
+
+def _layer_shifts(fw: FusedWeights) -> List[int]:
+    """s_l for each layer: its weights (both parts of a skip layer) times
+    2^s_l have their largest magnitude in [2^13, 2^14), well inside fp16's
+    range, and their lo parts stay normal."""
+    shifts = []
+    for L in fw.layers:
+        m = max(float(w.abs().max()) for w in (L.w, L.wx) if w is not None)
+        shifts.append(14 - math.frexp(m)[1] if m > 0 else 0)
+    return shifts
+
+
+@torch.no_grad()
+def trace_weights(fw: FusedWeights):
+    """K3's records (packed once, kept in fw.trace): per layer the forward
+    B = (2^s_l W)^T in pack_split's layout, split in fp16; and the s_l."""
+    if fw.trace is None:
+        shifts = _layer_shifts(fw)
+        rec = torch.cat([pack_split(w.t() * 2.0 ** s, fw.width, 1, torch.float16)
+                         for L, s in zip(fw.layers, shifts) for w in (L.w, L.wx)
+                         if w is not None])
+        fw.trace = (rec.contiguous(), shifts)
+    return fw.trace
+
+
+def _f16_hidden_plain(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
+    """K3's chain in plain PyTorch: layer l's products in split fp16 against
+    2^s_l W, the sum times 2^-s_l, then the bias and softplus in fp32."""
+    xf = x.float()
+    h = xf
+    for L, s in zip(fw.layers, trace_weights(fw)[1]):
+        z = _split_mm(h[:, :L.k_h], L.w.float() * 2.0 ** s, torch.float16)
+        if L.wx is not None:
+            z = z + _split_mm(xf, L.wx.float() * 2.0 ** s, torch.float16)
+        h = _softplus100(z * 2.0 ** -s + L.b.float())
+    return h
+
+
+def _sdf_plain(pts: torch.Tensor, fw: FusedWeights, split: bool = False) -> torch.Tensor:
+    x = embed_padded(pts, fw)
+    h = _f16_hidden_plain(x, fw) if split else fused_hidden_plain(x, fw)
     return h @ fw.wlast_col.to(h.device) + fw.b_last[0].to(h.device)
 
 
 def fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer,
-                             tile: int = RAYS_PER_BLOCK):
+                             tile: Optional[int] = None, split: bool = False):
     """K3 in plain PyTorch: -> (acc_start, acc_end, unfinished_start, n_evals).
 
-    Dense over the rays, with the SDF evaluated only on the tiles that the
-    kernel would evaluate, and counted as the kernel counts."""
+    Dense over the rays. With tile=None the SDF is evaluated at the live
+    queries only and n_evals counts them (the kernel's count); with tile=T
+    at every start and end point of the tiles of T rays that the Pallas
+    kernel would evaluate, counted as it counts. split=True runs the SDF
+    chain in the kernel's split fp16."""
     N = cam.shape[0]
-    T = tile
+    T = max(N, 1) if tile is None else tile
     n_pad = -(-max(N, T) // T) * T
     n_tiles = n_pad // T
 
@@ -68,17 +130,21 @@ def fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw: FusedWeig
         return mask.view(n_tiles, T).any(1)
 
     def sdf_at(acc_s, acc_e, m_s, m_e, tiles):
-        """Masked sdf at the start and end points of the rays of `tiles`."""
-        idx = (tiles.nonzero()[:, 0, None] * T
-               + torch.arange(T, device=cam.device)).reshape(-1)
-        pts = torch.cat([cam[idx] + acc_s[idx, None] * dirs[idx],
-                         cam[idx] + acc_e[idx, None] * dirs[idx]])
-        sd = _sdf_plain(pts, fw) if idx.numel() else pts[:, 0]
+        """Masked sdf at the start points of the m_s rays and the end points
+        of the m_e rays (tile=None), or at both points of every ray of
+        `tiles`; and the count of points evaluated."""
+        if tile is None:
+            i_s, i_e = m_s.nonzero()[:, 0], m_e.nonzero()[:, 0]
+        else:
+            i_s = i_e = (tiles.nonzero()[:, 0, None] * T
+                         + torch.arange(T, device=cam.device)).reshape(-1)
+        pts = torch.cat([cam[i_s] + acc_s[i_s, None] * dirs[i_s],
+                         cam[i_e] + acc_e[i_e, None] * dirs[i_e]])
+        sd = _sdf_plain(pts, fw, split) if pts.shape[0] else pts[:, 0]
         sd_s, sd_e = zero.clone(), zero.clone()
-        sd_s[idx] = sd[:idx.numel()]
-        sd_e[idx] = sd[idx.numel():]
-        return (torch.where(m_s, sd_s, zero), torch.where(m_e, sd_e, zero),
-                2 * T * int(tiles.sum()))
+        sd_s[i_s] = sd[:i_s.numel()]
+        sd_e[i_e] = sd[i_s.numel():]
+        return (torch.where(m_s, sd_s, zero), torch.where(m_e, sd_e, zero), pts.shape[0])
 
     def head(unf_s, unf_e, next_s, next_e):
         curr_s = torch.where(unf_s, next_s, zero)
@@ -118,35 +184,74 @@ def fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw: FusedWeig
     return acc_s[:N], acc_e[:N], unf_s[:N], n_ev
 
 
+def agreement(a, b):
+    """Two traces' (acc_start, acc_end, unfinished) -> (rays whose unfinished
+    flag differs, rays whose hit (acc_start < acc_end) differs, the largest
+    distance error on the rays that agree on both)."""
+    unf = a[2] == b[2]
+    hit = (a[0] < a[1]) == (b[0] < b[1])
+    same = unf & hit
+    err = max((a[0] - b[0])[same].abs().max().item(),
+              (a[1] - b[1])[same].abs().max().item()) if bool(same.any()) else 0.0
+    return int((~unf).sum()), int((~hit).sum()), err
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrapper
 # ---------------------------------------------------------------------------
 
+_SLOT_BYTES = 0  # bytes of one pool slot, read from the library
+
+
 def _lib() -> ctypes.CDLL:
+    global _SLOT_BYTES
     from nefii_tpu_torch.ops.kernels import build
 
     lib = build.load("fused_trace")
     if not getattr(lib, "_nefii_typed", False):
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.nefii_sphere_trace.argtypes = [
-            vp, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), i, i, vp, f, f, f,
-            i, i, i, vp, vp, vp, vp, ctypes.c_longlong, vp]
+            vp, vp, vp, vp, vp, vp, i, ctypes.POINTER(i), vp, ctypes.POINTER(ll), i, i, vp, f, f,
+            f, i, i, i,
+            vp, vp, vp, vp, vp, ll, i, vp]
         lib.nefii_sphere_trace.restype = i
         lib.nefii_trace_error_string.argtypes = [i]
         lib.nefii_trace_error_string.restype = ctypes.c_char_p
-        lib.nefii_fused_trace_config.argtypes = [ctypes.POINTER(i)] * 3
-        width, rays, threads = i(), i(), i()
-        lib.nefii_fused_trace_config(ctypes.byref(width), ctypes.byref(rays), ctypes.byref(threads))
-        if (width.value, rays.value) != (KERNEL_WIDTH, RAYS_PER_BLOCK):
-            raise RuntimeError(f"fused_trace library takes width {width.value}, {rays.value} rays "
-                               f"a block; the wrapper expects {KERNEL_WIDTH}, {RAYS_PER_BLOCK}")
+        lib.nefii_fused_trace_config.argtypes = [ctypes.POINTER(i)] * 4
+        cfg = [i() for _ in range(4)]
+        lib.nefii_fused_trace_config(*(ctypes.byref(c) for c in cfg))
+        width, slots, rows, _SLOT_BYTES = (c.value for c in cfg)
+        if (width, slots, rows) != (KERNEL_WIDTH, POOL_SLOTS, TC_BLOCK_ROWS):
+            raise RuntimeError(f"fused_trace library takes width {width}, {slots} rays a pool, "
+                               f"{rows}-row tiles; the wrapper expects {KERNEL_WIDTH}, "
+                               f"{POOL_SLOTS}, {TC_BLOCK_ROWS}")
         lib._nefii_typed = True
     return lib
 
 
-def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer):
+def _trace_records(fw: FusedWeights, device: torch.device):
+    """K3's records (trace_weights, packed at its first launch), their count
+    and the layer shifts. Raises unless the packing is whole, on `device`,
+    contiguous and 16-byte aligned (the bulk copies')."""
+    if fw.x_cols > SPLIT_NX:
+        raise ValueError(f"fused_sphere_trace: the kernel takes at most {SPLIT_NX} embedding "
+                         f"columns, this network has {fw.x_cols}")
+    rec, shifts = trace_weights(fw)
+    n_rec = forward_records(fw)
+    if rec.device != device or rec.dtype != torch.float16 or rec.numel() != n_rec * SPLIT_REC \
+            or len(shifts) != len(fw.layers):
+        raise ValueError("fused_sphere_trace: the packed split weights do not match the network")
+    if not rec.is_contiguous() or rec.data_ptr() % 16:
+        raise ValueError("fused_sphere_trace: the packed weights must be contiguous and "
+                         "16-byte aligned")
+    return rec, n_rec, shifts
+
+
+def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer,
+                       stats: Optional[dict] = None):
     """K3: -> (acc_start, acc_end, unfinished_start, n_evals). CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise."""
+    the plain version; CUDA tensors launch the kernel or raise. `stats`, if
+    given, receives the kernel's tiles and their empty rows."""
     if cam.device.type == "cpu":
         return fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw, tracer)
     if cam.device.type != "cuda":
@@ -167,6 +272,9 @@ def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, t
             raise ValueError(f"fused_sphere_trace: {name} must be float32 on {cam.device}")
     if mask_intersect.dtype != torch.bool or mask_intersect.device != cam.device:
         raise ValueError("fused_sphere_trace: mask_intersect must be bool on the same device")
+    if n >= 2 ** 31:
+        raise ValueError("fused_sphere_trace: at most 2^31 - 1 rays a launch")
+    rec, n_rec, shifts = _trace_records(fw, cam.device)
     cam, dirs, mask_intersect, near, far = (t.contiguous() for t in
                                             (cam, dirs, mask_intersect, near, far))
     acc_s = torch.empty(n, dtype=torch.float32, device=cam.device)
@@ -174,22 +282,31 @@ def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, t
     unf = torch.empty(n, dtype=torch.bool, device=cam.device)
     if n == 0:
         return acc_s, acc_e, unf, 0
-    counter = torch.zeros(1, dtype=torch.int64, device=cam.device)
-    wlast = fw.wlast_col.to(cam.device).contiguous()
     lib = _lib()
+    grid = _grid(n, cam.device, POOL_SLOTS, 1)
+    # the next ray to take, the evaluations executed, the empty rows
+    counters = torch.zeros(3, dtype=torch.int64, device=cam.device)
+    pool = torch.empty(grid * POOL_SLOTS * _SLOT_BYTES, dtype=torch.uint8, device=cam.device)
+    wlast = fw.wlast_col.to(cam.device).contiguous()
     desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
     err = lib.nefii_sphere_trace(
         cam.data_ptr(), dirs.data_ptr(), mask_intersect.data_ptr(), near.data_ptr(),
-        far.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, wlast.data_ptr(),
-        fw.b_sdf, float(tracer.sdf_threshold), 1.0 - float(tracer.line_search_step),
-        int(tracer.line_step_iters), int(tracer.sphere_tracing_iters), int(fw.multires),
-        acc_s.data_ptr(), acc_e.data_ptr(), unf.data_ptr(), counter.data_ptr(), n,
+        far.data_ptr(), rec.data_ptr(), n_rec, (ctypes.c_int * len(shifts))(*shifts),
+        fw.buf.data_ptr(), desc, len(fw.layers),
+        fw.x_cols, wlast.data_ptr(), fw.b_sdf, float(tracer.sdf_threshold),
+        1.0 - float(tracer.line_search_step), int(tracer.line_step_iters),
+        int(tracer.sphere_tracing_iters), int(fw.multires), acc_s.data_ptr(), acc_e.data_ptr(),
+        unf.data_ptr(), pool.data_ptr(), counters.data_ptr(), n, grid,
         torch.cuda.current_stream(cam.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_sphere_trace: CUDA error {err} "
                            f"({lib.nefii_trace_error_string(err).decode()})")
     LAUNCHES["fused_sphere_trace"] += 1
-    return acc_s, acc_e, unf, int(counter.item())
+    _, n_evals, empty = counters.tolist()
+    if stats is not None:
+        stats.update(evals=n_evals, empty_rows=empty,
+                     tiles=(n_evals + empty) // TC_BLOCK_ROWS)
+    return acc_s, acc_e, unf, n_evals
 
 
 def build_fused_sphere_trace(network, tracer):

@@ -145,38 +145,76 @@ def test_tensor_core_wrappers_refuse_what_the_kernel_does_not_take():
     assert all(n == 0 for n in fm.LAUNCHES.values())
 
 
-@torch.no_grad()
-def test_k3_kernel_matches_plain():
-    """K3 on camera rays through the flagship init sphere: the same per-ray
-    results as its plain version (fp32 summation order aside) and an
-    evaluation count within 1% (a flipped convergence keeps a tile alive)."""
-    from nefii_tpu_torch.ops.kernels import fused_trace as ft
-    from nefii_tpu_torch.ops.ray_tracing import RayTracer
+# the primary tracer's conf and the secondary tracer's (confs/conf.conf:121-127)
+K3_CONFS = {"primary": dict(line_step_iters=3, sphere_tracing_iters=10),
+            "secondary": dict(line_step_iters=0, sphere_tracing_iters=5)}
+
+
+def _k3_rays(n):
+    """n camera rays from (0, 0, -2) in random directions around +z, about
+    half of them hitting the flagship init sphere."""
     from nefii_tpu_torch.utils.camera import get_sphere_intersection
 
-    net, _ = _flagship()
-    tracer = RayTracer(line_step_iters=3, sphere_tracing_iters=10)
     g = torch.Generator(device="cuda").manual_seed(2)
     cam_loc = torch.tensor([[0.0, 0.0, -2.0]], device="cuda")
-    dirs = torch.randn(1, 4000, 3, generator=g, device="cuda") * 0.3
+    dirs = torch.randn(1, n, 3, generator=g, device="cuda") * 0.3
     dirs[..., 2] = 1.0
     dirs = dirs / dirs.norm(dim=-1, keepdim=True)
     si, mi = get_sphere_intersection(cam_loc, dirs)
-    rays = (cam_loc.expand(4000, 3).contiguous(), dirs[0].contiguous(), mi[0],
+    return (cam_loc.expand(n, 3).contiguous(), dirs[0].contiguous(), mi[0],
             si[0, :, 0].contiguous(), si[0, :, 1].contiguous())
+
+
+@pytest.mark.parametrize("conf", sorted(K3_CONFS))
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 65, 5000])
+@torch.no_grad()
+def test_k3_kernel_matches_plain(n, conf):
+    """K3 (split fp16 on the tensor cores, a pool of 32 live rays a block) at
+    ragged sizes around its pool and its 64-row tile, under both tracer
+    confs: the same per-ray results as its fp32 plain version (summation
+    order aside, which the 5e-5 stop threshold can turn into a flipped
+    convergence) and an evaluation count within 1% of the plain version's
+    live queries."""
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.ops.ray_tracing import RayTracer
+
+    net, _ = _flagship()
+    tracer = RayTracer(**K3_CONFS[conf])
+    rays = _k3_rays(n)
     fw = fm.prepare_weights(net)
     ft.reset_launch_counts()
-    out = ft.fused_sphere_trace(*rays, fw, tracer)
+    stats = {}
+    out = ft.fused_sphere_trace(*rays, fw, tracer, stats=stats)
     torch.cuda.synchronize()
     assert ft.LAUNCHES["fused_sphere_trace"] == 1
     ref = ft.fused_sphere_trace_plain(*rays, fw, tracer)
     agree = out[2] == ref[2]
     assert agree.float().mean().item() >= 0.999
     hit, hit_ref = out[0] < out[1], ref[0] < ref[1]
-    assert 0 < int(hit.sum()) < 4000
+    if n == 5000:
+        assert 0 < int(hit.sum()) < n
     same = agree & (hit == hit_ref)
     assert (out[0] - ref[0])[same].abs().max().item() <= 1e-4
     assert (out[1] - ref[1])[same].abs().max().item() <= 1e-4
     assert abs(out[3] - ref[3]) <= 0.01 * ref[3]
-    with pytest.raises(ValueError):
+    assert stats["evals"] == out[3] and stats["tiles"] * 64 == out[3] + stats["empty_rows"]
+
+
+@torch.no_grad()
+def test_k3_wrapper_refuses_what_the_kernel_does_not_take():
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.ops.ray_tracing import RayTracer
+
+    net, _ = _flagship()
+    rays = _k3_rays(100)
+    tracer = RayTracer()
+    fw = fm.prepare_weights(net)
+    ft.reset_launch_counts()
+    with pytest.raises(ValueError):  # fp32 only
         ft.fused_sphere_trace(*rays, fm.prepare_weights(net, torch.bfloat16), tracer)
+    rec, shifts = ft.trace_weights(fw)
+    with pytest.raises(ValueError):  # cut split records
+        ft.fused_sphere_trace(*rays, dataclasses.replace(fw, trace=(rec[:-8], shifts)), tracer)
+    with pytest.raises(ValueError):  # near in fp64
+        ft.fused_sphere_trace(*rays[:3], rays[3].double(), rays[4], fw, tracer)
+    assert ft.LAUNCHES["fused_sphere_trace"] == 0

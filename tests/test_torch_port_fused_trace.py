@@ -5,17 +5,22 @@ SDF net with the same weights and rays.
 
 Gates, those of tests/test_fused_trace.py: distances within 1e-5, unfinished
 masks equal, min/max distances exact, and the same executed-evaluation count
-as the Pallas kernel at the same tile size. The dense tracer sums the MLP in
+as the Pallas kernel at the same tile size (the plain version's tile mode);
+the live-query mode (the kernel's count) counts what the port's gathered
+tracer counts. The dense tracer sums the MLP in
 another order than the fused chain (unpadded weights, one skip matmul); a
 ray whose step lands within rounding of the stop threshold can then differ
 by a few 1e-5, so the seeded rays keep clear of that boundary, as
 tests/test_torch_port_tracer.py's do."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from nefii_tpu.models.implicit import ImplicitNetwork as JImplicit
 from nefii_tpu.ops.pallas.fused_trace import build_fused_sphere_trace as jbuild
@@ -27,6 +32,7 @@ from nefii_tpu_torch.ops.kernels import fused_mlp as fm
 from nefii_tpu_torch.ops.kernels import fused_trace as ft
 from nefii_tpu_torch.ops.ray_tracing import RayTracer
 from nefii_tpu_torch.utils.checkpoints import params_from_jax
+from test_torch_port_fused_mlp import _unpack_split
 
 ATOL = 1e-5
 IMPLICIT = dict(feature_vector_size=8, d_in=3, d_out=1, dims=(32,) * 4, geometric_init=True,
@@ -95,8 +101,10 @@ def test_plain_matches_the_dense_tracer_and_k3_closure(nets):
     np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[2]))
     np.testing.assert_array_equal(out[3].numpy(), np.asarray(ref[3]))
     np.testing.assert_array_equal(out[4].numpy(), np.asarray(ref[4]))
-    # counted per tile of RAYS_PER_BLOCK rays, the padded rays of the last one included
-    assert out[5] > 0 and out[5] % (2 * ft.RAYS_PER_BLOCK) == 0
+    # the live queries: what the port's gathered tracer evaluates on the same rays
+    gathered = RayTracer(**TRACER)._sphere_trace(
+        net.sdf, *(torch.from_numpy(np.array(a)) for a in args))
+    assert out[5] == gathered[3] > 0
     assert ft.LAUNCHES["fused_sphere_trace"] == 0  # CPU tensors: the plain version ran
 
 
@@ -140,3 +148,104 @@ def test_ray_tracer_with_and_without_the_k3_hook(nets, training):
         np.testing.assert_allclose(res.dists.numpy(), np.asarray(jref.dists), atol=ATOL)
         np.testing.assert_allclose(res.points.numpy(), np.asarray(jref.points), atol=ATOL)
     assert hooked.n_evals > 0 and plain.n_evals > 0
+
+
+@pytest.mark.parametrize("tile", [16, 64])
+def test_live_queries_match_the_tile_mode(nets, tile):
+    """The live-query mode (the kernel's) and the Pallas kernel's tile mode give
+    the same per-ray results, bit for bit; the live mode evaluates fewer points,
+    as many as the port's gathered tracer through the same chain."""
+    _, _, net = nets
+    args = _flat(*_rays(n=150, seed=3))
+    live = _plain(net, args, None)
+    tiled = _plain(net, args, tile)
+    for x, y in zip(live[:3], tiled[:3]):
+        assert torch.equal(x, y)
+    fw = fm.prepare_weights(net)
+    with torch.no_grad():
+        gathered = RayTracer(**TRACER)._sphere_trace(
+            lambda p: ft._sdf_plain(p, fw), *(torch.from_numpy(np.array(a)) for a in args))
+    assert live[3] == gathered[3] < tiled[3]
+    for x, y in zip(live[:3], gathered[:3]):
+        assert torch.equal(x, y)
+
+
+# The kernel's split-fp16 chain (hi.hi + lo.hi + hi.lo, ~22 significand bits
+# kept) is as close to the fp32 chain as fp32 sums in another order, so it
+# is held to the fp32 gate. The control, K2's split bf16 (~16 bits kept),
+# moves the tiny net's trace by a few 1e-5: past the fp32 gate, which is what
+# ruled it out for the trace, and within 1e-4
+SPLIT_ATOL = {"fp16": ATOL, "bf16": 1e-4}
+
+
+def _split_bf16_hidden(x, fw):
+    """The control's chain: K2's split bf16 against the unscaled weights."""
+    xf = x.float()
+    h = xf
+    for L in fw.layers:
+        z = fm._split_mm(h[:, :L.k_h], L.w.float())
+        if L.wx is not None:
+            z = z + fm._split_mm(xf, L.wx.float())
+        h = fm._softplus100(z + L.b.float())
+    return h
+
+
+@pytest.mark.parametrize("split", ["fp16", "bf16"])
+def test_split_trace_matches_the_pallas_kernel(nets, split, monkeypatch):
+    """The kernel's arithmetic (split=True) against the JAX Pallas kernel in
+    interpret mode: the same unfinished masks and hits, distances within
+    SPLIT_ATOL; and the split-bf16 control, which the fp32 gate rejects."""
+    jnet, params, net = nets
+    args = _flat(*_rays())
+    ref = jbuild(jnet, params, JRayTracer(**TRACER), tile=64, interpret=True)(
+        *(jnp.asarray(a) for a in args))
+    if split == "bf16":
+        monkeypatch.setattr(ft, "_f16_hidden_plain", _split_bf16_hidden)
+    fw = fm.prepare_weights(net)
+    with torch.no_grad():
+        acc_s, acc_e, unf, n_evals = ft.fused_sphere_trace_plain(
+            *(torch.from_numpy(np.array(a)) for a in args), fw, RayTracer(**TRACER), split=True)
+    np.testing.assert_array_equal(unf.numpy(), np.asarray(ref[2]))
+    np.testing.assert_array_equal(acc_s.numpy() < acc_e.numpy(),
+                                  np.asarray(ref[0]) < np.asarray(ref[1]))
+    np.testing.assert_allclose(acc_s.numpy(), np.asarray(ref[0]), atol=SPLIT_ATOL[split])
+    np.testing.assert_allclose(acc_e.numpy(), np.asarray(ref[1]), atol=SPLIT_ATOL[split])
+    err = max(np.abs(acc_s.numpy() - np.asarray(ref[0])).max(),
+              np.abs(acc_e.numpy() - np.asarray(ref[1])).max())
+    print(f"split {split}: max distance error {err:.3e} against the Pallas kernel")
+    if split == "bf16":
+        assert err > ATOL
+    assert 0 < n_evals < int(ref[5])
+
+
+def test_k3_streams_the_forward_records_in_split_fp16():
+    """K3 is told the forward chain's record count, and its records are K2's
+    forward records (per layer W^T's k16 slices, hi then lo) of the weights
+    scaled by 2^s_l, split in fp16: hi + lo holds 2^s_l W to ~2^-22, and the
+    largest scaled weight of a layer lies in [2^13, 2^14)."""
+    net = ImplicitNetwork(feature_vector_size=512, dims=(512,) * 8, skip_in=(4,), multires=6,
+                          use_last_as_f=True, bias=0.6)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    fw = fm.prepare_weights(net)
+    rec, n_rec, shifts = ft._trace_records(fw, torch.device("cpu"))
+    assert n_rec == ft.forward_records(fw) == 456  # 7.47 MB, K2 streams 920 records
+    assert rec.dtype == torch.float16 and rec.numel() == n_rec * fm.SPLIT_REC
+    parts = [(w, s) for L, s in zip(fw.layers, shifts) for w in (L.w, L.wx) if w is not None]
+    forward = torch.cat([fm.pack_split(w.t() * 2.0 ** s, fw.width, 1, torch.float16)
+                         for w, s in parts])
+    assert torch.equal(rec, forward)
+    off = 0
+    for w, s in parts:
+        scaled = w.t().float() * 2.0 ** s
+        assert 2 ** 13 <= scaled.abs().max() < 2 ** 14
+        n = fw.width * w.shape[0]  # hi and lo of every slice of this block
+        hi, lo = _unpack_split(rec[off:off + 2 * n], fw.width, 1)
+        off += 2 * n
+        k = w.shape[0]
+        assert (hi.float() + lo.float() - F.pad(scaled, (0, hi.shape[1] - k))).abs().max() \
+            <= 2.0 ** -22 * scaled.abs().max()
+    assert off == rec.numel()
+    with pytest.raises(ValueError):  # a cut packing is refused
+        ft._trace_records(dataclasses.replace(fw, trace=(rec[:-8], shifts)),
+                          torch.device("cpu"))
+
