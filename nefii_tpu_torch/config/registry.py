@@ -13,6 +13,7 @@ from typing import Any, Dict
 
 _ALIASES: Dict[str, str] = {
     "datasets.scene_dataset.SceneDataset": "nefii_tpu_torch.datasets.scene_dataset.SceneDataset",
+    "datasets.sdf_dataset.SDFDataset": "nefii_tpu_torch.datasets.sdf_dataset.SDFDataset",
     "model.implicit_differentiable_renderer.IDRNetwork": "nefii_tpu_torch.models.idr.IDRNetwork",
     "model.loss.IDRLoss": "nefii_tpu_torch.models.loss.IDRLoss",
 }

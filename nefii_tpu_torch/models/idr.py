@@ -95,9 +95,6 @@ class IDRNetwork(nn.Module):
         secondary_ray_tracer: Optional[RayTracer] = None,
     ):
         super().__init__()
-        if render_type not in PT_RENDER_TYPES:
-            raise NotImplementedError(f"render_type {render_type!r}: the port renders "
-                                      f"{sorted(PT_RENDER_TYPES)}")
         if fast_multi_ray:
             raise NotImplementedError("fast_multi_ray is not ported")
         self.feature_vector_size = feature_vector_size
@@ -160,6 +157,16 @@ class IDRNetwork(nn.Module):
         for net in (self.implicit_network, self.rendering_network, self.envmap_material_network):
             net.reset_parameters(gen)
 
+    def _render_spec(self) -> Dict:
+        """The path-tracing settings of render_type. Raises for a type the port
+        does not render; the check waits for the first render, because Step 1
+        builds this model from confs/sdf.conf (render type "sg") and never
+        renders it."""
+        if self.render_type not in PT_RENDER_TYPES:
+            raise NotImplementedError(f"render_type {self.render_type!r}: the port renders "
+                                      f"{sorted(PT_RENDER_TYPES)}")
+        return PT_RENDER_TYPES[self.render_type]
+
     # ------------------------------------------------------------------
     def _sdf_closure(self):
         """SDF closure for the tracers: the K1 kernel path when use_fused_sdf."""
@@ -184,6 +191,7 @@ class IDRNetwork(nn.Module):
         return None
 
     def scene_fns(self, sdf_fn, sfg_fn) -> ptr.SceneFns:
+        self._render_spec()
         tracer = self.secondary_ray_tracer or self.ray_tracer
         trace_fn = self._fused_trace_closure(tracer)
 
@@ -211,6 +219,7 @@ class IDRNetwork(nn.Module):
         `secondary_dir`) of the first S' strategies, equal to the JAX
         pipeline's: S' is the fewest strategies whose hits reach the limit, or
         every strategy (a limit of S * N or more gives the whole pool)."""
+        self._render_spec()
         if training and not freeze_geo:
             raise NotImplementedError(
                 "training with unfrozen geometry is not ported (ROADMAP.md queue 1, item 1): "
@@ -346,7 +355,7 @@ class IDRNetwork(nn.Module):
             em = self.envmap_material_network
             lgt, rough = em.get_lgtSGs(), None
             trace = self.scene_fns(sdf_fn, sfg_fn).trace
-            for s, name in enumerate(PT_RENDER_TYPES[self.render_type]["strategies"]):
+            for s, name in enumerate(self._render_spec()["strategies"]):
                 if s > 0 and int(hits[:s].sum()) >= limit:
                     break
                 if name == "brdf" and rough is None:
@@ -409,7 +418,7 @@ class IDRNetwork(nn.Module):
             gen, mat["sg_lgtSGs"], mat["sg_specular_reflectance"], mat["sg_roughness"],
             mat["sg_diffuse_albedo"], normals, view_dirs, points,
             self.scene_fns(sdf_fn, sfg_fn), training=training,
-            **PT_RENDER_TYPES[self.render_type],
+            **self._render_spec(),
         )
         return {
             "normals": normals,

@@ -5,7 +5,10 @@ Restores a checkpoint written in the JAX package's `.npz` layout, renders
 the test split at full resolution with multi-ray anti-aliasing
 (`--num_rays`), and writes per view the EXRs gt, rerender_rgb, diffuse_rgb,
 specular_rgb, diffuse_albedo, roughness and specular_reflection, a stacked
-preview PNG, and envmap.exr once.
+preview PNG, and envmap.exr once. With `--export_mesh_resolution N` it also
+writes surface_high_res.ply, the SDF's zero-surface (utils/plots.py
+get_surface_high_res_mesh of the plain implicit net, N samples on the
+shortest axis, within the tracer's bounding sphere).
 
     python -m nefii_tpu_torch.scripts.render --conf confs/conf.conf \
         --data_split_dir <scene_test> --old_expdir exps/robot \
@@ -45,7 +48,7 @@ def add_argument(parser):
     parser.add_argument("--max_views", type=int, default=-1)
     parser.add_argument("--envmap_size", type=int, nargs=2, default=[256, 512])
     parser.add_argument("--export_mesh_resolution", type=int, default=0,
-                        help="mesh export is not ported yet; must stay 0")
+                        help="write surface_high_res.ply at this resolution (0: no mesh)")
     return parser
 
 
@@ -60,8 +63,6 @@ class RenderRunner:
         self.device = torch.device(kwargs.get("device", "cuda"))
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
-        if kwargs.get("export_mesh_resolution", 0) > 0:
-            raise NotImplementedError("--export_mesh_resolution is not ported yet")
 
         conf = kwargs["conf"]
         self.conf = conf if isinstance(conf, ConfigTree) else ConfigFactory.parse_file(conf)
@@ -93,6 +94,7 @@ class RenderRunner:
         os.makedirs(self.out_dir, exist_ok=True)
         self.envmap_size = tuple(kwargs.get("envmap_size", (256, 512)))
         self.max_views = kwargs.get("max_views", -1)
+        self.export_mesh_resolution = kwargs.get("export_mesh_resolution", 0)
         # per view: seconds, pixels, rays, executed SDF evaluations, hit fraction
         self.stats = []
 
@@ -181,6 +183,19 @@ class RenderRunner:
                              coordinate_type=self.coordinate_type)
         exr_io.write(os.path.join(self.out_dir, "envmap.exr"), env.cpu().numpy())
 
+    def write_mesh(self):
+        """The SDF's zero-surface at export_mesh_resolution, through the plain
+        implicit net, as surface_high_res.ply."""
+        from nefii_tpu_torch.utils.mesh_io import save_mesh
+        from nefii_tpu_torch.utils.plots import get_surface_high_res_mesh
+
+        verts, faces = get_surface_high_res_mesh(
+            self.model.implicit_network.sdf, resolution=self.export_mesh_resolution,
+            bound=self.model.ray_tracer.object_bounding_sphere, device=self.device)
+        path = os.path.join(self.out_dir, "surface_high_res.ply")
+        save_mesh(path, verts, faces)
+        print(f"exported {len(verts)}-vertex mesh to {path}")
+
     def run(self):
         n = len(self.dataset)
         if self.max_views > 0:
@@ -193,6 +208,8 @@ class RenderRunner:
                   f"{s['pixels'] / s['seconds']:.1f} px/s, {s['sdf_evals']} SDF evals, "
                   f"hit fraction {s['hit_fraction']:.3f}")
         self.write_envmap()
+        if self.export_mesh_resolution > 0:
+            self.write_mesh()
         print("outputs in", self.out_dir)
 
 

@@ -9,7 +9,9 @@ light, minus the frozen parts) — with their multistep schedules, the alpha
 schedule of the mask loss, the roughness/specular warmups, the pixel and
 patch sampling with the same numpy seeds, the NaN guard, the secondary
 self-distillation and the checkpoint cadence. `vis` writes the panel PNG,
-the sg_rgb EXR and the envmap EXR; scalars are printed.
+the sg_rgb EXR and the envmap EXR, and on the train split the SDF's
+zero-surface as surface_<it>.obj (plot.surface_resolution, default 100);
+scalars are printed.
 
 Differences by design:
   * One process on one device; there is no mesh. Multi-process training,
@@ -28,7 +30,6 @@ Differences by design:
     included; the forward builds the pool only on the steps that distil,
     and the missed rays' part only for the strategies that hold the first
     `secondary_batch_size` hits (`IDRNetwork.forward_with_uv(secondary_limit=...)`).
-  * The mesh export of `vis` is not ported.
 """
 
 from __future__ import annotations
@@ -81,39 +82,64 @@ def trainable_names(model, *, freeze_geometry=False, freeze_idr=False,
     return groups
 
 
+def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c as a fused multiply-add in a's type: two float32 values
+    multiply exactly in float64, and the sum is rounded to float64 and then to
+    a's type, which differs from one rounding only in rare double-rounding
+    ties."""
+    return (a.double() * float(np.float32(b)) + c.double()).to(a.dtype)
+
+
 class AdamGroup:
     """Adam (b1 0.9, b2 0.999, eps 1e-8) over a list of parameters with a
-    schedule of the update count. A parameter without a gradient gets a zero
-    one, so it moves as optax moves it."""
+    schedule of the update count, in the arithmetic of the JAX package's
+    jitted optax.adam: mu = (1-b1) g + b1 mu and nu = (1-b2) g^2 + b2 nu,
+    the step -lr * mu / (bc1 * (sqrt(nu / bc2) + eps)) with bc = 1 - b^count
+    in float32, and each of the three sums of a product rounded once, as XLA
+    compiles them (fused multiply-adds). A parameter without a gradient gets
+    a zero one, so it moves as optax moves it."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
 
     def __init__(self, params: List[torch.nn.Parameter], schedule: Callable[[int], float]):
         self.params = params
         self.schedule = schedule
         self.count = 0
-        self.opt = (torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8)
-                    if params else None)
+        # both moments of every parameter, flat in the order of `params`
+        n = sum(p.numel() for p in params)
+        dev = params[0].device if params else None
+        self.mu = torch.zeros(n, device=dev)
+        self.nu = torch.zeros(n, device=dev)
 
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
 
+    @torch.no_grad()
     def step(self) -> None:
-        if self.opt is not None:
-            for p in self.params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            for g in self.opt.param_groups:
-                g["lr"] = self.schedule(self.count)
-            self.opt.step()
+        lr = self.schedule(self.count)
         self.count += 1
+        if not self.params:
+            return
+        count = torch.tensor(float(self.count))
+        bc1 = (1 - torch.pow(torch.tensor(self.B1), count)).to(self.mu.device)
+        bc2 = (1 - torch.pow(torch.tensor(self.B2), count)).to(self.mu.device)
+        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                       for p in self.params])
+        self.mu = _fma(g, 1 - self.B1, self.mu * self.B1)
+        self.nu = _fma(g * g, 1 - self.B2, self.nu * self.B2)
+        u = self.mu / (bc1 * (torch.sqrt(self.nu / bc2) + self.EPS))
+        flat = _fma(u, -lr, torch.cat([p.reshape(-1) for p in self.params]))
+        for p, new in zip(self.params, flat.split([p.numel() for p in self.params])):
+            p.copy_(new.view_as(p))
 
     def state_dict(self) -> Dict:
-        return {"count": self.count, "adam": self.opt.state_dict() if self.opt else None}
+        return {"count": self.count, "mu": self.mu.cpu(), "nu": self.nu.cpu()}
 
     def load_state_dict(self, state: Dict) -> None:
         self.count = int(state["count"])
-        if self.opt is not None:
-            self.opt.load_state_dict(state["adam"])
+        self.mu = state["mu"].to(self.mu.device)
+        self.nu = state["nu"].to(self.nu.device)
 
 
 def secondary_batch(out: Dict, k_max: int, num_rays: int):
@@ -540,8 +566,10 @@ class IDRTrainRunner:
     def vis(self, split: str, it: int, img_idx: int = 0):
         """Render a full view and write the panel PNG (gt|sg|idr,
         diffuse|specular|normal, albedo|roughness|specular, depth), the sg_rgb
-        EXR and the current envmap EXR."""
+        EXR and the current envmap EXR; on the train split also the SDF's
+        zero-surface (the plain implicit net) as surface_<it>.obj."""
         from nefii_tpu_torch.ops.sg import compute_envmap
+        from nefii_tpu_torch.utils.plots import depth_map, export_surface
         from nefii_tpu_torch.utils.png import write_png
 
         dataset = self.plot_dataset if split == "train" else self.test_dataset
@@ -552,14 +580,8 @@ class IDRTrainRunner:
             v = out[key].reshape(H, W, -1)
             return np.clip(np.tile(v, (1, 1, 3)) if v.shape[-1] == 1 else v, 0, 1)
 
-        pose = np.asarray(dataset.pose_all[img_idx], np.float64)
-        pts = np.asarray(out["points"], np.float64).reshape(-1, 3)
-        depth = ((pts - pose[:3, 3]) @ np.linalg.inv(pose[:3, :3]).T)[:, 2]
-        depth = np.where(np.asarray(out["network_object_mask"]).reshape(-1), depth, np.nan)
-        if np.isfinite(depth).any():
-            lo, hi = np.nanmin(depth), np.nanmax(depth)
-            depth = (depth - lo) / max(hi - lo, 1e-8)
-        depth = np.tile(np.where(np.isnan(depth), 1.0, depth).reshape(H, W, 1), (1, 1, 3))
+        depth = depth_map(np.asarray(out["points"]).reshape(-1, 3), dataset.pose_all[img_idx],
+                          np.asarray(out["network_object_mask"]).reshape(-1).astype(bool), (H, W))
         white = np.ones_like(depth)
         rows = [[out["gt"].reshape(H, W, 3), im("sg_rgb_values"), im("idr_rgb_values")],
                 [im("sg_diffuse_rgb_values"), im("sg_specular_rgb_values"),
@@ -580,6 +602,11 @@ class IDRTrainRunner:
                                      coordinate_type=self.coordinate_type)
             exr_io.write(os.path.join(self.plots_dir, f"{split}_{it}_envmap.exr"),
                          env.cpu().numpy())
+        if split == "train":
+            export_surface(self.model.implicit_network.sdf,
+                           os.path.join(self.plots_dir, f"surface_{it}.obj"),
+                           resolution=self.conf.get_int("plot.surface_resolution", default=100),
+                           device=self.device)
 
     @torch.no_grad()
     def render_image(self, dataset, img_idx: int = 0) -> Dict[str, np.ndarray]:

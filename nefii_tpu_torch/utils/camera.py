@@ -1,6 +1,6 @@
-"""Camera math (counterpart of nefii_tpu/utils/camera.py): ray generation
-and bounding-sphere intersection on tensors, plus the host-side numpy
-`rot_to_quat` the dataset uses for pose initialisation."""
+"""Camera math (counterpart of nefii_tpu/utils/camera.py): ray generation,
+bounding-sphere intersection and camera-frame depth on tensors, plus the
+host-side numpy `rot_to_quat` the dataset uses for pose initialisation."""
 
 from __future__ import annotations
 
@@ -47,6 +47,21 @@ def get_sphere_intersection(cam_loc: torch.Tensor, ray_directions: torch.Tensor,
     si = torch.stack([-sqrt_val - ray_cam_dot, sqrt_val - ray_cam_dot], dim=-1)
     si = torch.where(mask_intersect[..., None], si, torch.zeros_like(si))
     return si.clamp(min=0.01), mask_intersect
+
+
+def _world_to_cam(points: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """World points [B,S,3] -> camera frame [B,S,3] under c2w pose [B,4,4],
+    by the rigid inverse (R^T, -R^T t)."""
+    if pose.dim() != 3 or tuple(pose.shape[1:]) != (4, 4):
+        raise ValueError(f"pose must be [B,4,4] camera-to-world matrices, got {tuple(pose.shape)}")
+    R = pose[:, :3, :3]
+    t = pose[:, :3, 3]
+    return torch.einsum("bji,bsj->bsi", R, points - t[:, None, :])
+
+
+def get_depth(points: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """Depth of world points [B,S,3] in the camera frame of pose [B,4,4] -> [B,S,1]."""
+    return _world_to_cam(points, pose)[:, :, 2:3]
 
 
 def rot_to_quat(R: np.ndarray) -> np.ndarray:
