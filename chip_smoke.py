@@ -36,13 +36,18 @@ Phases, each of which raises on failure (exit code != 0):
    call of the step, the rays on which the kernel decides otherwise than
    the fp32 plain version on the same rays, and whether the split-fp16
    plain version decides as the kernel does.
-7. render: build confs/conf.conf unchanged with the port's seeded geometric
+7. unfrozen-reference: the same step with live geometry (freeze_geo off, the
+   eikonal points injected): every loss term (eikonal and mask included)
+   within rel 1e-5 and every group's gradient, the implicit net's included,
+   within a relative L2 of 2e-3 of the CPU's; K1 fp32 and K3 launched, K2
+   (no backward) not.
+8. render: build confs/conf.conf unchanged with the port's seeded geometric
    init, save the checkpoint in the JAX package's .npz layout, and render two
    128x128 views with 16 rays per pixel through
    nefii_tpu_torch.scripts.render.main. Checks finite outputs, a hit fraction
    above 0 and that the render launched the tensor-core K1 (its sdf entry)
    and K2.
-8. train: Step-2 training of confs/conf.conf with use_fused_trace at full
+9. train: Step-2 training of confs/conf.conf with use_fused_trace at full
    width (2048 px x 64 rays a step) through
    nefii_tpu_torch.training.exp_runner.main, four steps on a synthetic 4-view
    128x128 sphere scene from a checkpoint of the seeded geometry, a secondary
@@ -50,7 +55,27 @@ Phases, each of which raises on failure (exit code != 0):
    trained rendering and material nets, a checkpoint the render CLI reads,
    and launches of the tensor-core K1 (its sdf entry), K2 and K3; prints
    s/step, rays/s, the distillation step and peak memory.
-9. geometry: Step 1, mesh export and LPIPS, which reach no kernel (plain
+10. physg: the PhySG baseline, confs/physg.conf at full width (render type
+   "sg", the closed-form SG renderer; no kernel, as in JAX), trained without
+   --freeze_geometry for 4 steps of 2048 px through exp_runner.main on the
+   synthetic 4-view 128x128 sphere, then rendered through render.main with
+   --num_rays -1: 2 views at 128x128 and one 512x512 view (one render chunk
+   of 262,144 px). Checks finite losses and EXRs, a trained geometry and
+   material; prints s/step, s/view and peak memory.
+11. unfrozen: confs/conf.conf at full width without --freeze_geometry (2048
+   px x 64 rays, bf16 K1 in the tracers, a distillation step after each, idr lr
+   1e-6 so that the second step still traces a surface), 2
+   steps as shipped and 2 with train.remat and model.remat_strategies,
+   through exp_runner.main. Checks that every network trains, that K1 bf16
+   launched and that K2 launched 0 times in the shading that keeps a graph
+   (it serves the value-only secondary-hit pool); prints s/step and
+   max_memory_allocated of each run.
+12. neus: confs/conf_neus.conf (NeuS's 8x256 SDF net, padded to the
+   kernels' width 512 on the card): K1 and K2 on that packing against their
+   plain versions, then a NeuS .pth imported with --geometry_neus and 2
+   frozen steps with the workflow's flags through exp_runner.main. Checks
+   the imported weights, finite losses and launches of K1 bf16 and K2.
+13. geometry: Step 1, mesh export and LPIPS, which reach no kernel (plain
    fp32 cuBLAS). Builds the port's native runtime (g++, printed seconds);
    meshes the radius-0.5 sphere with get_surface_trace at resolution 256;
    turns its faces outward (marching tetrahedra leaves windings as they come,
@@ -58,7 +83,8 @@ Phases, each of which raises on failure (exit code != 0):
    confs/sdf.conf (16,384 points) on the card against the same step on the
    CPU (loss, implicit gradients) and times the step alone; trains
    STEP1_ITERS steps (lr STEP1_LR) through
-   nefii_tpu_torch.training.geometry_runner.main on that mesh with one vis; prints s/step, the sampler's seconds a batch,
+   nefii_tpu_torch.training.geometry_runner.main on that mesh with one vis;
+   prints s/step, the sampler's seconds a batch,
    the queue wait, peak memory and the first and last loss; checks the
    fitted SDF at radii 0.3 / 0.5 / 0.8; exports the high-res mesh at
    resolution 300 and checks its radius; loads the Step-1 checkpoint into
@@ -66,7 +92,8 @@ Phases, each of which raises on failure (exit code != 0):
    holds LPIPS-alex with seeded weights on the card against the CPU.
 
 The line before the last is the kernels' JSON record (launches from the
-training run); the last line is {"ok": true, "device": {...}}.
+frozen training run, and beside them those of the render, the references,
+the live-geometry paths and the NeuS run); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
 
@@ -130,14 +157,14 @@ K3_ON = ("use_fused_sdf = True", "use_fused_sdf = True\n    use_fused_trace = Tr
 FP32_TRACE = ("fused_sdf_dtype = bfloat16", "fused_sdf_dtype = float32")
 
 
-def _conf_text(replace=()):
-    """confs/conf.conf with the (old, new) replacements; raises if an old
-    text is no longer there."""
-    with open(os.path.join(ROOT, "confs", "conf.conf")) as f:
+def _conf_text(replace=(), name="conf.conf"):
+    """confs/<name> with the (old, new) replacements; raises if an old text is
+    no longer there."""
+    with open(os.path.join(ROOT, "confs", name)) as f:
         text = f.read()
     for old, new in replace:
         if old not in text:
-            raise RuntimeError(f"confs/conf.conf no longer holds {old!r}")
+            raise RuntimeError(f"confs/{name} no longer holds {old!r}")
         text = text.replace(old, new, 1)
     return text
 
@@ -732,11 +759,21 @@ def _trace_divergence(calls):
     return report
 
 
-def phase_train_reference():
-    """One frozen-geometry training step of confs/conf.conf (fp32 trace, K3 on)
-    on TRAIN_REF_PATCHES x 4 pixels x TRAIN_REF_RAYS rays: through the kernels
+# the unfrozen-reference gates: every loss term (eikonal and mask included)
+# and every group's gradient, the implicit net's included
+UNFROZEN_REF_TOL = {"term_rel": 1e-5, "grad_rel_l2": 2e-3}
+LIVE_GRAD_GROUPS = ("implicit_network",) + GRAD_GROUPS
+LIVE_REF_KERNELS = ("fused_sdf_hidden", "fused_sphere_trace")
+LOSS_TERMS = ("loss", "idr_rgb_loss", "sg_rgb_loss", "eikonal_loss", "mask_loss",
+              "normalsmooth_loss", "background_rgb_loss")
+
+
+def phase_train_reference(live=False):
+    """One training step of confs/conf.conf (fp32 trace, K3 on) on
+    TRAIN_REF_PATCHES x 4 pixels x TRAIN_REF_RAYS rays: through the kernels
     on the card against the plain versions on the CPU, the same weights,
-    directions and min-SDF vector."""
+    directions and min-SDF vector. `live`: the unfrozen-reference, with the
+    geometry training and its eikonal points injected."""
     import numpy as np
     import torch
 
@@ -746,6 +783,8 @@ def phase_train_reference():
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
 
+    tag = "[unfrozen-reference]" if live else "[train-reference]"
+    groups = LIVE_GRAD_GROUPS if live else GRAD_GROUPS
     conf = _model_conf([K3_ON, FP32_TRACE])
     mconf = conf.get_config("model")
     loss = IDRLoss(**conf.get_config("loss").as_plain_dict())
@@ -760,6 +799,9 @@ def phase_train_reference():
     _, inp, _ = ds.collate([ds[0]])
     n_px = inp["uv"].shape[1]
     inp["object_mask"] = rng.random((1, n_px)) < 0.85
+    if live:
+        inp["eik_override"] = rng.uniform(-1.0, 1.0, (n_px * TRAIN_REF_RAYS // 2, 3)).astype(
+            np.float32)
     gt = rng.random((1, n_px, 3)).astype(np.float32)
     steps01 = torch.from_numpy(rng.random(gpu.ray_tracer.n_steps).astype(np.float32))
     res = {}
@@ -769,45 +811,60 @@ def phase_train_reference():
             ft.reset_launch_counts()
             batch = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in inp.items()}
             out = model.forward_with_uv(batch, torch.Generator(device=dev).manual_seed(0),
-                                        training=True, freeze_geo=True,
+                                        training=True, freeze_geo=not live,
                                         steps01=steps01.to(dev))
             ld = loss(out, {"rgb": torch.as_tensor(gt, device=dev)})
             ld["loss"].backward()
             grads = {g: torch.cat([p.grad.reshape(-1).cpu() for n, p in
                                    model.named_parameters()
                                    if n.startswith(g + ".") and p.grad is not None])
-                     for g in GRAD_GROUPS}
+                     for g in groups}
             res[dev] = dict(loss=float(ld["loss"].detach()), grads=grads,
+                            terms={k: float(ld[k].detach()) for k in LOSS_TERMS},
                             mask=out["network_object_mask"].cpu(),
                             out={k: out[k].detach().cpu() for k in STEP_KEYS},
                             launches={**fm.LAUNCHES, **ft.LAUNCHES})
     g, c = res["cuda"], res["cpu"]
     loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    term_rel = {k: abs(g["terms"][k] - c["terms"][k]) / max(abs(c["terms"][k]), 1e-30)
+                for k in LOSS_TERMS}
     grad_rel = {k: float((g["grads"][k] - c["grads"][k]).norm() / c["grads"][k].norm())
-                for k in GRAD_GROUPS}
+                for k in groups}
     mask_agree = float((g["mask"] == c["mask"]).float().mean())
     # the rays whose outputs differ by more than REF_TOL['abs'], by output
     ray_diff = {}
     for k in STEP_KEYS:
         d = (g["out"][k] - c["out"][k]).abs().reshape(g["out"][k].shape[0], -1).amax(1)
         ray_diff[k] = {int(i): float(d[i]) for i in (d > REF_TOL["abs"]).nonzero()[:8, 0]}
-    print(f"[train-reference] {n_px} px x {TRAIN_REF_RAYS} rays, kernels on cuda vs plain on "
-          f"cpu: loss {g['loss']:.6f} vs {c['loss']:.6f} (rel {loss_rel:.2e}), grad rel L2 "
-          f"{grad_rel}, hit mask agreement {mask_agree:.4f}, rays whose outputs differ by "
-          f"more than {REF_TOL['abs']:g}: {ray_diff}, launches {g['launches']}",
-          flush=True)
+    print(f"{tag} {n_px} px x {TRAIN_REF_RAYS} rays, kernels on cuda vs plain on "
+          f"cpu: loss {g['loss']:.6f} vs {c['loss']:.6f} (rel {loss_rel:.2e}), terms rel "
+          f"{term_rel}, grad rel L2 {grad_rel}, hit mask agreement {mask_agree:.4f}, rays whose "
+          f"outputs differ by more than {REF_TOL['abs']:g}: {ray_diff}, launches "
+          f"{g['launches']}", flush=True)
     divergence = _trace_divergence(traces.calls)
-    if not loss_rel <= TRAIN_REF_TOL["loss_rel"]:
-        raise RuntimeError(f"training loss on the card disagrees: rel {loss_rel:.2e}")
-    bad = {k: v for k, v in grad_rel.items() if not v <= TRAIN_REF_TOL["grad_rel_l2"]}
+    if live:
+        bad = {k: v for k, v in term_rel.items() if not v <= UNFROZEN_REF_TOL["term_rel"]}
+        if bad or not c["terms"]["eikonal_loss"] > 0 or not c["terms"]["mask_loss"] > 0:
+            raise RuntimeError(f"unfrozen loss terms on the card disagree: {bad}")
+        grad_gate = UNFROZEN_REF_TOL["grad_rel_l2"]
+        if any(g["launches"][k] <= 0 for k in LIVE_REF_KERNELS) or g["launches"][
+                "fused_sdf_fwd_bwd"] != 0:
+            raise RuntimeError(f"the card's unfrozen step missed a kernel or ran K2, which has "
+                               f"no backward: {g['launches']}")
+    else:
+        if not loss_rel <= TRAIN_REF_TOL["loss_rel"]:
+            raise RuntimeError(f"training loss on the card disagrees: rel {loss_rel:.2e}")
+        grad_gate = TRAIN_REF_TOL["grad_rel_l2"]
+        if any(g["launches"][k] <= 0 for k in TRAIN_REF_KERNELS):
+            raise RuntimeError(f"the card's training step missed a kernel: {g['launches']}")
+    bad = {k: v for k, v in grad_rel.items() if not v <= grad_gate}
     if bad:
         raise RuntimeError(f"training gradients on the card disagree: {bad}")
-    if any(g["launches"][k] <= 0 for k in TRAIN_REF_KERNELS):
-        raise RuntimeError(f"the card's training step missed a kernel: {g['launches']}")
     if any(n != 0 for n in c["launches"].values()):
         raise RuntimeError("the CPU step launched a kernel")
-    return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, mask_agreement=mask_agree,
-                rays_that_differ=ray_diff, trace_divergence=divergence, launches=g["launches"])
+    return dict(loss_rel=loss_rel, term_rel=term_rel, grad_rel_l2=grad_rel,
+                mask_agreement=mask_agree, rays_that_differ=ray_diff,
+                trace_divergence=divergence, launches=g["launches"])
 
 
 TRAIN_RES = 128
@@ -909,6 +966,351 @@ def phase_train(card):
     return launches, summary
 
 
+# the vis renders off: a training run of these phases renders nothing
+NO_VIS = (("plot_freq = 1000", "plot_freq = 0"), ("val_freq = 1000", "val_freq = 0"))
+PHYSG_VIEWS = 4        # 4 steps: one epoch, iterations 0-3
+PHYSG_RENDER_VIEWS = 2
+PHYSG_CHUNK_RES = 512  # one view of 262,144 px: one render chunk at memory_capacity_level 18
+NETS = ("implicit_network", "rendering_network", "envmap_material_network")
+
+
+def _moved(before, after):
+    import numpy as np
+
+    return {net: any(not np.array_equal(after[k], before[k]) for k in before
+                     if k.startswith(net + "/")) for net in NETS}
+
+
+def _read_views(out_dir, n, res):
+    import numpy as np
+
+    from nefii_tpu_torch.utils import exr
+
+    for i in range(n):
+        for name in EXR_NAMES:
+            img = exr.read(os.path.join(out_dir, f"{name}_{i:03d}.exr"))
+            if img.shape[:2] != (res, res) or not np.isfinite(img).all():
+                raise RuntimeError(f"{name}_{i:03d}.exr: shape {img.shape} or non-finite")
+
+
+def phase_physg(card):
+    """The PhySG baseline: confs/physg.conf at full width (8x512 SDF, skip at
+    4, no geometry feature, 4x512 IDR net, 128 SGs, one global material),
+    trained without --freeze_geometry through exp_runner.main (2048 px a
+    step, one ray each) on the synthetic sphere scene from the seeded
+    geometric init, then rendered through render.main with --num_rays -1:
+    two 128x128 views of the training scene and one 512x512 view, a whole
+    render chunk at the default memory_capacity_level."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.scripts import render
+    from nefii_tpu_torch.training import exp_runner
+    from nefii_tpu_torch.utils import checkpoints as ckpt
+
+    text = _conf_text(NO_VIS, name="physg.conf")
+    with tempfile.TemporaryDirectory() as d:
+        conf_path = os.path.join(d, "physg.conf")
+        with open(conf_path, "w") as f:
+            f.write(text)
+        scene = write_sphere_scene(os.path.join(d, "scene"), PHYSG_VIEWS, TRAIN_RES)
+        argv = ["--conf", conf_path, "--data_split_dir", scene, "--exps_folder_name",
+                os.path.join(d, "exps"), "--max_niter", str(PHYSG_VIEWS - 1), "--device", "cuda"]
+        print("[physg] python -m nefii_tpu_torch.training.exp_runner " + " ".join(argv),
+              flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fm.reset_launch_counts()
+        ft.reset_launch_counts()
+        runner = exp_runner.main(argv)
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated()
+        launches = {**fm.LAUNCHES, **ft.LAUNCHES}
+        stats = runner.step_stats
+        before = ckpt.params_to_jax(type(runner.model).from_conf(
+            runner.conf.get_config("model"), device="cuda", seed=0))
+        moved = _moved(before, ckpt.params_to_jax(runner.model))
+        for st in stats:
+            print(f"[physg] step {st['iter']}: {st['seconds']:.4f} s/step ({st['rays']} rays), "
+                  f"loss {st['loss']:.6f} [{card}]", flush=True)
+        s_step = float(np.mean([st["seconds"] for st in stats[1:]]))
+        if len(stats) != PHYSG_VIEWS or stats[0]["rays"] != 2048:
+            raise RuntimeError(f"expected {PHYSG_VIEWS} steps of 2048 rays: {stats}")
+        if not all(np.isfinite(st["loss"]) for st in stats):
+            raise RuntimeError("a PhySG training loss is not finite")
+        # idr_rgb_weight = 0: the IDR radiance net gets no gradient, as in JAX
+        if moved != {"implicit_network": True, "rendering_network": False,
+                     "envmap_material_network": True}:
+            raise RuntimeError(f"the PhySG geometry or material did not train: {moved}")
+        if any(launches.values()):
+            raise RuntimeError(f"physg.conf sets no use_fused_sdf, but a kernel ran: {launches}")
+
+        views = {}
+        chunk_scene = SceneDataset.write_camera_only_split(os.path.join(d, "chunk"), 1,
+                                                           PHYSG_CHUNK_RES, focal=640.0)
+        for key, data, n, res in (("128", scene, PHYSG_RENDER_VIEWS, TRAIN_RES),
+                                  ("512", chunk_scene, 1, PHYSG_CHUNK_RES)):
+            out_dir = os.path.join(d, "renders_" + key)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rr = render.main(["--conf", conf_path, "--data_split_dir", data, "--old_expdir",
+                              runner.expdir, "--timestamp", runner.timestamp, "--num_rays", "-1",
+                              "--max_views", str(n), "--out_dir", out_dir, "--device", "cuda"])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            _read_views(out_dir, n, res)
+            if not all(st["hit_fraction"] > 0 and st["rays"] == res * res for st in rr.stats):
+                raise RuntimeError(f"the PhySG render hit nothing or cast other rays: {rr.stats}")
+            views[key] = dict(s_per_view=[st["seconds"] for st in rr.stats],
+                              hit_fraction=[st["hit_fraction"] for st in rr.stats],
+                              max_memory_allocated=peak)
+            for st in rr.stats:
+                print(f"[physg] render {res}x{res} view {st['view']}: {st['seconds']:.4f} s/view, "
+                      f"{st['pixels'] / st['seconds']:.1f} px/s, hit fraction "
+                      f"{st['hit_fraction']:.3f} [{card}]", flush=True)
+    summary = dict(s_per_step=s_step, steps=len(stats), max_memory_allocated=train_peak,
+                   launches=launches, render=views)
+    gib = {k: v["max_memory_allocated"] / 2**30 for k, v in views.items()}
+    print(f"[physg] steps after the first: {s_step:.4f} s/step; max_memory_allocated: training "
+          f"{train_peak / 2**30:.3f} GiB, 128x128 render {gib['128']:.3f} GiB, 512x512 render "
+          f"(one chunk of {PHYSG_CHUNK_RES ** 2} px) {gib['512']:.3f} GiB; launches {launches} "
+          f"[{card}]",
+          flush=True)
+    return summary
+
+
+UNFROZEN_VIEWS = 2     # 2 steps a run: one epoch, iterations 0-1
+# the shipped idr lr 5e-4 moves every parameter of the seeded geometry by
+# ~5e-4 in Adam's first update, and on an H100 the second step then found no
+# secondary hit (loss 1.28 -> 39.1): its time was not a live surface's. At
+# 1e-6 both steps trace one; the time of a step does not depend on the lr
+UNFROZEN_LR = ("idr_learning_rate = 5e-4", "idr_learning_rate = 1e-6")
+REMAT = (("num_rays = 64", "num_rays = 64\n    remat = True"),
+         ("use_fused_sdf = True", "use_fused_sdf = True\n    remat_strategies = True"))
+
+
+def phase_unfrozen(card):
+    """confs/conf.conf at full width without --freeze_geometry (2048 px x 64
+    rays a step, bf16 K1 in the tracers, a distillation step after each)
+    through exp_runner.main from a checkpoint of the seeded geometry, the idr
+    lr at UNFROZEN_LR: two steps as shipped, then two with train.remat and
+    model.remat_strategies. K1 must launch, and K2, which has no backward,
+    must not in the shading that keeps a graph (the step's and the
+    distillation's, get_rbg_value(value_only=False), recomputations under
+    remat included); it serves the secondary-hit pool of the rays that
+    missed, which is values only."""
+    from nefii_tpu_torch.models.idr import IDRNetwork
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+
+    runs = {}
+    graph_k2 = [0]
+    shade = IDRNetwork.get_rbg_value
+
+    def counted(self, *args, value_only=True, **kw):
+        before = fm.LAUNCHES["fused_sdf_fwd_bwd"]
+        try:
+            return shade(self, *args, value_only=value_only, **kw)
+        finally:
+            if not value_only:
+                graph_k2[0] += fm.LAUNCHES["fused_sdf_fwd_bwd"] - before
+
+    IDRNetwork.get_rbg_value = counted
+    try:
+        return _unfrozen_runs(card, runs, graph_k2)
+    finally:
+        IDRNetwork.get_rbg_value = shade
+
+
+def _unfrozen_runs(card, runs, graph_k2):
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.config import parse_string
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+    from nefii_tpu_torch.models.idr import IDRNetwork
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.training import exp_runner
+    from nefii_tpu_torch.utils import checkpoints as ckpt
+
+    with tempfile.TemporaryDirectory() as d:
+        scene = write_sphere_scene(os.path.join(d, "scene"), UNFROZEN_VIEWS, TRAIN_RES)
+        geo_dir = os.path.join(d, "geometry", "checkpoints")
+        model = IDRNetwork.from_conf(parse_string(_conf_text()).get_config("model"),
+                                     device="cuda", seed=0)
+        before = ckpt.params_to_jax(model)
+        ckpt.save_collection(geo_dir, ckpt.MODEL, "latest", before, {"epoch": 0})
+        del model
+        for name, replace in (("no_remat", NO_VIS + (UNFROZEN_LR,)),
+                              ("remat", NO_VIS + (UNFROZEN_LR,) + REMAT)):
+            conf_path = os.path.join(d, name + ".conf")
+            with open(conf_path, "w") as f:
+                f.write(_conf_text(replace))
+            argv = ["--conf", conf_path, "--data_split_dir", scene, "--geometry", geo_dir,
+                    "--exps_folder_name", os.path.join(d, "exps_" + name),
+                    "--roughness_warmup", "2", "--secondary_train_interval", "1",
+                    "--secondary_batch_size", "1024", "--max_niter", str(UNFROZEN_VIEWS - 1),
+                    "--device", "cuda"]
+            print(f"[unfrozen] {name}: python -m nefii_tpu_torch.training.exp_runner "
+                  + " ".join(argv), flush=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fm.reset_launch_counts()
+            ft.reset_launch_counts()
+            graph_k2[0] = 0
+            runner = exp_runner.main(argv)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = {**fm.LAUNCHES, **ft.LAUNCHES}
+            stats = runner.step_stats
+            moved = _moved(before, ckpt.params_to_jax(runner.model))
+            for st in stats:
+                print(f"[unfrozen] {name} step {st['iter']}: {st['seconds']:.3f} s/step, "
+                      f"{st['rays'] / st['seconds']:.1f} rays/s ({st['rays']} rays), loss "
+                      f"{st['loss']:.6f}, secondary step {st['secondary_seconds']:.3f} s "
+                      f"({st['secondary_points']} hits x 64 rays) [{card}]", flush=True)
+            runs[name] = dict(s_per_step=[st["seconds"] for st in stats],
+                              secondary_s=[st["secondary_seconds"] for st in stats],
+                              max_memory_allocated=peak, launches=launches,
+                              k2_in_graph_shading=graph_k2[0])
+            print(f"[unfrozen] {name}: max_memory_allocated {peak / 2**30:.3f} GiB; launches "
+                  f"{launches}, K2 in the shading that keeps a graph {graph_k2[0]}, in the "
+                  f"secondary-hit pool {launches['fused_sdf_fwd_bwd'] - graph_k2[0]} [{card}]",
+                  flush=True)
+            if runner.remat != (name == "remat") or runner.freeze_geo:
+                raise RuntimeError(f"{name}: the run's settings are not the phase's")
+            if len(stats) != UNFROZEN_VIEWS or stats[0]["rays"] != 2048 * 64:
+                raise RuntimeError(f"expected {UNFROZEN_VIEWS} steps of 2048 x 64 rays: {stats}")
+            if not all(np.isfinite(st["loss"]) and st["secondary_points"] > 0 for st in stats):
+                raise RuntimeError("an unfrozen loss is not finite or a distillation did not run")
+            if not all(moved.values()):
+                raise RuntimeError(f"a network did not train: {moved}")
+            if launches["fused_sdf_value"] <= 0 or graph_k2[0] != 0:
+                raise RuntimeError(f"unfrozen training must launch K1 bf16, and K2 never in "
+                                   f"the shading that keeps a graph ({graph_k2[0]}): {launches}")
+    return runs
+
+
+NEUS_VIEWS = 2          # 2 steps: one epoch, iterations 0-1
+
+
+def _neus_state(imp):
+    """A NeuS checkpoint's `sdf_network_fine` of the port ImplicitNetwork
+    `imp`: torch weight norm's lin<i>.weight_g / weight_v / bias."""
+    state = {}
+    for i, layer in enumerate(imp.layers):
+        state[f"lin{i}.weight_g"] = layer.g.detach().cpu().clone()
+        state[f"lin{i}.weight_v"] = layer.v.detach().cpu().clone()
+        state[f"lin{i}.bias"] = layer.b.detach().cpu().clone()
+    return {"sdf_network_fine": state}
+
+
+def phase_neus(card):
+    """The workflow without masks (workflows/run_s2_womask.sh):
+    confs/conf_neus.conf, whose SDF net is NeuS's 8x256 (skip at 4, multires
+    6, 256 features) with use_fused_sdf, bf16 trace. The CUDA kernels take
+    one width, 512: prepare_weights pads the 256-wide layers with zero
+    weights on the card. K1 (fp32, and bf16 both entries) and K2 on that
+    packing against their plain versions at N_POINTS points, then a NeuS
+    `.pth` (the seeded net's `sdf_network_fine`) imported through
+    exp_runner.main --geometry_neus with the workflow's flags (frozen
+    geometry, --wo_mask, --gamma 2.2, a distillation step after each of 2
+    steps of 2048 px x 64 rays). Checks the imported weights bit for bit,
+    finite losses, a frozen geometry, and launches of K1 bf16 and K2."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.config import parse_string
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+    from nefii_tpu_torch.models.idr import IDRNetwork
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.training import exp_runner
+
+    text = _conf_text(NO_VIS, name="conf_neus.conf")
+    mconf = parse_string(text).get_config("model")
+    src = IDRNetwork.from_conf(mconf, device="cuda", seed=7)
+    imp = src.implicit_network
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    pts = torch.randn(N_POINTS, 3, generator=gen, device="cuda") * 0.5
+    res = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            fw = fm.prepare_weights(imp, dtype)
+            if fw.width != fm.KERNEL_WIDTH or fw.real_width != 256:
+                raise RuntimeError(f"NeuS packing: width {fw.width}, real {fw.real_width}")
+            x = fm.embed_padded(pts, fw)
+            h, ref = fm.fused_hidden(x, fw), fm.fused_hidden_plain(x, fw)
+            if dtype == torch.float32:
+                err = (h - ref).abs().max().item()
+                if not err <= TOL["fp32_abs"] or not bool(torch.isfinite(h).all()):
+                    raise RuntimeError(f"K1 fp32 on the NeuS net disagrees: {err:.3e}")
+                hk, dx = fm.fused_fwd_bwd(x, fw)
+                hr, dxr = fm.fused_fwd_bwd_plain(x, fw)
+                e_h = (hk - hr).abs().max().item()
+                e_dx = (dx - dxr).abs().max().item()
+                if not (e_h <= TOL["fp32_abs"]
+                        and e_dx <= TOL["grad_rel"] * dxr.abs().max().item()):
+                    raise RuntimeError(f"K2 on the NeuS net disagrees: h {e_h:.3e} dx {e_dx:.3e}")
+                res["k1_fp32"] = dict(max_abs_err=err, ms=_time(lambda: fm.fused_hidden(x, fw)))
+                res["k2"] = dict(max_abs_err_h=e_h, max_abs_err_dx=e_dx,
+                                 ms=_time(lambda: fm.fused_fwd_bwd(x, fw)))
+            else:
+                err, _ = _check_bf16("K1 bf16 on the NeuS net", h, ref)
+                es, _ = _check_bf16("fused_sdf_value on the NeuS net", fm.fused_sdf_value(x, fw),
+                                    fm.fused_sdf_value_plain(x, fw))
+                res["k1_bf16"] = dict(max_abs_err=err, sdf_max_abs_err=es,
+                                      ms=_time(lambda: fm.fused_sdf_value(x, fw), reps=10))
+    print(f"[neus] 8x256 SDF net padded to width {fm.KERNEL_WIDTH}, N={N_POINTS}: {res} "
+          f"[{card}]", flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        conf_path = os.path.join(d, "conf_neus.conf")
+        with open(conf_path, "w") as f:
+            f.write(text)
+        pth = os.path.join(d, "neus.pth")
+        torch.save(_neus_state(imp), pth)
+        scene = write_sphere_scene(os.path.join(d, "scene"), NEUS_VIEWS, TRAIN_RES)
+        argv = ["--conf", conf_path, "--data_split_dir", scene, "--exps_folder_name",
+                os.path.join(d, "exps"), "--gamma", "2.2", "--wo_mask", "--roughness_warmup",
+                "2", "--secondary_batch_size", "1024", "--secondary_train_interval", "1",
+                "--freeze_geometry", "--geometry_neus", pth, "--max_niter",
+                str(NEUS_VIEWS - 1), "--device", "cuda"]
+        print("[neus] python -m nefii_tpu_torch.training.exp_runner " + " ".join(argv),
+              flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fm.reset_launch_counts()
+        ft.reset_launch_counts()
+        runner = exp_runner.main(argv)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {**fm.LAUNCHES, **ft.LAUNCHES}
+    stats = runner.step_stats
+    for st in stats:
+        print(f"[neus] step {st['iter']}: {st['seconds']:.3f} s/step ({st['rays']} rays), loss "
+              f"{st['loss']:.6f}, secondary step {st['secondary_seconds']:.3f} s [{card}]",
+              flush=True)
+    got = runner.model.implicit_network
+    same = all(torch.equal(a.detach(), b.detach())
+               for a, b in zip(got.parameters(), imp.parameters()))
+    print(f"[neus] imported weights equal the .pth's: {same}; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB; launches {launches} [{card}]", flush=True)
+    if not same or not runner.freeze_geo:
+        raise RuntimeError("the NeuS geometry was not imported as saved, or it trained")
+    if len(stats) != NEUS_VIEWS or not all(np.isfinite(st["loss"]) and st["secondary_points"] > 0
+                                           for st in stats):
+        raise RuntimeError(f"expected {NEUS_VIEWS} finite steps with distillation: {stats}")
+    if launches["fused_sdf_value"] <= 0 or launches["fused_sdf_fwd_bwd"] <= 0:
+        raise RuntimeError(f"the NeuS run must launch K1 bf16 and K2: {launches}")
+    return dict(kernels=res, s_per_step=[st["seconds"] for st in stats],
+                max_memory_allocated=peak, launches=launches)
+
+
 STEP1_ITERS = 300
 STEP1_VIS = 200       # the iteration of the one vis
 STEP1_POINTS = 16384
@@ -971,7 +1373,7 @@ def _step1_check(conf, mesh):
 def phase_geometry(card):
     """Step 1 at full width through the port's CLI, the mesh tools, the
     Step-1 checkpoint in Step 2, and LPIPS on the card (module docstring,
-    phase 9)."""
+    phase 13)."""
     import numpy as np
     import torch
 
@@ -1142,45 +1544,63 @@ def main():
     trace = phase_trace_kernel(card)
     ref = phase_reference()
     train_ref = phase_train_reference()
+    unfrozen_ref = phase_train_reference(live=True)
     render_launches, stats = phase_render(card)
     launches, train = phase_train(card)
+    physg = phase_physg(card)
+    unfrozen = phase_unfrozen(card)
+    neus = phase_neus(card)
     geometry = phase_geometry(card)
     print(json.dumps({"render": stats, "reference": ref, "train_reference": train_ref,
-                      "train": train, "trace_kernel": trace, "geometry": geometry,
+                      "unfrozen_reference": unfrozen_ref, "train": train, "physg": physg,
+                      "unfrozen": unfrozen, "neus": neus, "trace_kernel": trace,
+                      "geometry": geometry,
                       "card": card}), flush=True)
     src = "nefii_tpu_torch/ops/kernels/csrc/fused_mlp.cu"
     tc_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_tc.cuh"
     k1 = "nefii_tpu/ops/pallas/fused_mlp.py:136"
     ref_launches = train_ref.pop("launches")
-    # launches: the training run's (this slice's main path); the render's and
-    # the fp32 train-reference step's beside them. No single PyTorch call
-    # computes an MLP chain or a sphere trace, so every library_ms is null.
+    # launches: the frozen training run's (the first slice's main path); the
+    # render's, the fp32 train-reference step's and the live-geometry paths'
+    # (the PhySG run, the unfrozen runs without and with remat, the
+    # unfrozen-reference step) beside them. No single PyTorch call computes an
+    # MLP chain or a sphere trace, so every library_ms is null.
+    live = {"physg_launches": physg.pop("launches"),
+            "unfrozen_launches": unfrozen["no_remat"].pop("launches"),
+            "unfrozen_remat_launches": unfrozen["remat"].pop("launches"),
+            "unfrozen_reference_launches": unfrozen_ref.pop("launches"),
+            "neus_launches": neus.pop("launches")}
+
+    def paths(name):
+        return {k: v[name] for k, v in live.items()}
+
     records = [
         dict(name="fused_sdf_hidden_tc", route="cuda", source=tc_src, replaces=k1,
-             launches=launches["fused_sdf_hidden_tc"],
+             launches=launches["fused_sdf_hidden_tc"], **paths("fused_sdf_hidden_tc"),
              render_launches=render_launches["fused_sdf_hidden_tc"], dtype="bfloat16",
              design="wgmma m64n256k16, bulk-copy weight ring", library_ms=None, **kern["k1_tc"]),
         dict(name="fused_sdf_value", route="cuda", source=tc_src, replaces=k1,
-             launches=launches["fused_sdf_value"],
+             launches=launches["fused_sdf_value"], **paths("fused_sdf_value"),
              render_launches=render_launches["fused_sdf_value"], dtype="bfloat16",
              design="the tensor-core K1 with the sdf column in its epilogue", library_ms=None,
              **kern["sdf_value"]),
         dict(name="fused_sdf_hidden", route="cuda", source=src, replaces=k1,
-             launches=launches["fused_sdf_hidden"],
+             launches=launches["fused_sdf_hidden"], **paths("fused_sdf_hidden"),
              render_launches=render_launches["fused_sdf_hidden"],
              reference_launches=ref_launches["fused_sdf_hidden"], dtype="float32",
              design="FMA pipe", library_ms=None, **kern["k1_fp32"]),
         dict(name="fused_sdf_fwd_bwd", route="cuda",
              source="nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_split.cuh",
              replaces="nefii_tpu/ops/pallas/fused_mlp.py:240",
-             launches=launches["fused_sdf_fwd_bwd"],
+             launches=launches["fused_sdf_fwd_bwd"], **paths("fused_sdf_fwd_bwd"),
              render_launches=render_launches["fused_sdf_fwd_bwd"], dtype="float32",
              design="split bf16 (hi.hi + lo.hi + hi.lo) on wgmma m64n256k16, bulk-copy "
                     "weight ring", library_ms=None, **kern["k2"]),
         dict(name="fused_sphere_trace", route="cuda",
              source="nefii_tpu_torch/ops/kernels/csrc/fused_trace.cu",
              replaces="nefii_tpu/ops/pallas/fused_trace.py:81",
-             launches=launches["fused_sphere_trace"], dtype="float32",
+             launches=launches["fused_sphere_trace"], **paths("fused_sphere_trace"),
+             dtype="float32",
              design="split fp16 (hi.hi + lo.hi + hi.lo, weights scaled by 2^s per layer) on "
                     "wgmma m64n256k16 over a refilled pool of 32 live rays a block, bulk-copy "
                     "weight ring", library_ms=None,

@@ -3,13 +3,19 @@ nefii_tpu/models/idr.py).
 
 Owns the implicit SDF net, the IDR radiance net, the envmap/material net and
 the tracers. `forward_with_uv` renders pixels (multi-ray AA reduced by
-`mean_pixel`) with `render_type = pt_render_indirect_mlp`, and the SG
+`mean_pixel`) with `render_type = pt_render_indirect_mlp` (path traced) or
+`sg` (the closed-form SG renderer of the PhySG baseline), and the SG
 environment as background of the rays that miss. With `training=True` and
 `freeze_geo=True` (Step 2 on a frozen geometry) it keeps the autograd graph
 through the rendering and material networks and the light; the trace, the
 surface points and every output of the implicit net are values, as the JAX
-package's stop-gradients make them. `forward_with_point` shades given points
-for the secondary self-distillation step. Unfrozen geometry is not ported.
+package's stop-gradients make them. With `freeze_geo=False` the geometry
+trains too: the trace stays a value, and the implicit net keeps its graph
+through the surface points of IDR eq. 3 (`sample_network`), the mask loss's
+sdf, the eikonal gradients (second-order autograd) and the shading's
+feature and normal; at the secondary hits the features stay attached and the
+normals are detached. `forward_with_point` shades given points for the
+secondary self-distillation step, with the normals detached.
 
 Differences by design from the JAX pipeline, results unchanged:
   * Only hit rays are shaded (a dynamic gather; the JAX pipeline shades all
@@ -19,7 +25,10 @@ Differences by design from the JAX pipeline, results unchanged:
     of the output is 0.
   * `use_fused_sdf` routes the tracer's SDF queries through the K1 kernel and
     the shading's sdf/feature/normal through the K2 kernel for CUDA tensors,
-    and through their plain PyTorch versions for CPU tensors.
+    and through their plain PyTorch versions for CPU tensors. K2 has no
+    backward, so it serves only value-only shading (frozen geometry, or not
+    training), as in the JAX package; with live geometry the shading runs
+    the plain graph-keeping sdf_feature_grad.
     `use_fused_trace` runs the bidirectional trace of the primary and the
     secondary tracer through the K3 kernel. A kernel that fails raises;
     nothing falls back silently.
@@ -31,6 +40,18 @@ of the rays that missed (which the JAX pipeline shades too), in its
 (`secondary_limit` > 0: the trainer's distilling steps), and the missed
 rays' part only for the strategies that hold the first `secondary_limit`
 hits.
+
+`remat_strategies` checkpoints each MIS strategy's secondary shading, and
+`forward_with_uv(remat=True)` (the trainer's `train.remat`) checkpoints what
+is differentiable after the primary trace (`torch.utils.checkpoint`) in
+two regions -- one forward of the eikonal and traced points (the mask
+loss's sdf, the eikonal gradients), and the shading -- each recomputed on
+its own in the backward in place of keeping its activations. The primary
+trace stays outside, so the backward does not re-trace it; the recompute
+redraws the Monte-Carlo samples from the generator state of the first run.
+No region calls autograd.grad: the normals and eikonal gradients come from
+ImplicitNetwork._sdf_input_grad, tensor ops that checkpointing recomputes
+as it recomputes any other.
 """
 
 from __future__ import annotations
@@ -40,16 +61,18 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from nefii_tpu_torch.models.implicit import ImplicitNetwork
 from nefii_tpu_torch.models.material import EnvmapMaterialNetwork
 from nefii_tpu_torch.models.rendering import RenderingNetwork
+from nefii_tpu_torch.models.sample_network import sample_network
 from nefii_tpu_torch.ops import path_tracing as ptr
 from nefii_tpu_torch.ops import sampling
 from nefii_tpu_torch.ops.kernels.fused_mlp import build_fused_sdf, build_fused_sdf_feature_grad
 from nefii_tpu_torch.ops.kernels.fused_trace import build_fused_sphere_trace
 from nefii_tpu_torch.ops.ray_tracing import RayTracer
-from nefii_tpu_torch.ops.sg import safe_norm
+from nefii_tpu_torch.ops.sg import render_with_sg, safe_norm
 from nefii_tpu_torch.utils.camera import get_camera_params
 
 PT_RENDER_TYPES = {
@@ -57,6 +80,8 @@ PT_RENDER_TYPES = {
         strategies=("cos", "brdf", "mix_sg"), shadow="indirect", diff_geo=False,
     ),
 }
+# the closed-form SG render (ops/sg.py render_with_sg): no secondary rays
+SG_RENDER_TYPE = "sg"
 
 OVERFLOW_KEYS = (
     "sampler_overflow", "minsdf_overflow", "shade_overflow",
@@ -77,6 +102,27 @@ def _dense_tracer_conf(tracer_conf: Dict) -> Dict:
     return {k: v for k, v in tracer_conf.items() if k not in _STATIC_BUDGET_KEYS}
 
 
+def checkpoint_drawing(fn, gen: torch.Generator, *args):
+    """torch.utils.checkpoint of fn(*args), where fn draws from `gen`: the
+    recompute in the backward draws what the first run drew (checkpoint
+    restores only the global RNG states), and leaves `gen` as it found it."""
+    state = gen.get_state()
+    ran = []
+
+    def run(*a):
+        if not ran:
+            ran.append(True)
+            return fn(*a)
+        now = gen.get_state()
+        gen.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            gen.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class IDRNetwork(nn.Module):
     def __init__(
         self,
@@ -93,6 +139,8 @@ class IDRNetwork(nn.Module):
         fused_sdf_dtype: str = "float32",
         use_fused_trace: bool = False,
         secondary_ray_tracer: Optional[RayTracer] = None,
+        object_bounding_sphere: float = 1.0,
+        remat_strategies: bool = False,
     ):
         super().__init__()
         if fast_multi_ray:
@@ -109,6 +157,8 @@ class IDRNetwork(nn.Module):
         self.use_fused_sdf = use_fused_sdf
         self.fused_sdf_dtype = _DTYPES[fused_sdf_dtype]
         self.use_fused_trace = use_fused_trace
+        self.object_bounding_sphere = object_bounding_sphere
+        self.remat_strategies = remat_strategies
 
     # ------------------------------------------------------------------
     @classmethod
@@ -147,6 +197,8 @@ class IDRNetwork(nn.Module):
             fused_sdf_dtype=conf.get_string("fused_sdf_dtype", default="float32"),
             use_fused_trace=conf.get_bool("use_fused_trace", default=False),
             secondary_ray_tracer=secondary,
+            object_bounding_sphere=conf.get_float("ray_tracer.object_bounding_sphere"),
+            remat_strategies=conf.get_bool("remat_strategies", default=False),
         )
         model.reset_parameters(seed)
         return model
@@ -157,14 +209,15 @@ class IDRNetwork(nn.Module):
         for net in (self.implicit_network, self.rendering_network, self.envmap_material_network):
             net.reset_parameters(gen)
 
-    def _render_spec(self) -> Dict:
-        """The path-tracing settings of render_type. Raises for a type the port
-        does not render; the check waits for the first render, because Step 1
-        builds this model from confs/sdf.conf (render type "sg") and never
-        renders it."""
+    def _render_spec(self) -> Optional[Dict]:
+        """The path-tracing settings of render_type, or None for "sg". Raises
+        for a type the port does not render; the check waits for the first
+        render, as a model that is never rendered (Step 1's) needs none."""
+        if self.render_type == SG_RENDER_TYPE:
+            return None
         if self.render_type not in PT_RENDER_TYPES:
             raise NotImplementedError(f"render_type {self.render_type!r}: the port renders "
-                                      f"{sorted(PT_RENDER_TYPES)}")
+                                      f"{sorted([*PT_RENDER_TYPES, SG_RENDER_TYPE])}")
         return PT_RENDER_TYPES[self.render_type]
 
     # ------------------------------------------------------------------
@@ -175,12 +228,17 @@ class IDRNetwork(nn.Module):
             return build_fused_sdf(imp, self.fused_sdf_dtype)
         return imp.sdf
 
-    def _sfg_closure(self):
-        """(sdf, feature, grad) closure for shading: the K2 kernel path when
-        use_fused_sdf (the render is value-only)."""
-        if self.use_fused_sdf:
-            return build_fused_sdf_feature_grad(self.implicit_network)
-        return self.implicit_network.sdf_feature_grad
+    def _sfg_closure(self, value_only: bool = True, normal_graph: bool = True):
+        """(sdf, feature, grad) closure for shading, where the whole policy
+        of the implicit net's graph is decided: the K2 kernel path when
+        use_fused_sdf and the outputs are values (frozen geometry, not
+        training, or the secondary-hit pool); otherwise the plain
+        sdf_feature_grad, which keeps the graph unless value_only, the
+        gradient's (the normal's) only where `normal_graph`."""
+        imp = self.implicit_network
+        if value_only and self.use_fused_sdf:
+            return build_fused_sdf_feature_grad(imp)
+        return lambda pts: imp.sdf_feature_grad(pts, value_only, normal_graph)
 
     def _fused_trace_closure(self, tracer: RayTracer):
         """The K3 whole-trace closure for `tracer` when use_fused_trace, else
@@ -196,9 +254,10 @@ class IDRNetwork(nn.Module):
         trace_fn = self._fused_trace_closure(tracer)
 
         def trace(origins, dirs):
-            res = tracer(sdf_fn, origins, torch.ones(origins.shape[0], dtype=torch.bool,
-                                                     device=origins.device), dirs[:, None, :],
-                         sphere_trace_fn=trace_fn)
+            with torch.no_grad():
+                res = tracer(sdf_fn, origins, torch.ones(origins.shape[0], dtype=torch.bool,
+                                                         device=origins.device),
+                             dirs[:, None, :], sphere_trace_fn=trace_fn)
             return res.points, res.object_mask, res.n_evals
 
         return ptr.SceneFns(trace=trace, radiance=self.rendering_network,
@@ -209,27 +268,32 @@ class IDRNetwork(nn.Module):
                         training: bool = False, freeze_geo: bool = False,
                         fake_roughness: bool = False, fake_specular: bool = False,
                         steps01: Optional[torch.Tensor] = None,
-                        secondary_limit: int = 0):
+                        secondary_limit: int = 0, remat: bool = False):
         """Render the rays of `inputs` (uv [B,S,2] or multi-ray [B,S,R,2],
         pose, intrinsics, object_mask). Without `training` no graph is kept.
         `steps01` injects the tracer's min-SDF step vector (training).
 
-        With `training` and `secondary_limit` > 0 the output holds the
-        secondary-hit pool [S', N] (`secondary_points`, `secondary_mask`,
-        `secondary_dir`) of the first S' strategies, equal to the JAX
-        pipeline's: S' is the fewest strategies whose hits reach the limit, or
-        every strategy (a limit of S * N or more gives the whole pool)."""
-        self._render_spec()
-        if training and not freeze_geo:
-            raise NotImplementedError(
-                "training with unfrozen geometry is not ported (ROADMAP.md queue 1, item 1): "
-                "pass --freeze_geometry")
-        with torch.set_grad_enabled(training and torch.is_grad_enabled()):
-            return self._forward_with_uv(inputs, gen, training, fake_roughness, fake_specular,
-                                         steps01, secondary_limit)
+        With `training` and not `freeze_geo` the geometry trains: the output
+        holds the eikonal gradients `grad_theta` at N//2 points uniform in
+        the bounding box (or `inputs["eik_override"]`) and at the traced
+        points, and the shading runs at the rays that hit and are in the
+        object mask, at the points of IDR eq. 3. `remat` checkpoints all of
+        it (the trace excepted).
 
-    def _forward_with_uv(self, inputs, gen, training, fake_roughness, fake_specular, steps01,
-                         secondary_limit):
+        With `training` and `secondary_limit` > 0 a path-traced render's
+        output holds the secondary-hit pool [S', N] (`secondary_points`,
+        `secondary_mask`, `secondary_dir`) of the first S' strategies, equal
+        to the JAX pipeline's: S' is the fewest strategies whose hits reach
+        the limit, or every strategy (a limit of S * N or more gives the
+        whole pool)."""
+        self._render_spec()
+        with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+            return self._forward_with_uv(inputs, gen, training, training and not freeze_geo,
+                                         fake_roughness, fake_specular, steps01,
+                                         secondary_limit, remat)
+
+    def _forward_with_uv(self, inputs, gen, training, live, fake_roughness, fake_specular,
+                         steps01, secondary_limit, remat):
         intrinsics, uv, pose = inputs["intrinsics"], inputs["uv"], inputs["pose"]
         object_mask = inputs["object_mask"].reshape(-1)
         multi_ray = uv.dim() == 4
@@ -244,23 +308,64 @@ class IDRNetwork(nn.Module):
         N = batch_size * num_pixels
 
         sdf_fn = self._sdf_closure()
-        sfg_fn = self._sfg_closure()
+        imp = self.implicit_network
         with torch.no_grad(), record_function("primary_trace"):
             # the trace, the points and the sdf carry no gradient
             trace = self.ray_tracer(sdf_fn, cam_loc, object_mask, ray_dirs, training=training,
                                     sphere_trace_fn=self._fused_trace_closure(self.ray_tracer),
                                     gen=gen, steps01=steps01)
-            sdf_output = self.implicit_network(trace.points)[:, 0:1] if training else None
-        points, surface_mask = trace.points, trace.object_mask
+            sdf_output = imp(trace.points)[:, 0:1] if training and not live else None
+        points, network_object_mask = trace.points, trace.object_mask
         ray_dirs_flat = ray_dirs.reshape(-1, 3)
         view_dirs = -ray_dirs_flat
+        grad_theta = None
+        shade_kw = dict(training=training, fake_roughness=fake_roughness,
+                        fake_specular=fake_specular)
 
-        # shade the hit rays only; miss rays keep the defaults below
-        sel = surface_mask.nonzero()[:, 0]
-        with record_function("shading"):
-            ret = self.get_rbg_value(points[sel], view_dirs[sel], gen, sdf_fn, sfg_fn,
-                                     training=training, fake_roughness=fake_roughness,
-                                     fake_specular=fake_specular)
+        if live:
+            surface_mask = network_object_mask & object_mask
+            eik_pts = inputs.get("eik_override")
+            if eik_pts is None:
+                obs = self.object_bounding_sphere
+                eik_pts = torch.rand(N // 2, 3, generator=gen, device=points.device)
+                eik_pts = eik_pts * (2 * obs) - obs
+            cam_flat = cam_loc[:, None, :].expand(batch_size, num_pixels, 3).reshape(-1, 3)
+            sel = surface_mask.nonzero()[:, 0]
+            n_eik = eik_pts.shape[0]
+            if remat and torch.is_grad_enabled():
+                def region(fn, *a):
+                    return checkpoint_drawing(fn, gen, *a)
+            else:
+                def region(fn, *a):
+                    return fn(*a)
+
+            def shade(diff_points, view):
+                with record_function("shading"):
+                    return self.get_rbg_value(diff_points, view, gen, sdf_fn, value_only=False,
+                                              **shade_kw)
+
+            def geometry(p):
+                sdf, _, grad = imp.sdf_feature_grad(p, value_only=False)
+                return sdf[n_eik:, None], grad
+
+            # two regions, each recomputed on its own in the backward under
+            # remat: one forward of the eikonal and traced points gives the
+            # attached sdf and the eikonal gradients
+            sdf_output, grad_theta = region(geometry, torch.cat([eik_pts.to(points), points]))
+            # IDR eq. 3 at the shaded rays: the traced points' values, with the
+            # implicit net's gradient as a value
+            surface_grad = grad_theta[n_eik:][sel].detach()
+            surface_output = sdf_output[sel]
+            diff_points = sample_network(surface_output, surface_output.detach(), surface_grad,
+                                         trace.dists[sel, None], cam_flat[sel],
+                                         ray_dirs_flat[sel])
+            ret = region(shade, diff_points, -ray_dirs_flat[sel])
+        else:
+            surface_mask = network_object_mask
+            # shade the hit rays only; miss rays keep the defaults below
+            sel = surface_mask.nonzero()[:, 0]
+            with record_function("shading"):
+                ret = self.get_rbg_value(points[sel], view_dirs[sel], gen, sdf_fn, **shade_kw)
         em = self.envmap_material_network
 
         def dense(v, fill):
@@ -269,11 +374,18 @@ class IDRNetwork(nn.Module):
             return out
 
         sg_roughness = ret["sg_roughness"]
+        sg_blend = ret["sg_blending_weights"]
         if not em.roughness_mlp:
-            sg_roughness = sg_roughness[0][None, :].expand(sel.numel(), 1)
+            if sg_blend is not None:
+                sg_roughness = (sg_roughness[None] * sg_blend[..., None]).sum(-2)
+            else:
+                sg_roughness = sg_roughness[0][None, :].expand(sel.numel(), 1)
         sg_spec = ret["sg_specular_reflectance"]
         if not em.specular_mlp or em.fix_specular_albedo:
-            sg_spec = sg_spec[0][None, :].expand(sel.numel(), 3)
+            if sg_blend is not None and not em.fix_specular_albedo:
+                sg_spec = (sg_spec[None] * sg_blend[..., None]).sum(-2)
+            else:
+                sg_spec = sg_spec[0][None, :].expand(sel.numel(), 3)
 
         sg_rgb_values = dense(ret["sg_rgb"], 1.0)
         if self.render_background:
@@ -286,7 +398,7 @@ class IDRNetwork(nn.Module):
             "idr_rgb_values": dense(ret["idr_rgb"], 1.0),
             "sg_rgb_values": sg_rgb_values,
             "normal_values": dense(ret["normals"], 1.0),
-            "network_object_mask": surface_mask,
+            "network_object_mask": network_object_mask,
             "object_mask": object_mask,
             "sg_diffuse_rgb_values": dense(ret["sg_diffuse_rgb"], 1.0),
             "sg_diffuse_albedo_values": dense(ret["sg_diffuse_albedo"], 1.0),
@@ -300,11 +412,13 @@ class IDRNetwork(nn.Module):
         }
         if training:
             output["sdf_output"] = sdf_output
-            output["grad_theta"] = None
-            if secondary_limit > 0:
+            output["grad_theta"] = grad_theta
+            if secondary_limit > 0 and "secondary_mask" in ret:
+                # the pool is values in both modes: K2 when use_fused_sdf
                 with torch.no_grad(), record_function("secondary_pool"):
                     pool, n_evals = self._secondary_pool(
-                        ret, sel, points, view_dirs, gen, sdf_fn, sfg_fn, secondary_limit,
+                        ret, sel, points, view_dirs, gen, sdf_fn, self._sfg_closure(),
+                        secondary_limit,
                         fake_roughness=fake_roughness, fake_specular=fake_specular)
                 output.update(pool)
                 output["n_sdf_evals"] = output["n_sdf_evals"] + n_evals
@@ -375,7 +489,7 @@ class IDRNetwork(nn.Module):
 
     def _surface(self, points, view_dirs, sfg_fn):
         """-> (feature, unit normal, unit view direction) at surface points
-        [M,3]: the implicit net's values (K2 or the plain sdf_feature_grad)."""
+        [M,3], with the graph that `sfg_fn` (_sfg_closure) keeps."""
         _, feature_vectors, g = sfg_fn(points)
         if self.feature_vector_size == 0:
             feature_vectors = None
@@ -390,36 +504,49 @@ class IDRNetwork(nn.Module):
                            freeze_geo: bool = True, fake_roughness: bool = False,
                            fake_specular: bool = False):
         """Secondary self-distillation forward: shade the points [K,R,3] seen
-        along ray_dirs [K,R,3] and average over R. Trains, with the normals
-        detached; the geometry is frozen."""
-        if not freeze_geo:
-            raise NotImplementedError(
-                "training with unfrozen geometry is not ported (ROADMAP.md queue 1, item 1)")
+        along ray_dirs [K,R,3] and average over R. Trains with the normals
+        detached; without `freeze_geo` the features keep their graph, so the
+        implicit net trains through them (the JAX package's
+        forward_with_point)."""
+        self._render_spec()
         points, ray_dirs = inputs["points"], inputs["ray_dirs"]
         K, R, _ = points.shape
         ret = self.get_rbg_value(points.reshape(-1, 3), -ray_dirs.reshape(-1, 3), gen,
-                                 self._sdf_closure(), self._sfg_closure(), training=True,
+                                 self._sdf_closure(), training=True, value_only=freeze_geo,
+                                 normal_graph=False,
                                  fake_roughness=fake_roughness, fake_specular=fake_specular)
         return {"idr_rgb_values": self.mean_pixel(ret["idr_rgb"], K, R),
                 "sg_rgb_values": self.mean_pixel(ret["sg_rgb"], K, R)}
 
     # ------------------------------------------------------------------
-    def get_rbg_value(self, points, view_dirs, gen, sdf_fn, sfg_fn, *, training=False,
-                      fake_roughness=False, fake_specular=False):
-        """Shading of surface points [M,3] seen along view_dirs [M,3]. The
+    def get_rbg_value(self, points, view_dirs, gen, sdf_fn, *, training=False,
+                      value_only=True, normal_graph=True, fake_roughness=False,
+                      fake_specular=False):
+        """Shading of surface points [M,3] seen along view_dirs [M,3], by
+        render_type: the closed-form SG render, or the path tracer. The
         implicit net's sdf, feature and normal are values (K2 or the plain
-        sdf_feature_grad); the radiance and material nets keep their graph."""
+        sdf_feature_grad) when `value_only`, else they keep their graph, the
+        normal's only where `normal_graph` and never at the secondary hits;
+        the radiance and material nets keep their graph."""
+        sfg_fn = self._sfg_closure(value_only, normal_graph)
+        sec_fn = self._sfg_closure(value_only, normal_graph=False)
         feature_vectors, normals, view_dirs = self._surface(points, view_dirs, sfg_fn)
         em = self.envmap_material_network
         idr_rgb = self.rendering_network(points, normals, view_dirs, feature_vectors)
         mat = em(points, feature_vectors, normals, fake_roughness=fake_roughness,
                  fake_specular=fake_specular)
-        sg_ret = ptr.pt_render_core(
-            gen, mat["sg_lgtSGs"], mat["sg_specular_reflectance"], mat["sg_roughness"],
-            mat["sg_diffuse_albedo"], normals, view_dirs, points,
-            self.scene_fns(sdf_fn, sfg_fn), training=training,
-            **self._render_spec(),
-        )
+        spec = self._render_spec()
+        if spec is None:
+            sg_ret = render_with_sg(mat["sg_lgtSGs"], mat["sg_specular_reflectance"],
+                                    mat["sg_roughness"], mat["sg_diffuse_albedo"], normals,
+                                    view_dirs, blending_weights=mat["sg_blending_weights"])
+            sg_ret["n_sdf_evals"] = 0
+        else:
+            sg_ret = ptr.pt_render_core(
+                gen, mat["sg_lgtSGs"], mat["sg_specular_reflectance"], mat["sg_roughness"],
+                mat["sg_diffuse_albedo"], normals, view_dirs, points,
+                self.scene_fns(sdf_fn, sec_fn), training=training,
+                remat_strategies=self.remat_strategies, **spec)
         return {
             "normals": normals,
             "idr_rgb": idr_rgb,
@@ -427,6 +554,30 @@ class IDRNetwork(nn.Module):
             "n_sdf_evals": sg_ret["n_sdf_evals"] + points.shape[0],
             "sg_roughness": mat["sg_roughness"],
             "sg_specular_reflectance": mat["sg_specular_reflectance"],
+            "sg_blending_weights": mat["sg_blending_weights"],
+        }
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def render_sg_rgb(self, mask, normals, view_dirs, diffuse_albedo):
+        """Closed-form SG shading of given normals and albedo [N,3] under the
+        model's light and global materials; the rays outside `mask` [N] get
+        the defaults."""
+        normals = normals / (torch.linalg.norm(normals, dim=-1, keepdim=True) + 1e-6)
+        view_dirs = view_dirs / (torch.linalg.norm(view_dirs, dim=-1, keepdim=True) + 1e-6)
+        em = self.envmap_material_network
+        roughness, spec = em.get_base_materials()
+        sg_ret = render_with_sg(em.get_lgtSGs(), spec, roughness, diffuse_albedo, normals,
+                                view_dirs)
+        m = mask[:, None]
+        return {
+            "sg_rgb_values": torch.where(m, sg_ret["sg_rgb"], 1.0),
+            "sg_diffuse_rgb_values": torch.where(m, sg_ret["sg_diffuse_rgb"], 1.0),
+            "sg_diffuse_albedo_values": diffuse_albedo,
+            "sg_specular_rgb_values": torch.where(m, sg_ret["sg_specular_rgb"], 1.0),
+            "sg_roughness": roughness,
+            "sg_specular_reflectance": spec,
+            "sg_blending_weights": None,
         }
 
     # ------------------------------------------------------------------

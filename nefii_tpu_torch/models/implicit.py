@@ -101,10 +101,16 @@ class ImplicitNetwork(nn.Module):
     # ---- forward -----------------------------------------------------------
     def forward(self, pts: torch.Tensor) -> torch.Tensor:
         """pts [..., 3] -> [..., d_out + feature_vector_size] (sdf first)."""
+        return self._forward(pts)[0]
+
+    def _forward(self, pts: torch.Tensor):
+        """-> (the output, the embedded input, each hidden layer's
+        pre-activation), the last two for `_sdf_input_grad`."""
         n = self.num_layers
         inp = self.embed_fn(pts) if self.multires > 0 else pts
         x = inp
         feature = None
+        pre = []
         for l, layer in enumerate(self.layers):
             if self.use_last_as_f and l == n - 2:
                 feature = x
@@ -112,25 +118,63 @@ class ImplicitNetwork(nn.Module):
                 x = torch.cat([x, inp], dim=-1) / np.sqrt(2.0)
             x = layer(x)
             if l < n - 2:
+                pre.append(x)
                 x = softplus_beta(x, 100.0)
         if self.use_last_as_f:
             x = torch.cat([x, feature], dim=-1)
-        return x
+        return x, inp, pre
+
+    def _sdf_input_grad(self, pts: torch.Tensor, inp: torch.Tensor, pre) -> torch.Tensor:
+        """d sdf / d pts [..., 3] from a forward's embedded input and
+        pre-activations, by the chain rule written out in tensor ops (no
+        autograd.grad call): differentiable again, to the parameters and to
+        `pts`, and free to sit inside a torch.utils.checkpoint region."""
+        layers = self.layers
+        g = layers[-1].effective_weight()[0].expand(*pts.shape[:-1], -1)
+        g_inp = None
+        for l in range(len(layers) - 1, -1, -1):
+            # g: the gradient at layer l's input (after the skip concatenation)
+            if l in self.skip_in:
+                d_h = layers[l].d_in - inp.shape[-1]
+                g, g_skip = g[..., :d_h] / np.sqrt(2.0), g[..., d_h:] / np.sqrt(2.0)
+                g_inp = g_skip if g_inp is None else g_inp + g_skip
+            if l == 0:
+                g_inp = g if g_inp is None else g_inp + g
+                break
+            # layer l's input is softplus_beta(pre[l - 1], 100): its slope sigmoid(100 z)
+            g = (g * torch.sigmoid(100.0 * pre[l - 1])) @ layers[l - 1].effective_weight()
+        if self.multires <= 0:
+            return g_inp
+        d = pts.shape[-1]
+        grad = g_inp[..., :d]
+        for k in range(self.multires):
+            freq = 2.0 ** k
+            g_sin = g_inp[..., d * (1 + 2 * k):d * (2 + 2 * k)]
+            g_cos = g_inp[..., d * (2 + 2 * k):d * (3 + 2 * k)]
+            grad = grad + (g_sin * torch.cos(pts * freq) - g_cos * torch.sin(pts * freq)) * freq
+        return grad
 
     def sdf(self, pts: torch.Tensor) -> torch.Tensor:
         return self(pts)[..., 0]
 
-    def sdf_feature_grad(self, pts: torch.Tensor):
+    def sdf_feature_grad(self, pts: torch.Tensor, value_only: bool = True,
+                         grad_graph: bool = True):
         """(sdf [...], feature [..., F], grad [..., 3]) from one forward and one
-        input-space backward of the sdf column. The returned values carry no
-        graph (value-only: the render path)."""
-        with torch.enable_grad():
-            p = pts.detach().requires_grad_(True)
-            out = self(p)
-            (grad,) = torch.autograd.grad(out[..., 0].sum(), p)
-        out = out.detach()
+        input-space backward of the sdf column.
+
+        value_only (the render path, frozen geometry): the outputs carry no
+        graph. Otherwise (training with live geometry) sdf and feature keep
+        the graph to the parameters and to `pts` where `pts` has one, and so
+        does `grad` unless not `grad_graph` (a detached normal): a loss on it
+        reaches the parameters by second-order autograd, as the JAX package's
+        jax.grad inside the differentiated step does. The gradient is
+        `_sdf_input_grad`'s in both modes."""
+        with torch.set_grad_enabled(not value_only and torch.is_grad_enabled()):
+            out, inp, pre = self._forward(pts)
+            with torch.set_grad_enabled(grad_graph and torch.is_grad_enabled()):
+                grad = self._sdf_input_grad(pts, inp, pre)
         return out[..., 0], out[..., 1:], grad
 
     def gradient(self, pts: torch.Tensor) -> torch.Tensor:
-        """Per-point spatial gradient of the SDF: [..., 3] -> [..., 3]."""
+        """Per-point spatial gradient of the SDF, as values: [..., 3] -> [..., 3]."""
         return self.sdf_feature_grad(pts)[2]

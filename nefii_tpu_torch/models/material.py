@@ -181,6 +181,24 @@ class EnvmapMaterialNetwork(nn.Module):
             return lgt
         return lgt.abs()
 
+    def get_base_materials(self):
+        """The detached global (roughness [K,1], specular [K,3]); zeros where a
+        net predicts them per point."""
+        dev = self.lgtSGs.device
+        if not self.roughness_mlp:
+            roughness = torch.sigmoid(self.roughness.detach())
+        else:
+            roughness = torch.zeros(1, 1, device=dev)
+        if self.fix_specular_albedo:
+            specular = self.specular_reflectance.detach()
+        elif not self.specular_mlp:
+            specular = torch.sigmoid(self.specular_reflectance.detach())
+            if self.white_specular:
+                specular = specular.expand(specular.shape[0], 3)
+        else:
+            specular = torch.zeros(1, 3, device=dev)
+        return roughness, specular
+
     @staticmethod
     def specular_remap(s: torch.Tensor) -> torch.Tensor:
         """Filament f0 remap: f0 = 0.16 * reflectance^2."""

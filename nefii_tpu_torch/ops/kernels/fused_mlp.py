@@ -114,20 +114,27 @@ class FusedWeights:
 
 
 @torch.no_grad()
-def prepare_weights(network, dtype: torch.dtype = torch.float32) -> FusedWeights:
+def prepare_weights(network, dtype: torch.dtype = torch.float32,
+                    width: Optional[int] = None) -> FusedWeights:
     """Resolve weight norm + padding + skip folding into the packed buffer.
 
     Every fused layer (all but the final linear) is padded to one output
     width; input widths are padded to multiples of 16 and the embedding to
     x_cols. Padded weight rows/columns and biases are zero, so padded
     features never reach a real output (forward) or gradient (backward).
+    `width` pads the outputs further; by default a network on the card is
+    padded to KERNEL_WIDTH, the one width the CUDA kernels take (a 256-wide
+    NeuS geometry runs in them so, as the Pallas kernel pads its layers to
+    128 lanes), and one elsewhere to its own width.
     """
     dims, embed_fn = network._layer_dims()
     n = len(dims)
     d_emb = dims[0]
     x_cols = _round_up(d_emb, 16)
     ws = [network.layers[l].effective_weight().t() for l in range(n - 2)]  # [in, out]
-    width = _round_up(max(w.shape[1] for w in ws), 16)
+    if width is None:
+        width = KERNEL_WIDTH if ws[0].is_cuda else 0
+    width = max(width, _round_up(max(w.shape[1] for w in ws), 16))
 
     blocks: List[torch.Tensor] = []
     offset = 0

@@ -10,6 +10,14 @@ materials and the radiance net (indirect light); the samples, their pdfs
 and the secondary trace carry none, as in the JAX engine. In training it
 also returns the secondary hits for the self-distillation step.
 
+With live geometry (`implicit_with_grad` keeps its graph) the features at
+the secondary hits stay attached and their normals are detached, as in the
+JAX engine. `remat_strategies` checkpoints each strategy's visibility,
+indirect radiance and shading (`torch.utils.checkpoint`): the backward
+recomputes one strategy's secondary MLPs at a time in place of keeping all
+three. The samples are drawn before, outside the checkpoints, so the
+recompute sees the same directions.
+
 Where the JAX engine evaluates the secondary MLPs on every ray and masks the
 misses (static shapes), this one gathers the hit rays and evaluates those
 only: the dense semantics of the JAX `indirect_fraction` compaction, exact.
@@ -22,6 +30,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from nefii_tpu_torch.ops import sampling
 from nefii_tpu_torch.ops.sampling import TINY_NUMBER
@@ -33,7 +42,8 @@ class SceneFns(NamedTuple):
 
     trace(origins [N,3], dirs [N,3]) -> (points, hit_mask, n_evals)
     radiance(pts, normals, view_dirs, feats) -> [P,3]  (IDR radiance cache)
-    implicit_with_grad(pts [P,3]) -> (sdf [P], feature [P,F], grad [P,3])
+    implicit_with_grad(pts [P,3]) -> (sdf [P], feature [P,F], grad [P,3]),
+        values, or with their graph under live geometry
     """
 
     trace: Callable
@@ -66,9 +76,9 @@ def visibility_and_indirect(scene: SceneFns, light_points, hit_mask, wi):
     """Hard visibility and indirect radiance at the secondary hits
     (`diff_geo=False`): visibility = 1 - hit; indirect = the radiance net at
     the hit point, seen along -wi, with sdf, feature and normal from one fused
-    forward+backward (`implicit_with_grad`). Only the hit rays are evaluated;
-    the others get 0 indirect radiance, which is what the dense version's
-    mask gives them. hit_mask [P,1]."""
+    forward+backward (`implicit_with_grad`, whose normal has no graph). Only the
+    hit rays are evaluated; the others get 0 indirect radiance, which is what
+    the dense version's mask gives them. hit_mask [P,1]."""
     P = light_points.shape[0]
     visibility = 1 - hit_mask.float()
     indirect = torch.zeros(P, 3, dtype=light_points.dtype, device=light_points.device)
@@ -119,6 +129,7 @@ def pt_render_core(
     diff_geo: bool = False,
     wi_override: Optional[Sequence[torch.Tensor]] = None,
     training: bool = False,
+    remat_strategies: bool = False,
 ) -> Dict[str, torch.Tensor]:
     if shadow != "indirect" or diff_geo or any(s not in _PDF_FNS for s in strategies):
         raise NotImplementedError(
@@ -153,27 +164,35 @@ def pt_render_core(
     # ---- one batched secondary trace of every strategy's rays -----------
     all_pts = points.detach().repeat(S, 1)
     all_dirs = torch.cat(wi_list, dim=0)
-    with record_function("secondary_trace"):
+    with torch.no_grad(), record_function("secondary_trace"):
         lp, hm, n_trace_evals = scene.trace(all_pts, all_dirs)
 
-    specular_final = torch.zeros_like(diffuse_albedo)
-    diffuse_final = torch.zeros_like(diffuse_albedo)
-    n_vis_evals = 0
-    for i in range(S):
+    def strategy_contrib(i):
         wi = wi_list[i]
         lp_i, hm_i = lp[i * N:(i + 1) * N], hm[i * N:(i + 1) * N, None]
         with record_function("secondary_shading"):
             visible, indirect, n_hit = visibility_and_indirect(scene, lp_i, hm_i, wi)
-        n_vis_evals += n_hit
         light = sampling.sg_light_eval(wi, lgtSGs)
         light = light * visible + (1 - visible) * indirect
         fs = ggx_brdf_direct(wi, normal, viewdirs, roughness, specular_reflectance)
         weight = sampling.power_heuristic_list([1] * S, pdf_matrix[i], i)
         w_i_dot_n = torch.clamp((wi * normal).sum(-1, keepdim=True), min=0.0)
-        specular_final = specular_final + torch.clamp(
-            weight * light * fs * w_i_dot_n / pdf_list[i], min=0.0)
-        diffuse_final = diffuse_final + torch.clamp(
+        spec = torch.clamp(weight * light * fs * w_i_dot_n / pdf_list[i], min=0.0)
+        diff = torch.clamp(
             weight * light * (diffuse_albedo / np.pi) * w_i_dot_n / pdf_list[i], min=0.0)
+        return spec, diff, n_hit
+
+    specular_final = torch.zeros_like(diffuse_albedo)
+    diffuse_final = torch.zeros_like(diffuse_albedo)
+    n_vis_evals = 0
+    for i in range(S):
+        if remat_strategies and torch.is_grad_enabled():
+            spec, diff, n_hit = checkpoint(strategy_contrib, i, use_reentrant=False)
+        else:
+            spec, diff, n_hit = strategy_contrib(i)
+        n_vis_evals += n_hit
+        specular_final = specular_final + spec
+        diffuse_final = diffuse_final + diff
 
     ret = {
         "sg_rgb": specular_final + diffuse_final,

@@ -2,13 +2,20 @@
 (counterpart of nefii_tpu/training/exp_runner.py, whose flags it keeps).
 
     python -m nefii_tpu_torch.training.exp_runner --conf confs/conf.conf \
-        --data_split_dir <scene> --freeze_geometry --geometry <ckpt dir> \
+        --data_split_dir <scene> --freeze_geometry --geometry <ckpt dir or .pth> \
         --roughness_warmup 5000 --secondary_batch_size 1024 \
         --secondary_train_interval 10 [--device cuda]
 
-The port trains with frozen geometry only (`--freeze_geometry` or
-`--freeze_idr`). The multi-process, camera-training and torch-checkpoint
-import flags are accepted by the parser and raise when set.
+    python -m nefii_tpu_torch.training.exp_runner --conf confs/physg.conf \
+        --data_split_dir <scene> [--device cuda]
+
+Without `--freeze_geometry` (or `--freeze_idr`) the geometry trains too
+(the PhySG baseline of workflows/run_physg.sh); `train.remat` and
+`model.remat_strategies` in the conf trade recomputation for memory.
+`--geometry` and `--pretrain_geometry_path` take a JAX-layout checkpoint
+directory or a torch `.pth`, `--geometry_neus` a NeuS `.pth`. The
+multi-process and camera-training flags are accepted by the parser and
+raise when set.
 """
 
 from __future__ import annotations

@@ -1,11 +1,13 @@
-"""IDRTrainRunner — Step-2 training of the materials, the SG light and the
-IDR radiance net on a frozen geometry (counterpart of
-nefii_tpu/training/trainer.py).
+"""IDRTrainRunner — Step-2 training of the materials, the SG light, the IDR
+radiance net and, unless `--freeze_geometry` or `--freeze_idr`, the geometry
+(counterpart of nefii_tpu/training/trainer.py).
 
 What it keeps of the JAX trainer: the experiment directory (conf copy, code
 backup, runcmd.txt), the train/plot/test datasets, the two Adam groups — idr
-(rendering net; the implicit net stays frozen) and sg (material net and
-light, minus the frozen parts) — with their multistep schedules, the alpha
+(rendering net, and the implicit net when the geometry is not frozen) and sg
+(material net and light, minus the frozen parts) — with their multistep
+schedules, the geometry imports (a JAX-layout checkpoint directory, a torch
+`.pth` state dict, a NeuS `sdf_network_fine`), `train.remat`, the alpha
 schedule of the mask loss, the roughness/specular warmups, the pixel and
 patch sampling with the same numpy seeds, the NaN guard, the secondary
 self-distillation and the checkpoint cadence. `vis` writes the panel PNG,
@@ -14,9 +16,14 @@ zero-surface as surface_<it>.obj (plot.surface_resolution, default 100);
 scalars are printed.
 
 Differences by design:
-  * One process on one device; there is no mesh. Multi-process training,
-    `--train_cameras` (with the view-diff pairing) and unfrozen geometry
-    raise. The port has no compaction budgets, so nothing escalates them.
+  * One process on one device; there is no mesh. Multi-process training and
+    `--train_cameras` (with the view-diff pairing) raise. The port has no
+    compaction budgets, so nothing escalates them.
+  * `train.remat` checkpoints the forward after the primary trace, in two
+    regions (`IDRNetwork.forward_with_uv(remat=True)`); the JAX package's
+    jax.checkpoint takes the trace too. Nothing is differentiated through
+    the trace, so its outputs stay outside and the backward does not re-run
+    it.
   * Frozen parameters have requires_grad off and belong to no optimizer, so
     they never change. Every trainable parameter is updated on every step,
     a zero gradient standing in for a missing one, as optax updates every
@@ -147,7 +154,9 @@ def secondary_batch(out: Dict, k_max: int, num_rays: int):
     pool out["secondary_mask"] [S', N, 1] in its [strategy, ray] order (the
     JAX trainer's stable argsort), each seen along num_rays copies of its
     ray. -> ({points, ray_dirs} [K,R,3], K, hits in the pool), or None when
-    the pool has no hit."""
+    the pool has no hit or the render type traces no secondary rays."""
+    if "secondary_mask" not in out:
+        return None
     mask = out["secondary_mask"].reshape(-1)
     n_hit = int(mask.sum())
     if n_hit < 1:
@@ -161,12 +170,14 @@ def secondary_batch(out: Dict, k_max: int, num_rays: int):
 
 
 def distillation_loss(model, batch: Dict[str, torch.Tensor], gen: torch.Generator, *,
-                      fake_roughness=False, fake_specular=False) -> torch.Tensor:
+                      freeze_geo=True, fake_roughness=False, fake_specular=False
+                      ) -> torch.Tensor:
     """Secondary self-distillation: L1(sg_rgb, idr_rgb) over the points of
     batch {points, ray_dirs} [K,R,3] (the JAX make_point_grad_fn, whose
-    `valid` mask masks padding the port does not add)."""
-    out = model.forward_with_point(batch, gen, freeze_geo=True, fake_roughness=fake_roughness,
-                                   fake_specular=fake_specular)
+    `valid` mask masks padding the port does not add). Without `freeze_geo`
+    the implicit net trains through the features."""
+    out = model.forward_with_point(batch, gen, freeze_geo=freeze_geo,
+                                   fake_roughness=fake_roughness, fake_specular=fake_specular)
     return (out["sg_rgb_values"] - out["idr_rgb_values"]).abs().mean()
 
 
@@ -262,9 +273,7 @@ class IDRTrainRunner:
         self.coordinate_type = kwargs.get("coordinate_type", "mitsuba")
         if kwargs.get("train_cameras", False):
             raise NotImplementedError("--train_cameras is not ported (ROADMAP.md queue 1)")
-        if not (self.freeze_geometry or self.freeze_idr):
-            raise NotImplementedError("training with unfrozen geometry is not ported "
-                                      "(ROADMAP.md queue 1, item 1): pass --freeze_geometry")
+        self.freeze_geo = self.freeze_geometry or self.freeze_idr
 
         # ---- experiment dir -------------------------------------------------
         self.expname = kwargs.get("expname") or self.conf.get_string("train.expname",
@@ -338,6 +347,7 @@ class IDRTrainRunner:
         self._partial_loads(kwargs, is_continue)
 
         # ---- schedule/bookkeeping ------------------------------------------
+        self.remat = self.conf.get_bool("train.remat", default=False)
         self.num_pixels = self.conf.get_int("train.num_pixels")
         self.num_rays = self.conf.get_int("train.num_rays", default=-1)
         self.total_pixels = self.train_dataset.total_pixels
@@ -360,15 +370,15 @@ class IDRTrainRunner:
 
     # ------------------------------------------------------------------
     def _partial_loads(self, kwargs, is_continue):
-        def torch_import(path):
-            if path.endswith(".pth"):
-                raise NotImplementedError(f"{path}: importing a torch .pth geometry is not ported "
-                                          "(ROADMAP.md queue 1); pass a JAX-layout ckpt dir")
-
+        """The JAX trainer's loads, on its conditions: a path that does not
+        exist is skipped; a geometry is a torch `.pth` state dict or a
+        JAX-layout checkpoint directory."""
         p = kwargs.get("pretrain_geometry_path")
         if p and os.path.exists(p):
-            torch_import(p)
-            ckpt.restore_subtree(self.model, p, "latest", "implicit_network")
+            if p.endswith(".pth"):
+                ckpt.import_torch_implicit(self.model, p)
+            else:
+                ckpt.restore_subtree(self.model, p, "latest", "implicit_network")
         p = kwargs.get("pretrain_idr_rendering_path")
         if p and os.path.exists(p) and not p.endswith(".pth"):
             ckpt.restore_subtree(self.model, p, "latest", "rendering_network")
@@ -391,12 +401,14 @@ class IDRTrainRunner:
                 group.load_state_dict(states[name])
 
         g = kwargs.get("geometry", "")
-        if g:
-            torch_import(g)
-            if os.path.isdir(g):
-                ckpt.restore_subtree(self.model, g, "latest", "implicit_network")
-        if kwargs.get("geometry_neus", ""):
-            raise NotImplementedError("--geometry_neus is not ported (ROADMAP.md queue 1)")
+        if g.endswith(".pth") and os.path.exists(g):
+            ckpt.import_torch_implicit(self.model, g)
+        elif g and os.path.isdir(g):
+            ckpt.restore_subtree(self.model, g, "latest", "implicit_network")
+        gn = kwargs.get("geometry_neus", "")
+        if gn.endswith(".pth") and os.path.exists(gn):
+            ckpt.import_torch_implicit(self.model, gn, module_prefix="",
+                                       state_key="sdf_network_fine")
 
     # ------------------------------------------------------------------
     def _alpha(self) -> float:
@@ -438,16 +450,17 @@ class IDRTrainRunner:
     # ------------------------------------------------------------------
     def train_step(self, batch, gt, fake_r: bool, fake_s: bool, alpha: float,
                    distil: bool = False):
-        """One frozen-geometry step: forward, loss, backward, both Adam
-        updates. -> (loss dict, model outputs, finite). A non-finite loss
-        updates nothing. With `distil` the outputs hold the secondary-hit
-        pool as far as the secondary step's batch needs it."""
+        """One training step: forward, loss, backward, both Adam updates.
+        -> (loss dict, model outputs, finite). A non-finite loss updates
+        nothing. With `distil` the outputs hold the secondary-hit pool as far
+        as the secondary step's batch needs it."""
         for group in self.optimizers.values():
             group.zero_grad()
         with record_function("train.forward"):
             out = self.model.forward_with_uv(
-                batch, self.gen, training=True, freeze_geo=True, fake_roughness=fake_r,
-                fake_specular=fake_s, secondary_limit=self.secondary_batch_size if distil else 0)
+                batch, self.gen, training=True, freeze_geo=self.freeze_geo,
+                fake_roughness=fake_r, fake_specular=fake_s,
+                secondary_limit=self.secondary_batch_size if distil else 0, remat=self.remat)
         with record_function("train.loss"):
             ld = self.loss(out, gt, alpha=alpha)
         if not np.isfinite(float(ld["loss"].detach())):
@@ -470,8 +483,8 @@ class IDRTrainRunner:
         for group in self.optimizers.values():
             group.zero_grad()
         with record_function("train.secondary"):
-            loss = distillation_loss(self.model, batch, self.gen, fake_roughness=fake_r,
-                                     fake_specular=fake_s)
+            loss = distillation_loss(self.model, batch, self.gen, freeze_geo=self.freeze_geo,
+                                     fake_roughness=fake_r, fake_specular=fake_s)
             loss.backward()
             for group in self.optimizers.values():
                 group.step()

@@ -9,6 +9,12 @@ a key rewrite. numpy alone reads and writes the files. A port training
 checkpoint adds the scheduler collections of the JAX layout and keeps the
 Adam states, which have no JAX layout, in its own `TorchOptimizerParameters`
 files.
+
+The torch imports (`import_torch_implicit`, `import_torch_idr`) read the
+reference implementation's state dicts (`lin<i>.weight_g/weight_v/bias` or
+`lin<i>.weight/bias`, Sequential material MLPs, DDP's `module.` prefix, a
+NeuS `sdf_network_fine`) into the same flat layout, in numpy, and load it
+with params_from_jax.
 """
 
 from __future__ import annotations
@@ -111,3 +117,86 @@ def load_all(ckpt_dir: str, tag, model: nn.Module) -> Tuple[Dict, int, int]:
     state = torch.load(os.path.join(ckpt_dir, TORCH_OPT, f"{tag}.pt"), map_location="cpu",
                        weights_only=True)
     return state["optimizers"], int(extra.get("epoch", state["epoch"])), int(state["cur_iter"])
+
+
+# ---------------------------------------------------------------------------
+# torch checkpoint imports: reference geometry and NeuS state dicts
+# ---------------------------------------------------------------------------
+
+def _as_np(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu().numpy() if hasattr(t, "detach") else t, np.float32)
+
+
+def _torch_linear_to_ours(prefix: str, state: Dict, weight_norm: bool) -> Dict[str, np.ndarray]:
+    """One torch Linear of `state` at `prefix` -> the leaves of a port Linear:
+    {g, v, b} from a weight-normed one (weight_g, weight_v) where the port's
+    layer is weight-normed, else {w, b} from a plain `weight` (a layer whose
+    leaves then differ from the model's fails params_from_jax's check)."""
+    if weight_norm and (prefix + "weight_g") in state:
+        return {"g": _as_np(state[prefix + "weight_g"]), "v": _as_np(state[prefix + "weight_v"]),
+                "b": _as_np(state[prefix + "bias"])}
+    return {"w": _as_np(state[prefix + "weight"]), "b": _as_np(state[prefix + "bias"])}
+
+
+def _set_linears(flat: Dict[str, np.ndarray], head: str, layers: nn.ModuleList, state: Dict,
+                 prefix: str) -> None:
+    """Replace the leaves `<head>/<i>/*` of `layers` in `flat` by the torch
+    Linears `<prefix>lin<i>.` of `state`."""
+    for i, layer in enumerate(layers):
+        for k in [k for k in flat if k.startswith(f"{head}/{i}/")]:
+            del flat[k]
+        for leaf, v in _torch_linear_to_ours(f"{prefix}lin{i}.", state, layer.weight_norm).items():
+            flat[f"{head}/{i}/{leaf}"] = v
+
+
+def import_torch_implicit(model: nn.Module, path: str, *,
+                          module_prefix: str = "implicit_network.",
+                          state_key: str = "model_state_dict") -> nn.Module:
+    """Load a torch ImplicitNetwork's state dict from the `.pth` at `path` into
+    model.implicit_network: the reference's geometry checkpoint (`state_key`
+    "model_state_dict", `lin<i>` under "implicit_network.") or a NeuS one
+    (`state_key` "sdf_network_fine", `module_prefix` ""). A file without
+    `state_key` is the state dict itself."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state = ckpt[state_key] if state_key and state_key in ckpt else ckpt
+    imp = model.implicit_network
+    for i in range(len(imp.layers)):
+        prefix = f"{module_prefix}lin{i}."
+        if prefix + "weight_v" not in state and prefix + "weight" not in state:
+            raise KeyError(f"missing layer {prefix}* in torch checkpoint {path}")
+    flat = {k.split("/", 1)[1]: v for k, v in params_to_jax(model).items()
+            if k.startswith("implicit_network/")}
+    _set_linears(flat, "layers", imp.layers, state, module_prefix)
+    params_from_jax(imp, flat)
+    return model
+
+
+def import_torch_idr(model: nn.Module, state: Dict) -> nn.Module:
+    """Load a whole reference IDRNetwork state dict (`model_state_dict`, or a
+    model's state_dict(), with or without DDP's `module.` prefix) into
+    `model`: the `lin<i>` stacks of the implicit and rendering nets, the
+    material net's Sequential MLPs mapped positionally (a Sequential counts
+    its activations, so its Linears sit at 0, 2, 4, ...) and its direct
+    tensors (lgtSGs, specular_reflectance, roughness) where the state has
+    them. What the state lacks keeps its value."""
+    state = {k[7:] if k.startswith("module.") else k: v for k, v in state.items()}
+    flat = params_to_jax(model)
+    for net in ("implicit_network", "rendering_network"):
+        _set_linears(flat, f"{net}/layers", getattr(model, net).layers, state, f"{net}.")
+    em = model.envmap_material_network
+    mprefix = "envmap_material_network."
+    for key, mod in em.named_children():
+        if not isinstance(mod, nn.ModuleList):
+            continue
+        head = f"{mprefix}{key}."
+        idxs = sorted({int(k[len(head):].split(".")[0]) for k in state
+                       if k.startswith(head) and k.endswith(".weight")})
+        if len(idxs) != len(mod):
+            raise KeyError(f"{mprefix}{key}: {len(idxs)} torch Linears vs {len(mod)} of ours")
+        for n, j in enumerate(idxs):
+            flat[f"envmap_material_network/{key}/{n}/w"] = _as_np(state[f"{head}{j}.weight"])
+            flat[f"envmap_material_network/{key}/{n}/b"] = _as_np(state[f"{head}{j}.bias"])
+    for key, _ in em.named_parameters(recurse=False):
+        if mprefix + key in state:
+            flat[f"envmap_material_network/{key}"] = _as_np(state[mprefix + key])
+    return params_from_jax(model, flat)

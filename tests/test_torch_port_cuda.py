@@ -127,7 +127,8 @@ def test_tensor_core_wrappers_refuse_what_the_kernel_does_not_take():
     narrow = ImplicitNetwork(feature_vector_size=256, dims=(256,) * 4, skip_in=(2,), multires=6,
                              use_last_as_f=True, bias=0.6, device="cuda")
     narrow.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
-    fw_narrow = fm.prepare_weights(narrow, torch.bfloat16)
+    # a packing at the net's own width (the default on the card pads it to 512)
+    fw_narrow = fm.prepare_weights(narrow, torch.bfloat16, width=256)
     flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
     misaligned = flat[1:].view(x.shape)  # 2 bytes past a 16-byte boundary
     misaligned.copy_(x)
@@ -218,3 +219,48 @@ def test_k3_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):  # near in fp64
         ft.fused_sphere_trace(*rays[:3], rays[3].double(), rays[4], fw, tracer)
     assert ft.LAUNCHES["fused_sphere_trace"] == 0
+
+
+@torch.no_grad()
+def test_kernels_take_a_256_wide_network():
+    """NeuS's 8x256 SDF net (confs/conf_neus.conf) on the card: prepare_weights
+    pads it to the kernels' one width, and K1 (fp32, bf16 and its sdf entry),
+    K2 and K3 on that packing agree with their plain versions as on the
+    flagship."""
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.ops.ray_tracing import RayTracer
+
+    _flagship()  # skips without a card
+    net = ImplicitNetwork(feature_vector_size=256, dims=(256,) * 8, skip_in=(4,), multires=6,
+                          bias=0.5, device="cuda")
+    net.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+    pts = torch.randn(5000, 3, generator=torch.Generator(device="cuda").manual_seed(1),
+                      device="cuda") * 0.5
+    fm.reset_launch_counts()
+    ft.reset_launch_counts()
+    fw = fm.prepare_weights(net)
+    assert (fw.width, fw.real_width) == (fm.KERNEL_WIDTH, 256)
+    x = fm.embed_padded(pts, fw)
+    assert (fm.fused_hidden(x, fw) - fm.fused_hidden_plain(x, fw)).abs().max().item() <= 1e-4
+    h, dx = fm.fused_fwd_bwd(x, fw)
+    h_r, dx_r = fm.fused_fwd_bwd_plain(x, fw)
+    assert (h - h_r).abs().max().item() <= 1e-4
+    assert (dx - dx_r).abs().max().item() <= 1e-3 * dx_r.abs().max().item()
+    fw16 = fm.prepare_weights(net, torch.bfloat16)
+    x16 = fm.embed_padded(pts, fw16)
+    for got, ref in ((fm.fused_hidden(x16, fw16), fm.fused_hidden_plain(x16, fw16)),
+                     (fm.fused_sdf_value(x16, fw16), fm.fused_sdf_value_plain(x16, fw16))):
+        assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max()
+    tracer = RayTracer(**K3_CONFS["primary"])
+    rays = _k3_rays(5000)
+    out = ft.fused_sphere_trace(*rays, fw, tracer)
+    ref = ft.fused_sphere_trace_plain(*rays, fw, tracer)
+    agree = out[2] == ref[2]
+    same = agree & ((out[0] < out[1]) == (ref[0] < ref[1]))
+    assert agree.float().mean().item() >= 0.999 and 0 < int((ref[0] < ref[1]).sum()) < 5000
+    assert (out[0] - ref[0])[same].abs().max().item() <= 1e-4
+    assert (out[1] - ref[1])[same].abs().max().item() <= 1e-4
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_sdf_hidden"] == fm.LAUNCHES["fused_sdf_fwd_bwd"] == 1
+    assert fm.LAUNCHES["fused_sdf_hidden_tc"] == fm.LAUNCHES["fused_sdf_value"] == 1
+    assert ft.LAUNCHES["fused_sphere_trace"] == 1

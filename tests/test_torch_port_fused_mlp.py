@@ -273,6 +273,36 @@ def test_network_weights_pack_once_until_the_parameters_change():
     assert not torch.allclose(after, before)
 
 
+@pytest.mark.parametrize("name", ["small-4x64", "narrow-no-lastf"])
+def test_padding_to_the_kernel_width_changes_no_value(name):
+    """A network narrower than the CUDA kernels' one width (NeuS's 8x256)
+    runs in them padded to KERNEL_WIDTH, prepare_weights' default on the
+    card: the plain versions of K1 (fp32 and bf16), its sdf entry and K2 (fp32
+    and split bf16) give on that packing the unpadded packing's values, and
+    K2's records are as many as the kernel counts for it."""
+    _, _, net = _nets(name)
+    pts = torch.from_numpy(_pts(200))
+    for dtype in (torch.float32, torch.bfloat16):
+        fw = fm.prepare_weights(net, dtype)
+        fp = fm.prepare_weights(net, dtype, width=fm.KERNEL_WIDTH)
+        assert fp.width == fm.KERNEL_WIDTH > fw.width and fp.real_width == fw.real_width
+        x = fm.embed_padded(pts, fw)
+        h = fm.fused_hidden_plain(x, fp)
+        # the padding units: softplus(0) / 100, which meet zero weights only
+        assert torch.equal(h[:, fw.width:], fm._softplus100(torch.zeros(1)).to(dtype).expand(
+            h.shape[0], fm.KERNEL_WIDTH - fw.width))
+        torch.testing.assert_close(h[:, :fw.width], fm.fused_hidden_plain(x, fw),
+                                   atol=1e-6, rtol=0)
+        torch.testing.assert_close(fm.fused_sdf_value_plain(x, fp),
+                                   fm.fused_sdf_value_plain(x, fw), atol=1e-6, rtol=0)
+    fw, fp = fm.prepare_weights(net), fm.prepare_weights(net, width=fm.KERNEL_WIDTH)
+    for fn in (fm.fused_fwd_bwd_plain, fm.fused_fwd_bwd_split_plain):
+        (h, dx), (hp, dxp) = fn(x.float(), fw), fn(x.float(), fp)
+        torch.testing.assert_close(hp[:, :fw.width], h, atol=1e-6, rtol=0)
+        torch.testing.assert_close(dxp, dx, atol=1e-6, rtol=0)
+    assert fm.split_weights(fp).numel() == fm.split_records(fp) * fm.SPLIT_REC
+
+
 def test_wrappers_cpu_plain_empty_and_other_devices_raise():
     """CPU tensors take the plain path (no launch, N=0 allowed); a tensor on
     any device other than the CPU must launch the CUDA kernel or raise."""

@@ -218,6 +218,26 @@ def test_split_trace_matches_the_pallas_kernel(nets, split, monkeypatch):
     assert 0 < n_evals < int(ref[5])
 
 
+@pytest.mark.parametrize("split", [False, True], ids=["fp32", "split_fp16"])
+def test_padding_to_the_kernel_width_changes_no_trace(nets, split):
+    """K3 on a network narrower than its one width runs on the packing padded
+    to KERNEL_WIDTH (prepare_weights' default on the card): the plain
+    version, in fp32 and in the kernel's split fp16, traces on it as on the
+    unpadded packing, and the records are as many as the kernel counts."""
+    _, _, net = nets
+    args = [torch.from_numpy(np.array(a)) for a in _flat(*_rays())]
+    fw, fp = fm.prepare_weights(net), fm.prepare_weights(net, width=fm.KERNEL_WIDTH)
+    assert fp.width == fm.KERNEL_WIDTH > fw.width
+    with torch.no_grad():
+        ref = ft.fused_sphere_trace_plain(*args, fw, RayTracer(**TRACER), split=split)
+        got = ft.fused_sphere_trace_plain(*args, fp, RayTracer(**TRACER), split=split)
+    np.testing.assert_allclose(got[0].numpy(), ref[0].numpy(), atol=1e-6)
+    np.testing.assert_allclose(got[1].numpy(), ref[1].numpy(), atol=1e-6)
+    assert torch.equal(got[2], ref[2]) and got[3] == ref[3]
+    rec, n_rec, _ = ft._trace_records(fp, torch.device("cpu"))
+    assert n_rec == ft.forward_records(fp) and rec.numel() == n_rec * fm.SPLIT_REC
+
+
 def test_k3_streams_the_forward_records_in_split_fp16():
     """K3 is told the forward chain's record count, and its records are K2's
     forward records (per layer W^T's k16 slices, hi then lo) of the weights

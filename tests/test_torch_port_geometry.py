@@ -502,23 +502,49 @@ def test_step2_vis_writes_the_surface(jax_model, tmp_path):
 
 def test_sdf_conf_builds_and_sg_rendering_raises(tmp_path):
     """confs/sdf.conf names no render_type ("sg"): its model builds for Step 1,
-    and rendering or Step-2 training with it raises."""
+    and at full width it renders with the closed-form SG renderer as the JAX
+    package's does on the same weights (hit mask equal; points and normals
+    within 1e-5; the shaded colours within the fp32 noise of the SG formula,
+    rtol 1e-4, see test_torch_port_physg.py); Step 2 trains it. The name
+    stays from when the port raised there; a render type the port lacks
+    still raises."""
     with open(os.path.join(ROOT, "confs", "sdf.conf")) as f:
         text = f.read()
-    model = IDRNetwork.from_conf(parse_string(text).get_config("model"), seed=0)
+    conf = parse_string(text).get_config("model")
+    jmodel = JIDR.from_conf(jparse(text).get_config("model"))
+    params = jmodel.init_params(jax.random.PRNGKey(0))
+    model = params_from_jax(IDRNetwork.from_conf(conf, seed=0), flatten_tree(params))
     assert model.render_type == "sg"
     assert [l.d_out for l in model.implicit_network.layers] == [512, 512, 512, 473, 512, 512,
                                                                   512, 512, 1]
-    batch = {"uv": torch.zeros(1, 4, 2), "pose": torch.eye(4)[None],
-             "intrinsics": torch.eye(4)[None], "object_mask": torch.ones(1, 4, dtype=torch.bool)}
+    rs = np.random.RandomState(2)
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0] = K[1, 1] = 60.0
+    K[0, 2] = K[1, 2] = 32.0
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0.0, 0.0, -2.0]
+    batch = {"uv": rs.uniform(4, 60, (1, 24, 2)).astype(np.float32), "pose": pose[None],
+             "intrinsics": K[None], "object_mask": np.ones((1, 24), bool)}
+    jout = jmodel.forward(params, {k: jnp.asarray(v) for k, v in batch.items()},
+                          jax.random.PRNGKey(0))
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="render_type 'sg'"):
-        model.forward_with_uv(batch, gen)
-    with pytest.raises(NotImplementedError, match="render_type 'sg'"):
-        model.forward_with_point({"points": torch.zeros(2, 1, 3),
-                                  "ray_dirs": torch.ones(2, 1, 3)}, gen)
+    tout = model.forward_with_uv({k: torch.from_numpy(v) for k, v in batch.items()}, gen)
+    hit = np.asarray(jout["network_object_mask"])
+    assert 0 < hit.sum() < hit.size
+    np.testing.assert_array_equal(tout["network_object_mask"].numpy(), hit)
+    for k in ("points", "normal_values", "sg_diffuse_albedo_values", "sg_roughness_values",
+              "sg_specular_reflection_values", "idr_rgb_values"):
+        np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]), atol=1e-5, err_msg=k)
+    for k in ("sg_rgb_values", "sg_diffuse_rgb_values", "sg_specular_rgb_values"):
+        assert np.abs(np.asarray(jout[k])[hit]).max() > 0, k
+        np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]), atol=1e-5, rtol=1e-4,
+                                   err_msg=k)
+    model.render_type = "path_tracing_sg"
+    with pytest.raises(NotImplementedError, match="render_type 'path_tracing_sg'"):
+        model.forward_with_uv({k: torch.from_numpy(v) for k, v in batch.items()}, gen)
     scene = write_sphere_scene(str(tmp_path / "scene"), 1, 8)
     runner = IDRTrainRunner(conf=parse_string(text), data_split_dir=scene, freeze_geometry=True,
                             exps_folder_name=str(tmp_path / "exps"), device="cpu")
-    with pytest.raises(NotImplementedError, match="render_type 'sg'"):
-        runner.train_step(batch, {"rgb": torch.zeros(1, 4, 3)}, False, False, 50.0)
+    step = {k: torch.from_numpy(v) for k, v in batch.items()}
+    ld, _, finite = runner.train_step(step, {"rgb": torch.zeros(1, 24, 3)}, False, False, 50.0)
+    assert finite and float(ld["idr_rgb_loss"].detach()) > 0

@@ -15,7 +15,8 @@ Cases and gates:
     make_point_grad_fn;
   * a two-iteration `exp_runner.main(... --device cpu)` on a 16x16 3-view
     scene, whose checkpoint the JAX package reads and the port's render CLI
-    renders.
+    renders, and one step without --freeze_geometry under train.remat and
+    model.remat_strategies, in which every network trains.
 
 The Monte-Carlo directions are injected on both sides: each sampler is
 replaced by wi = normalize(n + 0.9 t(n)) with t a fixed smooth function of
@@ -634,10 +635,35 @@ def test_render_cli_reads_a_port_trained_checkpoint(trained, tmp_path):
         runner.model.envmap_material_network.lgtSGs.detach().numpy())
 
 
+def test_exp_runner_trains_unfrozen_geometry(trained, tmp_path):
+    """Without --freeze_geometry every network trains, the implicit net through
+    the surface points, the eikonal and mask terms and the distillation's
+    features, here under train.remat and model.remat_strategies."""
+    _, params, d = trained
+    conf = tmp_path / "unfrozen.conf"
+    conf.write_text(TRAIN_CONF.replace("plot_freq = 1\n", "plot_freq = 100\n    remat = True\n")
+                    .replace("use_fused_trace = True", "use_fused_trace = True\n"
+                             "    remat_strategies = True"))
+    live = exp_runner.main([
+        "--conf", str(conf), "--data_split_dir", str(d / "scene"), "--exps_folder_name",
+        str(tmp_path / "exps"), "--geometry",
+        str(d / "geometry" / "checkpoints"),
+        "--batch_size", "3", "--max_niter", "0", "--secondary_train_interval", "1",
+        "--secondary_batch_size", "32", "--device", "cpu"])
+    assert live.remat and live.model.remat_strategies and not live.freeze_geo
+    assert len(live.step_stats) == 1 and np.isfinite(live.step_stats[0]["loss"])
+    assert 0 < live.step_stats[0]["secondary_points"] <= 32
+    before, after = flatten_tree(params), ckpt.params_to_jax(live.model)
+    for net in ("implicit_network", "rendering_network", "envmap_material_network"):
+        assert any(not np.array_equal(after[k], before[k]) for k in before
+                   if k.startswith(net + "/")), net
+
+
 @pytest.mark.parametrize("flag,match", [
-    ([], "unfrozen geometry"),
-    (["--freeze_geometry", "--train_cameras"], "train_cameras"),
-    (["--freeze_geometry", "--multihost"], "multi-process"),
+    pytest.param(["--freeze_geometry", "--train_cameras"], "train_cameras",
+                 id="flag1-train_cameras"),
+    pytest.param(["--freeze_geometry", "--multihost"], "multi-process",
+                 id="flag2-multi-process"),
 ])
 def test_exp_runner_refuses_what_is_not_ported(trained, flag, match):
     _, _, d = trained
