@@ -90,10 +90,35 @@ Phases, each of which raises on failure (exit code != 0):
    resolution 300 and checks its radius; loads the Step-1 checkpoint into
    Step 2 (exp_runner --geometry) and checks the implicit parameters; and
    holds LPIPS-alex with seeded weights on the card against the CPU.
+14. cameras-reference: the unfrozen-reference step with the pose a [1,7]
+   quaternion + translation that trains: every loss term within rel 1e-5
+   and every group's gradient within a relative L2 of 2e-3 of the CPU's.
+   The pose gradient is held at 2e-3 against the CPU step run again on the
+   card's K3 decisions (_ReplayTraces). Against the CPU's own trace it is
+   printed: a ray that K3's split fp16 stops one sub-threshold step from
+   the fp32 trace moves its hit point by ~1e-5, and the ReLU radiance net's
+   gradient in the view direction jumps there (ROADMAP Queue 3).
+15. cameras: --freeze_geometry --train_cameras on confs/conf.conf at full
+   width (2048 px x 64 rays, K1 bf16 trace), one epoch of the synthetic
+   4-view 128x128 sphere whose poses are turned by 1 degree and moved by 1 cm.
+   Checks finite losses, after every step the batch image's pose row moved
+   and every other row and its Adam moments bit for bit kept, quaternion
+   norms within 0.05 of 1, and launches of K1 bf16 and K2; prints s/step, the
+   distillation step and peak memory.
+16. view-diff: confs/conf.conf frozen with loss.view_diff_weight = 0.1, each
+   image's partner view (i + 3) % 4 appended (262,144 rays a step), one epoch
+   of the 4-view sphere. Checks finite losses and a non-zero view_diff_loss;
+   prints the pairing's seconds (two eval traces on the plain fp32 net),
+   s/step and peak memory.
+17. fast-multi-ray: confs/conf.conf with model.fast_multi_ray = True, 2
+   frozen steps, then both 128x128 views at 16 rays through render.main.
+   Checks finite outputs, one primary-trace ray a pixel (2048 a step, not
+   2048 x 64) and launches of K1 bf16 and K2; prints s/step and s/view.
 
 The line before the last is the kernels' JSON record (launches from the
 frozen training run, and beside them those of the render, the references,
-the live-geometry paths and the NeuS run); the last line is {"ok": true, "device": {...}}.
+the live-geometry paths, the NeuS run and phases 14-17); the last line is
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
 
@@ -695,6 +720,61 @@ class _RecordTraces:
         self.module.fused_sphere_trace = self.real
 
 
+def _pose_gap_ray(tag, card_grads, cpu_grads, calls, cpu):
+    """Print the ray where the card's and the CPU's gradients of the loss at
+    the ray directions part most, its share of the parting, where the
+    primary trace (K3 call 0) started its hit on each device, and the
+    radiance net's d rgb / d view (CPU) at both of those points."""
+    import torch
+
+    gap = (card_grads - cpu_grads).norm(dim=-1)
+    i = int(gap.argmax())
+    (rays, _, _, on_card), (_, _, _, on_cpu) = calls["cuda"][0], calls["cpu"][0]
+    slopes = {}
+    for name, out in (("card", on_card), ("cpu", on_cpu)):
+        p = (rays[0][i] + out[0][i] * rays[1][i])[None]
+        _, feature, grad = cpu.implicit_network.sdf_feature_grad(p, True)
+        view = (-rays[1][i])[None].clone().requires_grad_(True)
+        rgb = cpu.rendering_network(p, grad / grad.norm(dim=-1, keepdim=True), view, feature)
+        slopes[name] = [torch.autograd.grad(rgb[0, k], view, retain_graph=True)[0][0].tolist()
+                        for k in range(3)]
+    print(f"{tag} the ray directions' gradients part most at ray {i}: "
+          f"{float(gap[i] / gap.sum()):.3f} of the sum of |card - CPU|, "
+          f"|d loss / d dir| {float(cpu_grads[i].norm()):.3e} on the CPU; its trace start "
+          f"{float(on_card[0][i]):.7f} on the card, {float(on_cpu[0][i]):.7f} on the CPU; "
+          f"d idr_rgb / d view there (CPU's nets): at the card's point {slopes['card']}, at "
+          f"the CPU's {slopes['cpu']}", flush=True)
+
+
+class _ReplayTraces:
+    """Answer the CPU step's K3 calls, in order, with the card step's recorded
+    (acc_start, acc_end, unfinished) (_RecordTraces' calls["cuda"]): the CPU
+    step then shades where the card's trace decided, and what is left
+    between the two steps is the arithmetic downstream of the trace."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        from nefii_tpu_torch.ops.kernels import fused_trace as ft
+
+        self.module, self.real = ft, ft.fused_sphere_trace
+        calls = iter(self.calls)
+
+        def replay(cam, *args, **kw):
+            rays, _, _, out = next(calls)
+            if rays[0].shape != cam.shape:
+                raise RuntimeError(f"replayed K3 call of {rays[0].shape[0]} rays, asked for "
+                                   f"{cam.shape[0]}")
+            return (*(t.to(cam.device) for t in out), 0)
+
+        ft.fused_sphere_trace = replay
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fused_sphere_trace = self.real
+
+
 def _rays_that_differ(a, b):
     """Indices of the rays whose unfinished flag or hit differs between two
     traces' (acc_start, acc_end, unfinished), or an end by more than
@@ -768,23 +848,29 @@ LOSS_TERMS = ("loss", "idr_rgb_loss", "sg_rgb_loss", "eikonal_loss", "mask_loss"
               "normalsmooth_loss", "background_rgb_loss")
 
 
-def phase_train_reference(live=False):
+def phase_train_reference(live=False, cameras=False):
     """One training step of confs/conf.conf (fp32 trace, K3 on) on
     TRAIN_REF_PATCHES x 4 pixels x TRAIN_REF_RAYS rays: through the kernels
     on the card against the plain versions on the CPU, the same weights,
     directions and min-SDF vector. `live`: the unfrozen-reference, with the
-    geometry training and its eikonal points injected."""
+    geometry training and its eikonal points injected. `cameras` (with
+    `live`): the cameras-reference, the same step with the pose a [1,7]
+    quaternion + translation leaf (a 64x64 view of the synthetic sphere
+    scene) whose gradient is held as a group's."""
     import numpy as np
     import torch
 
     from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+    from nefii_tpu_torch.models import idr
     from nefii_tpu_torch.models.idr import IDRNetwork
     from nefii_tpu_torch.models.loss import IDRLoss
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
 
-    tag = "[unfrozen-reference]" if live else "[train-reference]"
-    groups = LIVE_GRAD_GROUPS if live else GRAD_GROUPS
+    tag = ("[cameras-reference]" if cameras else "[unfrozen-reference]") if live \
+        else "[train-reference]"
+    groups = (LIVE_GRAD_GROUPS if live else GRAD_GROUPS) + (("pose",) if cameras else ())
     conf = _model_conf([K3_ON, FP32_TRACE])
     mconf = conf.get_config("model")
     loss = IDRLoss(**conf.get_config("loss").as_plain_dict())
@@ -793,7 +879,11 @@ def phase_train_reference(live=False):
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
     rng = np.random.default_rng(3)
     with tempfile.TemporaryDirectory() as d:
-        ds = SceneDataset(1.0, SceneDataset.write_camera_only_split(d, 1, 64, focal=80.0), False)
+        if cameras:
+            ds = SceneDataset(1.0, write_sphere_scene(d, 1, 64), True)  # focal 80 too
+        else:
+            ds = SceneDataset(1.0, SceneDataset.write_camera_only_split(d, 1, 64, focal=80.0),
+                              False)
     ds.change_sampling_idx_patch(TRAIN_REF_PATCHES, 1, rng)
     ds.change_sampling_rays(TRAIN_REF_RAYS, rng)
     _, inp, _ = ds.collate([ds[0]])
@@ -804,32 +894,67 @@ def phase_train_reference(live=False):
             np.float32)
     gt = rng.random((1, n_px, 3)).astype(np.float32)
     steps01 = torch.from_numpy(rng.random(gpu.ray_tracer.n_steps).astype(np.float32))
-    res = {}
-    with _InjectedDirections(), _RecordTraces() as traces:
-        for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
-            fm.reset_launch_counts()
-            ft.reset_launch_counts()
-            batch = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in inp.items()}
+    real_rays = idr.get_camera_params
+
+    def step(model, dev):
+        model.zero_grad(set_to_none=True)
+        fm.reset_launch_counts()
+        ft.reset_launch_counts()
+        batch = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in inp.items()}
+        params = dict(model.named_parameters())
+        rays = {}
+        if cameras:
+            params["pose."] = batch["pose"] = torch.as_tensor(
+                ds.get_pose_init(), device=dev).requires_grad_(True)
+
+            def camera_rays(*args):
+                rays["dirs"], cam = real_rays(*args)
+                rays["dirs"].retain_grad()
+                return rays["dirs"], cam
+
+            idr.get_camera_params = camera_rays
+        try:
             out = model.forward_with_uv(batch, torch.Generator(device=dev).manual_seed(0),
                                         training=True, freeze_geo=not live,
                                         steps01=steps01.to(dev))
-            ld = loss(out, {"rgb": torch.as_tensor(gt, device=dev)})
-            ld["loss"].backward()
-            grads = {g: torch.cat([p.grad.reshape(-1).cpu() for n, p in
-                                   model.named_parameters()
-                                   if n.startswith(g + ".") and p.grad is not None])
-                     for g in groups}
-            res[dev] = dict(loss=float(ld["loss"].detach()), grads=grads,
-                            terms={k: float(ld[k].detach()) for k in LOSS_TERMS},
-                            mask=out["network_object_mask"].cpu(),
-                            out={k: out[k].detach().cpu() for k in STEP_KEYS},
-                            launches={**fm.LAUNCHES, **ft.LAUNCHES})
+        finally:
+            idr.get_camera_params = real_rays
+        ld = loss(out, {"rgb": torch.as_tensor(gt, device=dev)})
+        ld["loss"].backward()
+        grads = {g: torch.cat([p.grad.reshape(-1).cpu() for n, p in params.items()
+                               if n.startswith(g + ".") and p.grad is not None])
+                 for g in groups}
+        return dict(loss=float(ld["loss"].detach()), grads=grads,
+                    dir_grads=rays["dirs"].grad.reshape(-1, 3).cpu() if rays else None,
+                    terms={k: float(ld[k].detach()) for k in LOSS_TERMS},
+                    mask=out["network_object_mask"].cpu(),
+                    out={k: out[k].detach().cpu() for k in STEP_KEYS},
+                    launches={**fm.LAUNCHES, **ft.LAUNCHES})
+
+    res = {}
+    with _InjectedDirections():
+        with _RecordTraces() as traces:
+            for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+                res[dev] = step(model, dev)
+        if cameras:
+            with _ReplayTraces(traces.calls["cuda"]):
+                res["replay"] = step(cpu, "cpu")
     g, c = res["cuda"], res["cpu"]
     loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
     term_rel = {k: abs(g["terms"][k] - c["terms"][k]) / max(abs(c["terms"][k]), 1e-30)
                 for k in LOSS_TERMS}
     grad_rel = {k: float((g["grads"][k] - c["grads"][k]).norm() / c["grads"][k].norm())
                 for k in groups}
+    gated = dict(grad_rel)
+    if cameras:
+        # the pose gradient against the CPU step that shades where the card's
+        # K3 decided (module docstring, phase 14); its own trace's gap is printed
+        r = res["replay"]["grads"]["pose"]
+        gated["pose"] = float((g["grads"]["pose"] - r).norm() / r.norm())
+        print(f"{tag} pose gradient: card {g['grads']['pose'].tolist()}, CPU "
+              f"{c['grads']['pose'].tolist()} (rel L2 {grad_rel['pose']:.3e}), CPU on the card's "
+              f"K3 decisions {r.tolist()} (rel L2 {gated['pose']:.3e})", flush=True)
+        _pose_gap_ray(tag, g["dir_grads"], c["dir_grads"], traces.calls, cpu)
     mask_agree = float((g["mask"] == c["mask"]).float().mean())
     # the rays whose outputs differ by more than REF_TOL['abs'], by output
     ray_diff = {}
@@ -845,11 +970,11 @@ def phase_train_reference(live=False):
     if live:
         bad = {k: v for k, v in term_rel.items() if not v <= UNFROZEN_REF_TOL["term_rel"]}
         if bad or not c["terms"]["eikonal_loss"] > 0 or not c["terms"]["mask_loss"] > 0:
-            raise RuntimeError(f"unfrozen loss terms on the card disagree: {bad}")
+            raise RuntimeError(f"{tag} loss terms on the card disagree: {bad}")
         grad_gate = UNFROZEN_REF_TOL["grad_rel_l2"]
         if any(g["launches"][k] <= 0 for k in LIVE_REF_KERNELS) or g["launches"][
                 "fused_sdf_fwd_bwd"] != 0:
-            raise RuntimeError(f"the card's unfrozen step missed a kernel or ran K2, which has "
+            raise RuntimeError(f"{tag} the card's step missed a kernel or ran K2, which has "
                                f"no backward: {g['launches']}")
     else:
         if not loss_rel <= TRAIN_REF_TOL["loss_rel"]:
@@ -857,13 +982,14 @@ def phase_train_reference(live=False):
         grad_gate = TRAIN_REF_TOL["grad_rel_l2"]
         if any(g["launches"][k] <= 0 for k in TRAIN_REF_KERNELS):
             raise RuntimeError(f"the card's training step missed a kernel: {g['launches']}")
-    bad = {k: v for k, v in grad_rel.items() if not v <= grad_gate}
+    bad = {k: v for k, v in gated.items() if not v <= grad_gate}
     if bad:
-        raise RuntimeError(f"training gradients on the card disagree: {bad}")
+        raise RuntimeError(f"{tag} training gradients on the card disagree: {bad}")
     if any(n != 0 for n in c["launches"].values()):
         raise RuntimeError("the CPU step launched a kernel")
     return dict(loss_rel=loss_rel, term_rel=term_rel, grad_rel_l2=grad_rel,
-                mask_agreement=mask_agree, rays_that_differ=ray_diff,
+                pose_rel_l2_on_card_trace=gated.get("pose"), mask_agreement=mask_agree,
+                rays_that_differ=ray_diff,
                 trace_divergence=divergence, launches=g["launches"])
 
 
@@ -1193,6 +1319,233 @@ def _unfrozen_runs(card, runs, graph_k2):
                 raise RuntimeError(f"unfrozen training must launch K1 bf16, and K2 never in "
                                    f"the shading that keeps a graph ({graph_k2[0]}): {launches}")
     return runs
+
+
+CAM_VIEWS = 4          # one epoch of the 4 views: iterations 0-3
+CAM_TURN_DEG, CAM_SHIFT = 1.0, 0.01
+VIEW_DIFF = (("background_rgb_weight = 1.0", "background_rgb_weight = 1.0\n"
+              "    view_diff_weight = 0.1"),)
+FAST = (("fast_multi_ray = False", "fast_multi_ray = True"),)
+FAST_VIEWS = 2         # 2 steps: one epoch, iterations 0-1
+FAST_RENDER_RAYS = 16
+
+
+def _perturb_poses(scene, seed=0):
+    """Turn each view's pose in the scene's cam_dict_norm.json by CAM_TURN_DEG
+    about a random axis and move it by CAM_SHIFT, the images kept: the poses
+    camera training starts from."""
+    import numpy as np
+
+    path = os.path.join(scene, "cam_dict_norm.json")
+    with open(path) as f:
+        cams = json.load(f)
+    rs = np.random.RandomState(seed)
+    for name in sorted(cams):
+        c2w = np.linalg.inv(np.array(cams[name]["W2C"]).reshape(4, 4))
+        a = rs.randn(3)
+        a /= np.linalg.norm(a)
+        k = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        t = np.radians(CAM_TURN_DEG)
+        c2w[:3, :3] = (np.eye(3) + np.sin(t) * k + (1 - np.cos(t)) * k @ k) @ c2w[:3, :3]
+        shift = rs.randn(3)
+        c2w[:3, 3] += CAM_SHIFT * shift / np.linalg.norm(shift)
+        cams[name]["W2C"] = np.linalg.inv(c2w).reshape(-1).tolist()
+    with open(path, "w") as f:
+        json.dump(cams, f)
+    return scene
+
+
+def _step2(tag, d, replace, scene, views, flags, card):
+    """Step-2 training of confs/conf.conf with `replace` (the vis renders
+    off), frozen geometry from the seeded init, one epoch of `views` steps of
+    2048 px x 64 rays (the batch's rows), a distillation step after each,
+    through exp_runner.main; the launch counts set to 0 just before and read
+    just after. -> (runner, summary)."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.training import exp_runner
+
+    conf_path = os.path.join(d, tag + ".conf")
+    with open(conf_path, "w") as f:
+        f.write(_conf_text(NO_VIS + tuple(replace)))
+    argv = ["--conf", conf_path, "--data_split_dir", scene, "--freeze_geometry",
+            "--exps_folder_name", os.path.join(d, "exps_" + tag), "--roughness_warmup", "2",
+            "--secondary_train_interval", "1", "--secondary_batch_size", "1024",
+            "--max_niter", str(views - 1), "--device", "cuda", *flags]
+    print(f"[{tag}] python -m nefii_tpu_torch.training.exp_runner " + " ".join(argv), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_launch_counts()
+    ft.reset_launch_counts()
+    runner = exp_runner.main(argv)
+    torch.cuda.synchronize()
+    launches = {**fm.LAUNCHES, **ft.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    stats = runner.step_stats
+    for st in stats:
+        print(f"[{tag}] step {st['iter']}: {st['seconds']:.3f} s/step ({st['rays']} rays), loss "
+              f"{st['loss']:.6f}, view_diff_loss {st['view_diff_loss']:.6f}, pairing "
+              f"{st['pairing_seconds']:.3f} s, secondary step {st['secondary_seconds']:.3f} s "
+              f"({st['secondary_points']} hits x 64 rays) [{card}]", flush=True)
+    steady = stats[1:] or stats
+    summary = dict(steps=len(stats), rays_per_step=stats[0]["rays"],
+                   s_per_step=[st["seconds"] for st in stats],
+                   secondary_s=[st["secondary_seconds"] for st in stats],
+                   pairing_s=[st["pairing_seconds"] for st in stats],
+                   view_diff_loss=[st["view_diff_loss"] for st in stats],
+                   max_memory_allocated=peak, launches=launches)
+    print(f"[{tag}] steps after the first: "
+          f"{float(np.mean([st['seconds'] for st in steady])):.3f} s/step, secondary step "
+          f"{float(np.mean([st['secondary_seconds'] for st in steady])):.3f} s; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; launches {launches} [{card}]",
+          flush=True)
+    if len(stats) != views or not all(np.isfinite(st["loss"]) for st in stats):
+        raise RuntimeError(f"[{tag}] expected {views} finite steps: {stats}")
+    if not all(st["secondary_points"] > 0 for st in stats):
+        raise RuntimeError(f"[{tag}] a secondary distillation step did not run")
+    return runner, summary
+
+
+def phase_cameras(card):
+    """--freeze_geometry --train_cameras on confs/conf.conf (widths
+    unchanged, K1 bf16 trace, K3 off as shipped), 2048 px x 64 rays, one
+    epoch of CAM_VIEWS steps on the synthetic 4-view 128x128 sphere whose
+    poses are perturbed (_perturb_poses). After every step the batch image's
+    pose row has moved, and every other row and its Adam moments are bit for
+    bit what they were; the quaternions stay within 0.05 of unit length; K1
+    bf16 and K2 launched."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+    from nefii_tpu_torch.training.trainer import IDRTrainRunner
+
+    steps = []
+    real = IDRTrainRunner.train_step
+
+    def recorded(self, batch, *args, **kw):
+        snap = lambda: [t.detach().reshape(self.pose_vecs.shape).clone()
+                        for t in (self.pose_vecs, self.cam_optimizer.mu, self.cam_optimizer.nu)]
+        rows = batch["pose_indices"].tolist()
+        before = snap()
+        out = real(self, batch, *args, **kw)
+        steps.append((rows, before, snap()))
+        return out
+
+    IDRTrainRunner.train_step = recorded
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            scene = _perturb_poses(write_sphere_scene(os.path.join(d, "scene"), CAM_VIEWS,
+                                                      TRAIN_RES))
+            runner, summary = _step2("cameras", d, (), scene, CAM_VIEWS, ["--train_cameras"],
+                                     card)
+    finally:
+        IDRTrainRunner.train_step = real
+    n = runner.pose_vecs.shape[0]
+    for k, (rows, before, after) in enumerate(steps):
+        others = [i for i in range(n) if i not in rows]
+        moved = [not torch.equal(before[0][i], after[0][i]) for i in rows]
+        kept = all(torch.equal(b[others], a[others]) for b, a in zip(before, after))
+        if not all(moved) or not kept:
+            raise RuntimeError(f"[cameras] step {k}: batch rows {rows} moved {moved}, the other "
+                               f"rows and their moments kept {kept}")
+    poses = runner.pose_vecs.detach().cpu().numpy()
+    qn = np.linalg.norm(poses[:, :4], axis=1)
+    init = runner.train_dataset.get_pose_init()
+    summary.update(quat_norms=qn.tolist(), pose_change=np.abs(poses - init).max(1).tolist())
+    print(f"[cameras] quaternion norms {qn.tolist()}, largest change of each pose row "
+          f"{summary['pose_change']}", flush=True)
+    if not np.all(np.abs(qn - 1) <= 0.05):
+        raise RuntimeError(f"[cameras] quaternion norms off unit length: {qn}")
+    if summary["launches"]["fused_sdf_value"] <= 0 or summary["launches"]["fused_sdf_fwd_bwd"] <= 0:
+        raise RuntimeError(f"[cameras] K1 bf16 or K2 did not launch: {summary['launches']}")
+    return summary
+
+
+def phase_view_diff(card):
+    """confs/conf.conf frozen with loss.view_diff_weight = 0.1 (JAX's
+    test_view_diff_training_runs), 2048 px x 64 rays and each image's
+    partner view appended (262,144 rays a step), one epoch of the synthetic
+    4-view 128x128 sphere. The pairing traces twice on the plain fp32
+    implicit net. Checks finite losses and a non-zero view_diff_loss."""
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+
+    with tempfile.TemporaryDirectory() as d:
+        scene = write_sphere_scene(os.path.join(d, "scene"), CAM_VIEWS, TRAIN_RES)
+        _, summary = _step2("view-diff", d, VIEW_DIFF, scene, CAM_VIEWS, [], card)
+    if summary["rays_per_step"] != 2 * 2048 * 64 or not any(summary["view_diff_loss"]):
+        raise RuntimeError(f"[view-diff] expected 262,144 rays a step and a view_diff_loss: "
+                           f"{summary}")
+    if summary["launches"]["fused_sdf_value"] <= 0:
+        raise RuntimeError(f"[view-diff] K1 bf16 did not launch: {summary['launches']}")
+    return summary
+
+
+def phase_fast_multi_ray(card):
+    """confs/conf.conf with model.fast_multi_ray = True: FAST_VIEWS frozen
+    steps of 2048 px x 64 rays on the synthetic 2-view 128x128 sphere, then
+    both views rendered at FAST_RENDER_RAYS rays a pixel through
+    scripts/render.main from the trained checkpoint. The primary trace runs
+    one pixel-mean ray a pixel (counted at the model's get_camera_params).
+    Checks finite losses and EXRs, S rays a primary trace, and launches of K1
+    bf16 and K2 in both."""
+    import torch
+
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+    from nefii_tpu_torch.models import idr
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.scripts import render
+
+    traced = []
+    real = idr.get_camera_params
+
+    def counted(uv, pose, intrinsics):
+        traced.append(uv.shape[0] * uv.shape[1])
+        return real(uv, pose, intrinsics)
+
+    idr.get_camera_params = counted
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            scene = write_sphere_scene(os.path.join(d, "scene"), FAST_VIEWS, TRAIN_RES)
+            runner, summary = _step2("fast-multi-ray", d, FAST, scene, FAST_VIEWS, [], card)
+            summary["primary_rays_per_step"] = list(traced)
+            traced.clear()
+            out_dir = os.path.join(d, "renders")
+            fm.reset_launch_counts()
+            ft.reset_launch_counts()
+            rr = render.main(["--conf", os.path.join(d, "fast-multi-ray.conf"),
+                              "--data_split_dir", scene, "--old_expdir", runner.expdir,
+                              "--timestamp", runner.timestamp,
+                              "--num_rays", str(FAST_RENDER_RAYS), "--max_views", str(FAST_VIEWS),
+                              "--out_dir", out_dir, "--device", "cuda"])
+            torch.cuda.synchronize()
+            summary["render_launches"] = {**fm.LAUNCHES, **ft.LAUNCHES}
+            _read_views(out_dir, FAST_VIEWS, TRAIN_RES)
+    finally:
+        idr.get_camera_params = real
+    summary["render_primary_rays"] = sum(traced)
+    summary["s_per_view"] = [s["seconds"] for s in rr.stats]
+    for s in rr.stats:
+        print(f"[fast-multi-ray] view {s['view']}: {s['seconds']:.3f} s/view "
+              f"({TRAIN_RES}x{TRAIN_RES}, {FAST_RENDER_RAYS} rays/px), hit fraction "
+              f"{s['hit_fraction']:.3f} [{card}]", flush=True)
+    print(f"[fast-multi-ray] primary-trace rays: {summary['primary_rays_per_step']} a training "
+          f"step (2048 x 64 = 131,072 without fast_multi_ray), {summary['render_primary_rays']} "
+          f"in the render of {FAST_VIEWS} views; render launches {summary['render_launches']}",
+          flush=True)
+    if summary["primary_rays_per_step"] != [2048] * FAST_VIEWS or \
+            summary["render_primary_rays"] != FAST_VIEWS * TRAIN_RES ** 2:
+        raise RuntimeError(f"[fast-multi-ray] the primary trace did not run one ray a pixel: "
+                           f"{summary}")
+    if not all(s["hit_fraction"] > 0 for s in rr.stats) or any(
+            summary[k][n] <= 0 for k in ("launches", "render_launches")
+            for n in ("fused_sdf_value", "fused_sdf_fwd_bwd")):
+        raise RuntimeError(f"[fast-multi-ray] no hit or a kernel did not launch: {summary}")
+    return summary
 
 
 NEUS_VIEWS = 2          # 2 steps: one epoch, iterations 0-1
@@ -1551,10 +1904,15 @@ def main():
     unfrozen = phase_unfrozen(card)
     neus = phase_neus(card)
     geometry = phase_geometry(card)
+    cameras_ref = phase_train_reference(live=True, cameras=True)
+    cameras = phase_cameras(card)
+    view_diff = phase_view_diff(card)
+    fast = phase_fast_multi_ray(card)
     print(json.dumps({"render": stats, "reference": ref, "train_reference": train_ref,
                       "unfrozen_reference": unfrozen_ref, "train": train, "physg": physg,
                       "unfrozen": unfrozen, "neus": neus, "trace_kernel": trace,
-                      "geometry": geometry,
+                      "geometry": geometry, "cameras_reference": cameras_ref,
+                      "cameras": cameras, "view_diff": view_diff, "fast_multi_ray": fast,
                       "card": card}), flush=True)
     src = "nefii_tpu_torch/ops/kernels/csrc/fused_mlp.cu"
     tc_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_tc.cuh"
@@ -1569,7 +1927,12 @@ def main():
             "unfrozen_launches": unfrozen["no_remat"].pop("launches"),
             "unfrozen_remat_launches": unfrozen["remat"].pop("launches"),
             "unfrozen_reference_launches": unfrozen_ref.pop("launches"),
-            "neus_launches": neus.pop("launches")}
+            "neus_launches": neus.pop("launches"),
+            "cameras_reference_launches": cameras_ref.pop("launches"),
+            "cameras_launches": cameras.pop("launches"),
+            "view_diff_launches": view_diff.pop("launches"),
+            "fast_multi_ray_launches": fast.pop("launches"),
+            "fast_multi_ray_render_launches": fast.pop("render_launches")}
 
     def paths(name):
         return {k: v[name] for k, v in live.items()}

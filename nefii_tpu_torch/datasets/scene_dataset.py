@@ -1,6 +1,7 @@
 """SceneDataset — posed views + masks + cameras, host-side numpy (counterpart
 of nefii_tpu/datasets/scene_dataset.py, which pulls in JAX through its
-`rot_to_quat` import).
+`rot_to_quat` import). With `train_cameras` an item has no pose: the trainer
+takes the batch's pose rows from its learned camera parameters.
 
 Reads `cam_dict_norm.json` (K, W2C per view), and `image/*` and `mask/*`
 when they exist. Without images it builds a test split from the cameras
@@ -212,7 +213,7 @@ class SceneDataset:
         return d
 
     def get_pose_init(self) -> np.ndarray:
-        """Quaternion + translation init for pose optimisation."""
+        """Quaternion + translation [n_views, 7] init for pose optimisation."""
         poses = np.stack(self.pose_all)
-        return np.concatenate([rot_to_quat(poses[:, :3, :3]), poses[:, :3, 3]],
+        return np.concatenate([rot_to_quat(poses[:, :3, :3]).numpy(), poses[:, :3, 3]],
                               axis=1).astype(np.float32)

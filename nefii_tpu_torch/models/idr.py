@@ -3,7 +3,9 @@ nefii_tpu/models/idr.py).
 
 Owns the implicit SDF net, the IDR radiance net, the envmap/material net and
 the tracers. `forward_with_uv` renders pixels (multi-ray AA reduced by
-`mean_pixel`) with `render_type = pt_render_indirect_mlp` (path traced) or
+`mean_pixel`, or with `fast_multi_ray` one pixel-mean ray traced and shaded
+a pixel and its R Monte-Carlo samples averaged) with
+`render_type = pt_render_indirect_mlp` (path traced) or
 `sg` (the closed-form SG renderer of the PhySG baseline), and the SG
 environment as background of the rays that miss. With `training=True` and
 `freeze_geo=True` (Step 2 on a frozen geometry) it keeps the autograd graph
@@ -14,8 +16,12 @@ trains too: the trace stays a value, and the implicit net keeps its graph
 through the surface points of IDR eq. 3 (`sample_network`), the mask loss's
 sdf, the eikonal gradients (second-order autograd) and the shading's
 feature and normal; at the secondary hits the features stay attached and the
-normals are detached. `forward_with_point` shades given points for the
-secondary self-distillation step, with the normals detached.
+normals are detached. The pose may be a [B,7] quaternion + translation
+that requires grad (camera training): the trace runs on detached rays, and
+the pose's gradient comes through the view directions of the shading (and
+the background) and, with live geometry, through the surface points of IDR
+eq. 3. `forward_with_point` shades given points for the secondary
+self-distillation step, with the normals detached.
 
 Differences by design from the JAX pipeline, results unchanged:
   * Only hit rays are shaded (a dynamic gather; the JAX pipeline shades all
@@ -143,8 +149,7 @@ class IDRNetwork(nn.Module):
         remat_strategies: bool = False,
     ):
         super().__init__()
-        if fast_multi_ray:
-            raise NotImplementedError("fast_multi_ray is not ported")
+        self.fast_multi_ray = fast_multi_ray
         self.feature_vector_size = feature_vector_size
         self.implicit_network = implicit_network
         self.rendering_network = rendering_network
@@ -270,7 +275,10 @@ class IDRNetwork(nn.Module):
                         steps01: Optional[torch.Tensor] = None,
                         secondary_limit: int = 0, remat: bool = False):
         """Render the rays of `inputs` (uv [B,S,2] or multi-ray [B,S,R,2],
-        pose, intrinsics, object_mask). Without `training` no graph is kept.
+        pose [B,4,4] or [B,7], intrinsics, object_mask). Without `training`
+        no graph is kept. With `fast_multi_ray` a multi-ray batch traces the
+        pixel-mean uv [B,S] and the path tracer repeats each shaded point R
+        times, its outputs averaged per pixel.
         `steps01` injects the tracer's min-SDF step vector (training).
 
         With `training` and not `freeze_geo` the geometry trains: the output
@@ -297,11 +305,15 @@ class IDRNetwork(nn.Module):
         intrinsics, uv, pose = inputs["intrinsics"], inputs["uv"], inputs["pose"]
         object_mask = inputs["object_mask"].reshape(-1)
         multi_ray = uv.dim() == 4
+        fast = multi_ray and self.fast_multi_ray
         R = 1
         if multi_ray:
             B, S, R, D = uv.shape
-            uv = uv.reshape(B, S * R, D)
-            object_mask = object_mask.reshape(B, S, 1).expand(B, S, R).reshape(-1)
+            if fast:
+                uv = uv.mean(dim=2)
+            else:
+                uv = uv.reshape(B, S * R, D)
+                object_mask = object_mask.reshape(B, S, 1).expand(B, S, R).reshape(-1)
 
         ray_dirs, cam_loc = get_camera_params(uv, pose, intrinsics)
         batch_size, num_pixels, _ = ray_dirs.shape
@@ -320,7 +332,7 @@ class IDRNetwork(nn.Module):
         view_dirs = -ray_dirs_flat
         grad_theta = None
         shade_kw = dict(training=training, fake_roughness=fake_roughness,
-                        fake_specular=fake_specular)
+                        fake_specular=fake_specular, multi_ray_R=R if fast else 1)
 
         if live:
             surface_mask = network_object_mask & object_mask
@@ -415,14 +427,19 @@ class IDRNetwork(nn.Module):
             output["grad_theta"] = grad_theta
             if secondary_limit > 0 and "secondary_mask" in ret:
                 # the pool is values in both modes: K2 when use_fused_sdf
+                pool_pts, pool_view, pool_sel = points, view_dirs, sel
+                if fast:
+                    # the path tracer's rays: each pixel's point R times
+                    pool_pts, pool_view = (x.repeat_interleave(R, 0) for x in (points, view_dirs))
+                    pool_sel = (sel[:, None] * R + torch.arange(R, device=sel.device)).reshape(-1)
                 with torch.no_grad(), record_function("secondary_pool"):
                     pool, n_evals = self._secondary_pool(
-                        ret, sel, points, view_dirs, gen, sdf_fn, self._sfg_closure(),
+                        ret, pool_sel, pool_pts, pool_view, gen, sdf_fn, self._sfg_closure(),
                         secondary_limit,
                         fake_roughness=fake_roughness, fake_specular=fake_specular)
                 output.update(pool)
                 output["n_sdf_evals"] = output["n_sdf_evals"] + n_evals
-        if multi_ray:
+        if multi_ray and not fast:
             BS = batch_size * S
             keys = ["idr_rgb_values", "sg_rgb_values", "network_object_mask", "object_mask",
                     "sg_diffuse_rgb_values", "sg_diffuse_albedo_values",
@@ -521,13 +538,16 @@ class IDRNetwork(nn.Module):
     # ------------------------------------------------------------------
     def get_rbg_value(self, points, view_dirs, gen, sdf_fn, *, training=False,
                       value_only=True, normal_graph=True, fake_roughness=False,
-                      fake_specular=False):
+                      fake_specular=False, multi_ray_R=1):
         """Shading of surface points [M,3] seen along view_dirs [M,3], by
         render_type: the closed-form SG render, or the path tracer. The
         implicit net's sdf, feature and normal are values (K2 or the plain
         sdf_feature_grad) when `value_only`, else they keep their graph, the
         normal's only where `normal_graph` and never at the secondary hits;
-        the radiance and material nets keep their graph."""
+        the radiance and material nets keep their graph. `multi_ray_R` > 1
+        (fast_multi_ray) path-traces each point R times and averages its
+        colours; the secondary-hit pool keeps the M*R rays. The SG render has
+        no samples, so it shades each point once."""
         sfg_fn = self._sfg_closure(value_only, normal_graph)
         sec_fn = self._sfg_closure(value_only, normal_graph=False)
         feature_vectors, normals, view_dirs = self._surface(points, view_dirs, sfg_fn)
@@ -542,11 +562,20 @@ class IDRNetwork(nn.Module):
                                     view_dirs, blending_weights=mat["sg_blending_weights"])
             sg_ret["n_sdf_evals"] = 0
         else:
+            R = multi_ray_R
+            pt_in = [mat["sg_specular_reflectance"], mat["sg_roughness"],
+                     mat["sg_diffuse_albedo"], normals, view_dirs, points]
+            if R > 1:
+                # the per-point inputs (JAX idr.py get_rbg_value's rep)
+                per_point = [em.specular_mlp and not em.fix_specular_albedo, em.roughness_mlp,
+                             True, True, True, True]
+                pt_in = [x.repeat_interleave(R, 0) if p else x for x, p in zip(pt_in, per_point)]
             sg_ret = ptr.pt_render_core(
-                gen, mat["sg_lgtSGs"], mat["sg_specular_reflectance"], mat["sg_roughness"],
-                mat["sg_diffuse_albedo"], normals, view_dirs, points,
-                self.scene_fns(sdf_fn, sec_fn), training=training,
-                remat_strategies=self.remat_strategies, **spec)
+                gen, mat["sg_lgtSGs"], *pt_in, self.scene_fns(sdf_fn, sec_fn),
+                training=training, remat_strategies=self.remat_strategies, **spec)
+            if R > 1:
+                for k in ("sg_rgb", "sg_specular_rgb", "sg_diffuse_rgb", "sg_diffuse_albedo"):
+                    sg_ret[k] = self.mean_pixel(sg_ret[k], points.shape[0], R)
         return {
             "normals": normals,
             "idr_rgb": idr_rgb,

@@ -3,16 +3,18 @@
 Terms: idr_rgb and sg_rgb on hit-and-masked pixels, background SG-vs-gt on
 miss-and-unmasked pixels, eikonal, mask BCE on -alpha*sdf (alpha scheduled
 by the trainer), masked SSIM on (2r)x(2r) patches with mask erosion, and
-the normal-smooth and roughness-smooth patch variances. torch.var's unbiased
-(n-1) divisor is kept.
+the normal-smooth and roughness-smooth patch variances, and the view-diff
+term: on a batch of 2B rows whose last B are the first B's partner views
+(the trainer's cross-view pairing), the difference between a pixel and its
+partner against the difference between their ground truths, where
+`ground_truth["pixel_visible"]` and both rows' masks hold. torch.var's
+unbiased (n-1) divisor is kept.
 
 Every reduction is a masked mean carried as a (numerator, denominator)
 pair and divided once. `all_reduce`, when given, sums each pair over the
 processes before the division (a multi-GPU run passes a
 torch.distributed all-reduce), so a sharded loss equals the single-device
-one; without it the pair is divided as it is. The view-diff term needs
-cross-view pixel pairing, which the port does not have: a positive
-view_diff_weight raises when the loss is built.
+one; without it the pair is divided as it is.
 """
 
 from __future__ import annotations
@@ -138,10 +140,6 @@ class IDRLoss:
 
     def __post_init__(self):
         object.__setattr__(self, "r_patch", int(self.r_patch))
-        if self.view_diff_weight > 0:
-            raise NotImplementedError(
-                "view_diff_weight > 0: the view-diff loss needs cross-view pixel pairing, "
-                "which the port does not have (ROADMAP.md queue 1)")
 
     # -- individual terms ---------------------------------------------------
     def get_rgb_loss(self, idr_rgb, sg_rgb, rgb_gt, net_mask, obj_mask, all_reduce=None):
@@ -210,6 +208,24 @@ class IDRLoss:
         nvar = _var_unbiased(normal.detach().reshape(-1, p, 3), dim=1).mean(-1, keepdim=True)
         return _masked_mean(rvar * (4.0 - nvar), mask, all_reduce)
 
+    def get_view_diff_loss(self, rgb, gt_rgb, net_mask, obj_mask, pixel_visible,
+                           all_reduce=None):
+        """rgb [2B*S,3] and gt_rgb [2B,S,3] of a batch whose rows B..2B-1 are
+        the partner views of rows 0..B-1; pixel_visible [B,S]."""
+        if self.view_diff_weight <= 0 or pixel_visible is None:
+            return rgb.new_zeros(())
+        B2, S, _ = gt_rgb.shape
+        B = B2 // 2
+        rgb = rgb.reshape(2, B, S, 3)
+        gt = gt_rgb.reshape(2, B, S, 3)
+        nm = net_mask.reshape(2, B, S)
+        om = obj_mask.reshape(2, B, S)
+        mask = pixel_visible & nm[0] & nm[1] & om[0] & om[1]
+        diff = (rgb[0] - rgb[1]).reshape(-1, 3)
+        gt_diff = (gt[0] - gt[1]).reshape(-1, 3)
+        return _masked_mean(_img_loss(diff, gt_diff, self.loss_type), mask.reshape(-1),
+                            all_reduce)
+
     # -- combined ------------------------------------------------------------
     def __call__(self, model_outputs: Dict, ground_truth: Dict, alpha: Optional[float] = None,
                  all_reduce: AllReduce = None) -> Dict[str, torch.Tensor]:
@@ -234,7 +250,9 @@ class IDRLoss:
         }
         terms["idr_ssim_loss"], terms["sg_ssim_loss"] = self.get_ssim_loss(
             idr_rgb, sg_rgb, rgb_gt, net_mask, obj_mask, all_reduce)
-        terms["view_diff_loss"] = idr_rgb.new_zeros(())
+        terms["view_diff_loss"] = self.get_view_diff_loss(
+            sg_rgb if self.view_diff_full_rgb else model_outputs["sg_specular_rgb_values"],
+            rgb_gt, net_mask, obj_mask, ground_truth.get("pixel_visible"), all_reduce)
         terms["background_rgb_loss"] = self.get_background_rgb_loss(sg_rgb, rgb_gt, net_mask,
                                                                     obj_mask, all_reduce)
         terms = {k: v.to(idr_rgb.device) for k, v in terms.items()}
@@ -246,5 +264,6 @@ class IDRLoss:
                 + self.roughnesssmooth_weight * terms["roughnesssmooth_loss"]
                 + self.idr_ssim_weight * terms["idr_ssim_loss"]
                 + self.sg_ssim_weight * terms["sg_ssim_loss"]
+                + self.view_diff_weight * terms["view_diff_loss"]
                 + self.background_rgb_weight * terms["background_rgb_loss"])
         return {"loss": loss, **terms}

@@ -13,9 +13,11 @@ Without `--freeze_geometry` (or `--freeze_idr`) the geometry trains too
 (the PhySG baseline of workflows/run_physg.sh); `train.remat` and
 `model.remat_strategies` in the conf trade recomputation for memory.
 `--geometry` and `--pretrain_geometry_path` take a JAX-layout checkpoint
-directory or a torch `.pth`, `--geometry_neus` a NeuS `.pth`. The
-multi-process and camera-training flags are accepted by the parser and
-raise when set.
+directory or a torch `.pth`, `--geometry_neus` a NeuS `.pth`.
+`--train_cameras` trains the camera poses too (`train.learning_rate_cam`,
+default 1e-3); a conf with `loss.view_diff_weight > 0` trains with the
+view-diff pairing; the two together raise ValueError, as in JAX. The
+multi-process flags are accepted by the parser and raise when set.
 """
 
 from __future__ import annotations

@@ -6,8 +6,14 @@ What it keeps of the JAX trainer: the experiment directory (conf copy, code
 backup, runcmd.txt), the train/plot/test datasets, the two Adam groups — idr
 (rendering net, and the implicit net when the geometry is not frozen) and sg
 (material net and light, minus the frozen parts) — with their multistep
-schedules, the geometry imports (a JAX-layout checkpoint directory, a torch
-`.pth` state dict, a NeuS `sdf_network_fine`), `train.remat`, the alpha
+schedules, `--train_cameras` (a [n_views, 7] quaternion + translation leaf
+beside the model, initialised from the dataset's poses, the batch's rows
+gathered by image index, and a third Adam at `train.learning_rate_cam` with
+SparseAdam's rows: `RowAdam`), the view-diff pairing (each image's partner
+view (i + 3) % n appended to the batch, `_append_paired_view`), which
+excludes `--train_cameras` as in JAX, the geometry imports (a JAX-layout
+checkpoint directory, a torch `.pth` state dict, a NeuS `sdf_network_fine`),
+`train.remat`, the alpha
 schedule of the mask loss, the roughness/specular warmups, the pixel and
 patch sampling with the same numpy seeds, the NaN guard, the secondary
 self-distillation and the checkpoint cadence. `vis` writes the panel PNG,
@@ -16,9 +22,8 @@ zero-surface as surface_<it>.obj (plot.surface_resolution, default 100);
 scalars are printed.
 
 Differences by design:
-  * One process on one device; there is no mesh. Multi-process training and
-    `--train_cameras` (with the view-diff pairing) raise. The port has no
-    compaction budgets, so nothing escalates them.
+  * One process on one device; there is no mesh. Multi-process training
+    raises. The port has no compaction budgets, so nothing escalates them.
   * `train.remat` checkpoints the forward after the primary trace, in two
     regions (`IDRNetwork.forward_with_uv(remat=True)`); the JAX package's
     jax.checkpoint takes the trace too. Nothing is differentiated through
@@ -54,6 +59,7 @@ from torch.profiler import record_function
 
 from nefii_tpu_torch.config import ConfigFactory, ConfigTree, get_class
 from nefii_tpu_torch.models.loss import IDRLoss
+from nefii_tpu_torch.models.pixel_pair_generator import PixelPairGenerator
 from nefii_tpu_torch.utils import checkpoints as ckpt
 from nefii_tpu_torch.utils import exr as exr_io
 from nefii_tpu_torch.utils import general as utils
@@ -149,6 +155,24 @@ class AdamGroup:
         self.nu = state["nu"].to(self.nu.device)
 
 
+class RowAdam(AdamGroup):
+    """AdamGroup over one [rows, d] tensor with torch SparseAdam's rows, as the
+    JAX trainer applies them (`_mask_adam_rows`): a row whose gradient sums to
+    0 in absolute value keeps its parameters and both moments bit for bit;
+    the count advances every step, so the bias correction is the step's."""
+
+    @torch.no_grad()
+    def step(self) -> None:
+        (p,) = self.params
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        keep = ~(g.abs().sum(-1, keepdim=True) > 0).expand_as(p).reshape(-1)
+        old_p, old_mu, old_nu = p.detach().reshape(-1).clone(), self.mu, self.nu
+        super().step()
+        p.copy_(torch.where(keep, old_p, p.reshape(-1)).view_as(p))
+        self.mu = torch.where(keep, old_mu, self.mu)
+        self.nu = torch.where(keep, old_nu, self.nu)
+
+
 def secondary_batch(out: Dict, k_max: int, num_rays: int):
     """The batch the secondary step distils: the first `k_max` hits of the
     pool out["secondary_mask"] [S', N, 1] in its [strategy, ray] order (the
@@ -185,7 +209,7 @@ PROFILE_STEPS = 3
 # the spans of one training step (record_function names), outermost first
 SPANS = ("train.forward", "primary_trace", "sphere_trace", "ray_sampler", "min_sdf_points",
          "shading", "secondary_trace", "secondary_shading", "secondary_pool", "train.loss",
-         "train.backward", "train.update", "train.secondary")
+         "train.backward", "train.update", "train.secondary", "train.pairing")
 
 
 class StepProfiler:
@@ -271,8 +295,7 @@ class IDRTrainRunner:
         self.seed = kwargs.get("seed", 0)
         self.profile_dir = kwargs.get("profile_dir") or None
         self.coordinate_type = kwargs.get("coordinate_type", "mitsuba")
-        if kwargs.get("train_cameras", False):
-            raise NotImplementedError("--train_cameras is not ported (ROADMAP.md queue 1)")
+        self.train_cameras = kwargs.get("train_cameras", False)
         self.freeze_geo = self.freeze_geometry or self.freeze_idr
 
         # ---- experiment dir -------------------------------------------------
@@ -309,11 +332,11 @@ class IDRTrainRunner:
         dataset_class = get_class(self.conf.get_string("train.dataset_class"))
         gamma, wo_mask = kwargs.get("gamma", 1.0), kwargs.get("wo_mask", False)
         subsample = kwargs.get("subsample", 1)
-        self.train_dataset = dataset_class(gamma, kwargs["data_split_dir"], False, subsample,
-                                           wo_mask=wo_mask)
+        self.train_dataset = dataset_class(gamma, kwargs["data_split_dir"], self.train_cameras,
+                                           subsample, wo_mask=wo_mask)
         vis_sub = subsample * kwargs.get("vis_subsample", 1)
-        self.plot_dataset = dataset_class(gamma, kwargs["data_split_dir"], False, vis_sub,
-                                          wo_mask=wo_mask)
+        self.plot_dataset = dataset_class(gamma, kwargs["data_split_dir"], self.train_cameras,
+                                          vis_sub, wo_mask=wo_mask)
         test_dir = kwargs.get("data_split_dir_test") or kwargs["data_split_dir"]
         self.test_dataset = dataset_class(gamma, test_dir, False, vis_sub, wo_mask=wo_mask)
 
@@ -322,6 +345,8 @@ class IDRTrainRunner:
         self.model = model_class.from_conf(self.conf.get_config("model"), device=self.device,
                                            seed=self.seed)
         self.loss = IDRLoss(**self.conf.get_config("loss").as_plain_dict())
+        if self.train_cameras and self.loss.view_diff_weight > 0:
+            raise ValueError("view_diff loss and --train_cameras are mutually exclusive")
 
         # ---- optimizers -----------------------------------------------------
         names = trainable_names(
@@ -340,6 +365,15 @@ class IDRTrainRunner:
                 multistep_lr(self.conf.get_float(f"train.{group}_learning_rate"),
                              self.conf.get_list(f"train.{group}_sched_milestones", default=[]),
                              self.conf.get_float(f"train.{group}_sched_factor", default=0.0)))
+        # camera poses: a leaf beside the model, trained by its own Adam
+        self.pose_vecs = None
+        self.cam_optimizer = None
+        if self.train_cameras:
+            self.pose_vecs = torch.as_tensor(self.train_dataset.get_pose_init(),
+                                             device=self.device).requires_grad_(True)
+            self.cam_optimizer = RowAdam(
+                [self.pose_vecs],
+                multistep_lr(self.conf.get_float("train.learning_rate_cam", default=1e-3), [], 1.0))
 
         # ---- pretrained / partial loads ------------------------------------
         self.start_epoch = 0
@@ -364,8 +398,9 @@ class IDRTrainRunner:
             steps_per_epoch = max(1, -(-len(self.train_dataset) // self.batch_size))
             self.cur_iter = self.start_epoch * steps_per_epoch
         self.gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-        # per training step: iteration, seconds, rays, loss, and the seconds
-        # and distilled hits of its secondary step (0 when none ran)
+        # per training step: iteration, seconds, rays, loss, the seconds and
+        # distilled hits of its secondary step (0 when none ran), the
+        # view-diff pairing's seconds (0 without it) and its loss term
         self.step_stats: List[Dict] = []
 
     # ------------------------------------------------------------------
@@ -396,9 +431,11 @@ class IDRTrainRunner:
             old_expdir = kwargs.get("old_expdir") or self.expdir
             ckdir = os.path.join(old_expdir, self.timestamp, "checkpoints")
             states, self.start_epoch, self.cur_iter = ckpt.load_all(
-                ckdir, kwargs.get("checkpoint", "latest"), self.model)
+                ckdir, kwargs.get("checkpoint", "latest"), self.model, self.pose_vecs)
             for name, group in self.optimizers.items():
                 group.load_state_dict(states[name])
+            if self.cam_optimizer is not None and "cam" in states:
+                self.cam_optimizer.load_state_dict(states["cam"])
 
         g = kwargs.get("geometry", "")
         if g.endswith(".pth") and os.path.exists(g):
@@ -423,8 +460,11 @@ class IDRTrainRunner:
                 self.specular_warmup > 0 and self.cur_iter < self.specular_warmup)
 
     def save_checkpoints(self, epoch: int):
-        ckpt.save_all(self.checkpoints_path, epoch, self.model,
-                      {k: g.state_dict() for k, g in self.optimizers.items()}, self.cur_iter)
+        states = {k: g.state_dict() for k, g in self.optimizers.items()}
+        if self.cam_optimizer is not None:
+            states["cam"] = self.cam_optimizer.state_dict()
+        ckpt.save_all(self.checkpoints_path, epoch, self.model, states, self.cur_iter,
+                      self.pose_vecs)
 
     def _sample_pixels(self, epoch: int):
         """Pixel or patch sampling from the epoch-seeded generator (the JAX
@@ -438,23 +478,59 @@ class IDRTrainRunner:
         self.train_dataset.change_sampling_rays(self.num_rays, rng)
 
     def _device_inputs(self, model_input):
+        """The batch on the device; with --train_cameras it has no pose (the
+        step gathers it from pose_vecs by `pose_indices`)."""
         dev = self.device
-        return {
+        out = {
             "uv": torch.as_tensor(np.asarray(model_input["uv"], np.float32), device=dev),
             "object_mask": torch.as_tensor(np.asarray(model_input["object_mask"]), device=dev),
             "intrinsics": torch.as_tensor(np.asarray(model_input["intrinsics"], np.float32),
                                           device=dev),
-            "pose": torch.as_tensor(np.asarray(model_input["pose"], np.float32), device=dev),
         }
+        if "pose" in model_input:
+            out["pose"] = torch.as_tensor(np.asarray(model_input["pose"], np.float32),
+                                          device=dev)
+        return out
+
+    def _append_paired_view(self, batch, gt, indices):
+        """Cross-view pairing for the view-diff loss: trace the batch's pixels
+        (the mean of their rays), project them into each image's partner view
+        (i + 3) % n, and append the partners as a second block of batch rows
+        with their fetched rgb, masks and `gt["pixel_visible"]`; a multi-ray
+        batch re-jitters the paired uv with the dataset's ray offsets."""
+        ds = self.train_dataset
+        uv = batch["uv"]
+        query = {"intrinsics": batch["intrinsics"], "pose": batch["pose"],
+                 "uv": uv if uv.dim() == 3 else uv.mean(2),
+                 "object_mask": batch["object_mask"]}
+        pair_id = [(int(i) + 3) % len(ds) for i in indices]
+        paired = PixelPairGenerator(ds, self.model).find_paired_pixel(query, pair_id)
+        p_uv = paired["uv"]
+        if uv.dim() == 4:
+            p_uv = torch.as_tensor(ds.batch_ray_sample(p_uv.cpu().numpy()), device=uv.device)
+        batch = {"uv": torch.cat([uv, p_uv]),
+                 "object_mask": torch.cat([batch["object_mask"], paired["object_mask"]]),
+                 "intrinsics": torch.cat([batch["intrinsics"], paired["intrinsics"]]),
+                 "pose": torch.cat([batch["pose"], paired["pose"]])}
+        gt = {"rgb": torch.cat([gt["rgb"], paired["gt_rgb"]]),
+              "pixel_visible": paired["pixel_visible"].reshape(len(pair_id), -1)}
+        return batch, gt
 
     # ------------------------------------------------------------------
     def train_step(self, batch, gt, fake_r: bool, fake_s: bool, alpha: float,
                    distil: bool = False):
-        """One training step: forward, loss, backward, both Adam updates.
-        -> (loss dict, model outputs, finite). A non-finite loss updates
-        nothing. With `distil` the outputs hold the secondary-hit pool as far
-        as the secondary step's batch needs it."""
-        for group in self.optimizers.values():
+        """One training step: forward, loss, backward, both Adam updates and,
+        with --train_cameras, the pose update (the batch's pose rows gathered
+        from pose_vecs by batch["pose_indices"]). -> (loss dict, model
+        outputs, finite). A non-finite loss updates nothing. With `distil`
+        the outputs hold the secondary-hit pool as far as the secondary
+        step's batch needs it."""
+        optimizers = list(self.optimizers.values())
+        if self.cam_optimizer is not None:
+            optimizers.append(self.cam_optimizer)
+            batch = dict(batch)
+            batch["pose"] = self.pose_vecs[batch.pop("pose_indices")]
+        for group in optimizers:
             group.zero_grad()
         with record_function("train.forward"):
             out = self.model.forward_with_uv(
@@ -468,7 +544,7 @@ class IDRTrainRunner:
         with record_function("train.backward"):
             ld["loss"].backward()
         with record_function("train.update"):
-            for group in self.optimizers.values():
+            for group in optimizers:
                 group.step()
         return ld, out, True
 
@@ -529,11 +605,20 @@ class IDRTrainRunner:
                                                              1) == 0:
                     self.vis("test", self.cur_iter)
 
-                _, model_input, ground_truth = self.train_dataset.collate(
+                indices, model_input, ground_truth = self.train_dataset.collate(
                     [self.train_dataset[int(i)] for i in img_ids])
                 batch = self._device_inputs(model_input)
                 gt = {"rgb": torch.as_tensor(np.asarray(ground_truth["rgb"], np.float32),
                                              device=self.device)}
+                if self.train_cameras:
+                    batch["pose_indices"] = torch.as_tensor(indices, device=self.device)
+                pair_seconds = 0.0
+                if self.loss.view_diff_weight > 0:
+                    t0 = time.perf_counter()
+                    with record_function("train.pairing"):
+                        batch, gt = self._append_paired_view(batch, gt, indices)
+                    self._sync()
+                    pair_seconds = time.perf_counter() - t0
                 fake_r, fake_s = self._fakes()
                 alpha = self._alpha()
                 distil = (self.secondary_train_interval > 0
@@ -559,7 +644,8 @@ class IDRTrainRunner:
                 self.step_stats.append(dict(
                     iter=self.cur_iter, seconds=seconds, rays=int(batch["uv"].shape[:-1].numel()),
                     loss=float(loss_dict["loss"].detach()), secondary_seconds=sec_seconds,
-                    secondary_points=n_distilled))
+                    secondary_points=n_distilled, pairing_seconds=pair_seconds,
+                    view_diff_loss=float(loss_dict["view_diff_loss"].detach())))
                 self.cur_iter += 1
                 if prof is not None:
                     prof.step()
@@ -631,6 +717,9 @@ class IDRTrainRunner:
         item = dataset[img_idx]
         dataset.sampling_idx, dataset.sampling_rays = saved
         _, model_input, ground_truth = dataset.collate([item])
+        if "pose" not in model_input:
+            # --train_cameras renders at the dataset's pose, not the learned one
+            model_input["pose"] = dataset.pose_all[img_idx][None]
         total = dataset.total_pixels
         n_pix = min(utils.pixels_per_chunk(self.memory_capacity_level, 1), total)
         gen = torch.Generator(device=self.device).manual_seed(0)

@@ -6,9 +6,10 @@ paths, `<ckpt>/ModelParameters/<tag>.npz` with keys like
 `implicit_network/layers/0/v` and `__extra__/epoch`. Port parameters carry
 the same paths with dots (`implicit_network.layers.0.v`), so the mapping is
 a key rewrite. numpy alone reads and writes the files. A port training
-checkpoint adds the scheduler collections of the JAX layout and keeps the
-Adam states, which have no JAX layout, in its own `TorchOptimizerParameters`
-files.
+checkpoint adds the scheduler collections of the JAX layout, the learned
+camera poses of `--train_cameras` in its `CamParameters` collection (key
+`pose_vecs`), and keeps the Adam states, which have no JAX layout, in its own
+`TorchOptimizerParameters` files.
 
 The torch imports (`import_torch_implicit`, `import_torch_idr`) read the
 reference implementation's state dicts (`lin<i>.weight_g/weight_v/bias` or
@@ -29,6 +30,7 @@ from torch import nn
 MODEL = "ModelParameters"
 IDR_SCHED = "IDRSchedulerParameters"
 SG_SCHED = "SGSchedulerParameters"
+CAM = "CamParameters"
 TORCH_OPT = "TorchOptimizerParameters"
 
 
@@ -92,16 +94,21 @@ def restore_subtree(model: nn.Module, ckpt_dir: str, tag, subtree: str) -> nn.Mo
     return model
 
 
-def save_all(ckpt_dir: str, epoch: int, model: nn.Module, optimizers: Dict, cur_iter: int) -> None:
+def save_all(ckpt_dir: str, epoch: int, model: nn.Module, optimizers: Dict, cur_iter: int,
+             cam_params: Optional[torch.Tensor] = None) -> None:
     """Write a training checkpoint under the tags <epoch> and `latest`: the
-    parameters and the scheduler counters in the JAX package's layout (both
-    render CLIs and `load_collection` of either package read them), the
-    optimizer states (`{name: state}`) in the port's own TORCH_OPT file."""
+    parameters, the scheduler counters and the camera poses `cam_params`
+    (when given) in the JAX package's layout (both render CLIs and
+    `load_collection` of either package read them), the optimizer states
+    (`{name: state}`) in the port's own TORCH_OPT file."""
     params = params_to_jax(model)
     for tag in (str(epoch), "latest"):
         save_collection(ckpt_dir, MODEL, tag, params, {"epoch": epoch})
         for sched in (IDR_SCHED, SG_SCHED):
             save_collection(ckpt_dir, sched, tag, {}, {"epoch": epoch, "cur_iter": cur_iter})
+        if cam_params is not None:
+            save_collection(ckpt_dir, CAM, tag,
+                            {"pose_vecs": cam_params.detach().cpu().numpy()}, {"epoch": epoch})
         d = os.path.join(ckpt_dir, TORCH_OPT)
         os.makedirs(d, exist_ok=True)
         path = os.path.join(d, f"{tag}.pt")
@@ -110,10 +117,20 @@ def save_all(ckpt_dir: str, epoch: int, model: nn.Module, optimizers: Dict, cur_
         os.replace(path + ".tmp", path)
 
 
-def load_all(ckpt_dir: str, tag, model: nn.Module) -> Tuple[Dict, int, int]:
-    """Restore what save_all wrote into `model` -> (optimizer states, epoch, cur_iter)."""
+def load_all(ckpt_dir: str, tag, model: nn.Module,
+             cam_params: Optional[torch.Tensor] = None) -> Tuple[Dict, int, int]:
+    """Restore what save_all wrote into `model`, and into `cam_params` (when
+    given and the checkpoint has them) the camera poses -> (optimizer states,
+    epoch, cur_iter)."""
     flat, extra = load_collection(ckpt_dir, MODEL, tag)
     params_from_jax(model, flat)
+    if cam_params is not None and os.path.exists(os.path.join(ckpt_dir, CAM, f"{tag}.npz")):
+        poses = torch.from_numpy(load_collection(ckpt_dir, CAM, tag)[0]["pose_vecs"])
+        if poses.shape != cam_params.shape:
+            raise ValueError(f"shape mismatch for pose_vecs: ckpt {tuple(poses.shape)} vs "
+                             f"{tuple(cam_params.shape)}")
+        with torch.no_grad():
+            cam_params.copy_(poses)
     state = torch.load(os.path.join(ckpt_dir, TORCH_OPT, f"{tag}.pt"), map_location="cpu",
                        weights_only=True)
     return state["optimizers"], int(extra.get("epoch", state["epoch"])), int(state["cur_iter"])

@@ -280,11 +280,6 @@ def test_loss_term_matches_jax(loss_pair, term):
     assert _rel(tout[term], ref) <= LOSS_REL, (term, float(tout[term]), ref)
 
 
-def test_loss_view_diff_raises():
-    with pytest.raises(NotImplementedError, match="view-diff"):
-        IDRLoss(**dict(LOSS_CONF, view_diff_weight=0.1))
-
-
 def test_loss_all_reduce_sums_the_pairs():
     """A two-shard all-reduce over halves of a batch gives the whole batch's
     loss (what a multi-GPU run relies on)."""
@@ -659,16 +654,20 @@ def test_exp_runner_trains_unfrozen_geometry(trained, tmp_path):
                    if k.startswith(net + "/")), net
 
 
-@pytest.mark.parametrize("flag,match", [
-    pytest.param(["--freeze_geometry", "--train_cameras"], "train_cameras",
+@pytest.mark.parametrize("flag,error,match", [
+    # camera training is ported; with the view-diff loss it is refused, as in JAX
+    pytest.param(["--freeze_geometry", "--train_cameras"], ValueError, "mutually exclusive",
                  id="flag1-train_cameras"),
-    pytest.param(["--freeze_geometry", "--multihost"], "multi-process",
+    pytest.param(["--freeze_geometry", "--multihost"], NotImplementedError, "multi-process",
                  id="flag2-multi-process"),
 ])
-def test_exp_runner_refuses_what_is_not_ported(trained, flag, match):
+def test_exp_runner_refuses_what_is_not_ported(trained, flag, error, match):
     _, _, d = trained
-    with pytest.raises(NotImplementedError, match=match):
-        exp_runner.main(["--conf", str(d / "train.conf"), "--data_split_dir", str(d / "scene"),
+    conf = d / "view_diff.conf"
+    conf.write_text(TRAIN_CONF.replace("    loss_type = L1",
+                                       "    loss_type = L1\n    view_diff_weight = 0.1"))
+    with pytest.raises(error, match=match):
+        exp_runner.main(["--conf", str(conf), "--data_split_dir", str(d / "scene"),
                          "--exps_folder_name", str(d / "refused"), "--device", "cpu", *flag])
 
 
