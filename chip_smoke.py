@@ -17,14 +17,22 @@ Phases, each of which raises on failure (exit code != 0):
    the tensor-core one, and print the tensor-core kernels' TFLOP/s and the
    L2 weight bytes a call requests by their design (computed, not measured).
 4. trace-kernel: K3, the whole sphere trace (split fp16 on the tensor cores
-   over a pool of live rays), on 262,144 rays of one 512x512 view of the
-   seeded-init sphere (camera rays and random pixels in random order under
-   the primary tracer, the random pixels under the secondary tracer) against
-   its fp32 plain version (and its split-fp16 plain version, to tell the
-   scheme's error from the kernel's); the port's gathered tracer through K1
-   fp32 is timed beside them, and its count of the evaluations the rays need
-   gives K3's bounds and must match the kernel's count. Prints the tiles'
-   fill.
+   over a pool of live rays, its near rays traced again in fp32 through K1
+   fp32), on 262,144 rays of one 512x512 view of the seeded-init sphere
+   (camera rays and random pixels in random order under the primary tracer,
+   the random pixels under the secondary tracer): no ray's unfinished or hit
+   flag may differ from the K1-fp32 trace's (the re-trace's arithmetic);
+   against its fp32 plain version (cuBLAS) the ends within 1e-4, and the
+   flags that differ are printed beside those of the K1-fp32 trace against
+   it. The kernel alone (without the re-trace) agrees with the fp32 plain
+   version on 99.9% of the flags, its ends within 1e-4; at most 10% of the
+   rays are near, and at most 2 + 5% of the near flags differ from the
+   split-fp16 plain version's. Prints the near share, K3's time with and
+   without the re-trace, and the worst split-fp16 sdf error at the rays'
+   points, which NEAR_DELTA must cover twice over (also on the nets of
+   phases 12 and 13). The gathered tracer through K1 fp32 is timed beside
+   them, and its count of the evaluations the rays need gives K3's bounds
+   and must match the kernel's count. Prints the tiles' fill.
 5. reference: a 16x16-ray render of confs/conf.conf (trace switched to fp32)
    through the kernels on the card against the same render through the plain
    versions on the CPU, on what no Monte-Carlo sample touches (hit mask,
@@ -74,7 +82,8 @@ Phases, each of which raises on failure (exit code != 0):
    kernels' width 512 on the card): K1 and K2 on that packing against their
    plain versions, then a NeuS .pth imported with --geometry_neus and 2
    frozen steps with the workflow's flags through exp_runner.main. Checks
-   the imported weights, finite losses and launches of K1 bf16 and K2.
+   the imported weights, finite losses and launches of K1 bf16 and K2. K3
+   on the NeuS net as on the fitted net of phase 13 (_k3_on_net).
 13. geometry: Step 1, mesh export and LPIPS, which reach no kernel (plain
    fp32 cuBLAS). Builds the port's native runtime (g++, printed seconds);
    meshes the radius-0.5 sphere with get_surface_trace at resolution 256;
@@ -89,15 +98,15 @@ Phases, each of which raises on failure (exit code != 0):
    fitted SDF at radii 0.3 / 0.5 / 0.8; exports the high-res mesh at
    resolution 300 and checks its radius; loads the Step-1 checkpoint into
    Step 2 (exp_runner --geometry) and checks the implicit parameters; and
-   holds LPIPS-alex with seeded weights on the card against the CPU.
+   holds LPIPS-alex with seeded weights on the card against the CPU. K3
+   on the fitted net: the trace phase's camera and random rays, no flag
+   differing from the K1-fp32 trace's, at most 10% of them near, and the
+   worst split-fp16 sdf error at their points twice inside NEAR_DELTA.
 14. cameras-reference: the unfrozen-reference step with the pose a [1,7]
    quaternion + translation that trains: every loss term within rel 1e-5
-   and every group's gradient within a relative L2 of 2e-3 of the CPU's.
-   The pose gradient is held at 2e-3 against the CPU step run again on the
-   card's K3 decisions (_ReplayTraces). Against the CPU's own trace it is
-   printed: a ray that K3's split fp16 stops one sub-threshold step from
-   the fp32 trace moves its hit point by ~1e-5, and the ReLU radiance net's
-   gradient in the view direction jumps there (ROADMAP Queue 3).
+   and every group's gradient, the pose's included, within a relative L2 of
+   2e-3 of the CPU's own step. The CPU step run again on the card's K3
+   decisions (_ReplayTraces) is printed beside it.
 15. cameras: --freeze_geometry --train_cameras on confs/conf.conf at full
    width (2048 px x 64 rays, K1 bf16 trace), one epoch of the synthetic
    4-view 128x128 sphere whose poses are turned by 1 degree and moved by 1 cm.
@@ -114,10 +123,27 @@ Phases, each of which raises on failure (exit code != 0):
    frozen steps, then both 128x128 views at 16 rays through render.main.
    Checks finite outputs, one primary-trace ray a pixel (2048 a step, not
    2048 x 64) and launches of K1 bf16 and K2; prints s/step and s/view.
+18. multi-gpu: processes started with spawn, each joined within a time
+   limit. An NCCL world of 1 on cuda:0: a full-width frozen conf.conf step
+   (2048 px x 64 rays, K1 bf16 trace, K2 shading) and its distillation step
+   through IDRTrainRunner equal the same step without a process group bit
+   for bit (loss, gradients, updated parameters). 2 gloo ranks sharing
+   cuda:0 (NCCL refuses two ranks on one device), CUDA tensors in every
+   collective: the same step on their halves of the batch, with injected
+   directions and min-SDF vector, within loss rel 1e-5 and gradient rel L2
+   1e-4 of the one-process step, its secondary hits' masks equal and their
+   points and directions and the distilled batch within 1e-6 (MGPU_TOL), and
+   rank 0's hits bit for bit those of one process on rank 0's half of the
+   batch alone; 3 steps of exp_runner.main with distillation, after which both
+   ranks hold the same parameters bit for bit and only rank 0 wrote; a
+   128x128 render at 16 rays through RenderRunner within 1e-5 of the
+   one-process render. Prints s/step of 1 and 2 ranks (2 ranks share one
+   card: not a scaling figure) and each rank's peak memory. With 2 cards or
+   more, the 2-rank checks run again over NCCL on cuda:0 and cuda:1.
 
 The line before the last is the kernels' JSON record (launches from the
 frozen training run, and beside them those of the render, the references,
-the live-geometry paths, the NeuS run and phases 14-17); the last line is
+the live-geometry paths, the NeuS run and phases 14-18); the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
@@ -384,12 +410,24 @@ def phase_kernels():
 
 
 TRACE_RES = 512
-# K3 on the card against its plain version on the same rays, both fp32
-# accurate (the kernel in split fp16): they differ by summation order, which
-# the 5e-5 stop threshold can amplify into a flipped convergence (as REF_TOL
-# below), which moves a ray's unfinished or hit flag and its count of
-# evaluations
-TRACE_TOL = {"unfinished_agree": 0.999, "hit_agree": 0.999, "abs": 1e-4, "evals_rel": 0.01}
+# K3 on the card (split fp16, its near rays traced again in fp32 through K1
+# fp32) against the fp32 traces of the same rays: the gathered tracer on K1
+# fp32, whose arithmetic the re-trace shares, must decide every ray's
+# unfinished and hit flags as K3 does; the fp32 plain version (cuBLAS) sums
+# in another order, which moves ends by less than TRACE_TOL["abs"] and may
+# decide a stop test within fp32 rounding of the threshold otherwise, as it
+# does against the K1-fp32 trace itself (both counts printed). The kernel
+# alone (before the re-trace) against the fp32 plain version: 99.9% of the
+# rays' unfinished and of their hit flags agree, the ends within "abs". Its
+# near flags against the split-fp16 plain version's: at most 2 + 5% of the
+# near rays differ (a sum at the edge of NEAR_DELTA falls either side), and
+# at most 10% of the rays are near. Its own count of evaluations within 1%
+# of the plain version's live queries.
+TRACE_TOL = {"flags_differ": 0, "agree": 0.999, "abs": 1e-4, "evals_rel": 0.01,
+             "near_differ": (2, 0.05), "near_share": 0.10}
+# NEAR_DELTA must cover the worst |split fp16 sdf - fp32 sdf| seen here at
+# least this many times over
+NEAR_MARGIN = 2.0
 
 
 def _trace_rays(tracer, device):
@@ -436,23 +474,37 @@ def _conf_tracer(secondary=False):
     return RayTracer(**tc)
 
 
-def _trace_agreement(out, ref):
-    """(unfinished agreement, hit agreement, max abs distance error on the rays
-    that agree on both) of two traces' (acc_start, acc_end, unfinished)."""
-    from nefii_tpu_torch.ops.kernels.fused_trace import agreement
+def _split_sdf_error(fw, rays, ref):
+    """The worst |split fp16 sdf - fp32 sdf| (the plain versions of K3's chain
+    and of the fp32 chain) at the points where the rays' decisions fall: each
+    ray's first points (near, far), its fp32 trace's ends and their midpoint."""
+    import torch
 
-    unf, hit, err = agreement(out, ref)
-    n = out[0].shape[0]
-    return 1.0 - unf / n, 1.0 - hit / n, err
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+
+    cam, dirs, mi, near, far = rays
+    worst = 0.0
+    for t in (near, far, ref[0], ref[1], 0.5 * (ref[0] + ref[1])):
+        pts = (cam + t[:, None] * dirs)[mi]
+        for i in range(0, pts.shape[0], 65536):
+            p = pts[i:i + 65536]
+            err = (ft._sdf_plain(p, fw, split=True) - ft._sdf_plain(p, fw)).abs().max()
+            worst = max(worst, float(err))
+    return worst
 
 
 def phase_trace_kernel(card):
     """K3 at full width on N_POINTS rays: camera and random rays under the
-    primary tracer, random rays under the secondary tracer; against its fp32
-    plain version (the gate) and its split-fp16 plain version (the scheme's
-    own error beside the kernel's). The gathered tracer through K1 fp32 is
-    timed beside them; its count is the evaluations the rays need, which
-    gives K3's bounds and which the kernel's count must match."""
+    primary tracer, random rays under the secondary tracer; against the
+    K1-fp32 trace and its fp32 plain version, and its split-fp16 plain
+    version (the scheme's own error beside the kernel's), with and without
+    the fp32 re-trace of its near rays (their share, the flags against the
+    split plain version's, the time of both), within TRACE_TOL. The worst
+    split-fp16 sdf error at the rays' points must lie NEAR_MARGIN times
+    inside NEAR_DELTA. The
+    gathered tracer through K1 fp32 is timed beside them; its count is the
+    evaluations the rays need, which gives K3's bounds and which the kernel's
+    count must match."""
     import torch
 
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
@@ -468,26 +520,38 @@ def phase_trace_kernel(card):
     cases = (("camera", tracer, sets["camera"]), ("random", tracer, sets["random"]),
              ("random_secondary", secondary, sets["random"]))
     res = {}
+    worst_sdf = 0.0
     with torch.no_grad():
         for name, tr, rays in cases:
-            stats = {}
+            stats, raw_stats = {}, {}
             out = ft.fused_sphere_trace(*rays, fw, tr, stats=stats)
+            raw = ft._trace_kernel(*rays, fw, tr, stats=raw_stats)[:4]
             torch.cuda.synchronize()
             ref = ft.fused_sphere_trace_plain(*rays, fw, tr)
-            split = ft.fused_sphere_trace_plain(*rays, fw, tr, split=True)
-            unf_agree, hit_agree, err = _trace_agreement(out, ref)
-            sp_unf, sp_hit, sp_err = _trace_agreement(out, split)
-            sc_unf, sc_hit, sc_err = _trace_agreement(split, ref)
-            needed = int(tr._sphere_trace(sdf_k1, *rays)[3])
-            evals_rel = abs(out[3] - ref[3]) / ref[3]
-            needed_rel = abs(out[3] - needed) / needed
+            *split_raw, split_near = ft._trace_plain(*rays, fw, tr, split=True)
+            sdf_err = _split_sdf_error(fw, rays, ref)
+            worst_sdf = max(worst_sdf, sdf_err)
+            k1 = tr._sphere_trace(sdf_k1, *rays)
+            needed = int(k1[3])
+            k1_unf, k1_hit, k1_err = ft.agreement(out, k1)
+            unf_d, hit_d, err = ft.agreement(out, ref)
+            base_unf, base_hit, base_err = ft.agreement(k1, ref)
+            raw_unf, raw_hit, raw_err = ft.agreement(raw, ref)
+            sp_unf, sp_hit, sp_err = ft.agreement(raw, split_raw)
+            sc_unf, sc_hit, sc_err = ft.agreement(split_raw, ref)
+            n_near, n = stats["n_near"], rays[0].shape[0]
+            near_differ = int((stats["near"] != split_near).sum())
+            near_allowed = TRACE_TOL["near_differ"][0] + TRACE_TOL["near_differ"][1] * int(
+                split_near.sum())
+            evals_rel = abs(raw[3] - ref[3]) / ref[3]
+            needed_rel = abs(raw[3] - needed) / needed
             hits = float((out[0] < out[1]).float().mean())
             ms = _time(lambda: ft.fused_sphere_trace(*rays, fw, tr), reps=3)
+            raw_ms = _time(lambda: ft._trace_kernel(*rays, fw, tr), reps=3)
             plain_ms = _time(lambda: ft.fused_sphere_trace_plain(*rays, fw, tr), reps=1)
             gathered_ms = _time(lambda: tr._sphere_trace(sdf_k1, *rays), reps=1)
-            n = rays[0].shape[0]
-            rows = stats["tiles"] * fm.TC_BLOCK_ROWS
-            fill, waste = out[3] / rows, stats["empty_rows"] / rows
+            rows = raw_stats["tiles"] * fm.TC_BLOCK_ROWS
+            fill, waste = raw[3] / rows, raw_stats["empty_rows"] / rows
             # the work the rays need, three fp16 products a multiply-add on
             # the tensor cores (bf16's rate); the FP32 pipe's bound beside it
             rec_bytes = ft.forward_records(fw) * fm.SPLIT_REC * 2
@@ -496,30 +560,104 @@ def phase_trace_kernel(card):
             fp32 = _bound(needed * (hidden_flops + col_flops), nbytes, "fp32")
             # computed from the design, not measured: every tile requests every
             # forward record from L2
-            l2_bytes = stats["tiles"] * rec_bytes
+            l2_bytes = raw_stats["tiles"] * rec_bytes
             print(f"[trace-kernel] K3 {name} rays (sphere_tracing_iters {tr.sphere_tracing_iters}, "
-                  f"line_step_iters {tr.line_step_iters}): N={n} hit fraction {hits:.3f}; against "
-                  f"the fp32 plain version: unfinished agreement {unf_agree:.6f} hit agreement "
-                  f"{hit_agree:.6f} max_abs_err {err:.3e}; against the split-fp16 plain version: "
-                  f"{sp_unf:.6f} / {sp_hit:.6f} / {sp_err:.3e}; the split-fp16 scheme itself "
-                  f"against fp32: {sc_unf:.6f} / {sc_hit:.6f} / {sc_err:.3e}; evals kernel {out[3]} "
-                  f"({out[3] / n:.2f}/ray) plain {ref[3]} ({evals_rel:.2e} rel) needed {needed} "
-                  f"({needed / n:.2f}/ray, {needed_rel:.2e} rel); tiles {stats['tiles']}, fill "
-                  f"{fill:.4f}, empty rows {stats['empty_rows']} ({waste:.2%}); kernel {ms:.3f} ms "
-                  f"plain {plain_ms:.3f} ms gathered K1-fp32 tracer {gathered_ms:.3f} ms; bound "
+                  f"line_step_iters {tr.line_step_iters}): N={n} hit fraction {hits:.3f}; near rays "
+                  f"{n_near} ({n_near / n:.4%}; flags differing from the split plain version's "
+                  f"{near_differ}, at most {near_allowed:.0f}), re-traced in fp32 with {stats['retrace_evals']} evaluations; "
+                  f"rays whose unfinished / hit flag differs and max_abs_err: K3 against the "
+                  f"K1-fp32 trace {k1_unf} / {k1_hit} / {k1_err:.3e}; against the fp32 plain "
+                  f"version: K3 {unf_d} / {hit_d} / {err:.3e}, the K1-fp32 trace {base_unf} / "
+                  f"{base_hit} / {base_err:.3e}, the kernel alone (no re-trace) {raw_unf} / "
+                  f"{raw_hit} / {raw_err:.3e}; the kernel alone against the split-fp16 "
+                  f"plain version: {sp_unf} / {sp_hit} / {sp_err:.3e}; the split-fp16 scheme itself "
+                  f"against fp32: {sc_unf} / {sc_hit} / {sc_err:.3e}; worst |split fp16 sdf - fp32 "
+                  f"sdf| at the rays' points {sdf_err:.3e}; evals kernel {raw[3]} "
+                  f"({raw[3] / n:.2f}/ray) plain {ref[3]} ({evals_rel:.2e} rel) needed {needed} "
+                  f"({needed / n:.2f}/ray, {needed_rel:.2e} rel); tiles {raw_stats['tiles']}, fill "
+                  f"{fill:.4f}, empty rows {raw_stats['empty_rows']} ({waste:.2%}); K3 with the "
+                  f"re-trace {ms:.3f} ms, the kernel alone {raw_ms:.3f} ms, plain {plain_ms:.3f} "
+                  f"ms, gathered K1-fp32 tracer {gathered_ms:.3f} ms; bound "
                   f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, split fp16), FP32-pipe bound "
                   f"{fp32['bound_ms']:.3f} ms; L2 weight bytes requested, computed from the "
-                  f"design: {l2_bytes / 1e9:.3f} GB ({l2_bytes / ms / 1e9:.3f} TB/s) [{card}]",
+                  f"design: {l2_bytes / 1e9:.3f} GB ({l2_bytes / raw_ms / 1e9:.3f} TB/s) [{card}]",
                   flush=True)
-            if (unf_agree < TRACE_TOL["unfinished_agree"] or hit_agree < TRACE_TOL["hit_agree"]
-                    or not err <= TRACE_TOL["abs"] or evals_rel > TRACE_TOL["evals_rel"]
-                    or needed_rel > TRACE_TOL["evals_rel"]):
+            bad = ((out[2] != ref[2]) | ((out[0] < out[1]) != (ref[0] < ref[1])) |
+                   (out[2] != k1[2]) | ((out[0] < out[1]) != (k1[0] < k1[1]))).nonzero()
+            for i in bad[:8, 0].tolist():
+                print(f"[trace-kernel] {name} ray {i} differs: near {bool(stats['near'][i])}; "
+                      + "; ".join(f"{what} {float(t[0][i]):.7f} {float(t[1][i]):.7f} "
+                                  f"{bool(t[2][i])}" for what, t in (
+                                      ("kernel alone", raw), ("K3", out), ("K1-fp32 trace", k1),
+                                      ("fp32 plain", ref))), flush=True)
+            if (k1_unf + k1_hit > TRACE_TOL["flags_differ"] or not err <= TRACE_TOL["abs"]
+                    or not k1_err <= TRACE_TOL["abs"]
+                    or evals_rel > TRACE_TOL["evals_rel"] or needed_rel > TRACE_TOL["evals_rel"]):
                 raise RuntimeError(f"K3 disagrees with its plain version on the {name} rays")
-            res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, gathered_ms=gathered_ms,
-                             evals_executed=out[3], evals_needed=needed, evals_plain=ref[3],
-                             tiles=stats["tiles"], fill=fill, waste=waste, hit_fraction=hits,
-                             unfinished_agreement=unf_agree, hit_agreement=hit_agree,
-                             split_scheme_err=sc_err, err_vs_split_plain=sp_err, **bound)
+            if (max(raw_unf, raw_hit) > (1 - TRACE_TOL["agree"]) * n
+                    or not raw_err <= TRACE_TOL["abs"]):
+                raise RuntimeError(f"K3's kernel alone disagrees with the fp32 plain version on "
+                                   f"the {name} rays")
+            if near_differ > near_allowed or n_near > TRACE_TOL["near_share"] * n:
+                raise RuntimeError(f"K3 flags {n_near} of the {name} rays near, {near_differ} "
+                                   f"otherwise than the split plain version")
+            res[name] = dict(max_abs_err=err, ms=ms, kernel_alone_ms=raw_ms, plain_ms=plain_ms,
+                             gathered_ms=gathered_ms, evals_executed=raw[3], evals_needed=needed,
+                             evals_plain=ref[3], retrace_evals=stats["retrace_evals"],
+                             near_rays=n_near, near_share=n_near / n,
+                             near_flags_vs_split_plain=near_differ, tiles=raw_stats["tiles"],
+                             fill=fill, waste=waste, hit_fraction=hits,
+                             flags_differ_k1_fp32=k1_unf + k1_hit, flags_differ=unf_d + hit_d,
+                             k1_fp32_flags_differ=base_unf + base_hit,
+                             kernel_alone_flags_differ=raw_unf + raw_hit,
+                             kernel_alone_max_abs_err=raw_err, split_scheme_err=sc_err,
+                             err_vs_split_plain=sp_err, split_sdf_err=sdf_err, **bound)
+    print(f"[trace-kernel] worst |split fp16 sdf - fp32 sdf| over the three ray sets "
+          f"{worst_sdf:.3e}; NEAR_DELTA {ft.NEAR_DELTA:.3e} ({ft.NEAR_DELTA / worst_sdf:.2f} times "
+          f"it; at least {NEAR_MARGIN} required)", flush=True)
+    if ft.NEAR_DELTA < NEAR_MARGIN * worst_sdf:
+        raise RuntimeError("NEAR_DELTA does not cover the split fp16 sdf error")
+    res["worst_split_sdf_err"] = worst_sdf
+    return res
+
+
+def _k3_on_net(tag, net, card):
+    """K3 with its re-trace on a trained or other net than the trace phase's
+    seeded init: the camera and random rays of _trace_rays under the
+    primary tracer. No ray's flags may differ from the K1-fp32 trace's, at
+    most TRACE_TOL["near_share"] of the rays may be near, and the worst
+    split-fp16 sdf error at the rays' points must lie NEAR_MARGIN times
+    inside NEAR_DELTA. -> the figures."""
+    import torch
+
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+
+    tracer = _conf_tracer()
+    fw = fm.prepare_weights(net, torch.float32)
+    sdf_k1 = fm.build_fused_sdf(net, torch.float32)
+    res = {}
+    with torch.no_grad():
+        for name, rays in _trace_rays(tracer, torch.device("cuda", 0)).items():
+            stats = {}
+            out = ft.fused_sphere_trace(*rays, fw, tracer, stats=stats)
+            k1 = tracer._sphere_trace(sdf_k1, *rays)
+            unf, hit, err = ft.agreement(out, k1)
+            sdf_err = _split_sdf_error(fw, rays, k1)
+            n = rays[0].shape[0]
+            hits = float((out[0] < out[1]).float().mean())
+            print(f"[{tag}] K3 on {name} rays: N={n} hit fraction {hits:.3f}; near rays "
+                  f"{stats['n_near']} ({stats['n_near'] / n:.4%}); against the K1-fp32 trace "
+                  f"{unf} / {hit} rays whose unfinished / hit flag differs, max_abs_err "
+                  f"{err:.3e}; worst |split fp16 sdf - fp32 sdf| at the rays' points "
+                  f"{sdf_err:.3e}, NEAR_DELTA {ft.NEAR_DELTA / sdf_err:.2f} times it [{card}]",
+                  flush=True)
+            if (unf + hit > TRACE_TOL["flags_differ"] or not err <= TRACE_TOL["abs"]
+                    or stats["n_near"] > TRACE_TOL["near_share"] * n
+                    or ft.NEAR_DELTA < NEAR_MARGIN * sdf_err):
+                raise RuntimeError(f"[{tag}] K3 on this net fails the trace phase's gates")
+            res[name] = dict(near_share=stats["n_near"] / n, flags_differ_k1_fp32=unf + hit,
+                             max_abs_err_k1_fp32=err, split_sdf_err=sdf_err, hit_fraction=hits)
     return res
 
 
@@ -945,15 +1083,15 @@ def phase_train_reference(live=False, cameras=False):
                 for k in LOSS_TERMS}
     grad_rel = {k: float((g["grads"][k] - c["grads"][k]).norm() / c["grads"][k].norm())
                 for k in groups}
-    gated = dict(grad_rel)
+    replay_rel = None
     if cameras:
-        # the pose gradient against the CPU step that shades where the card's
-        # K3 decided (module docstring, phase 14); its own trace's gap is printed
+        # the pose gradient is gated against the CPU's own step; the CPU step
+        # that shades where the card's K3 decided is printed beside it
         r = res["replay"]["grads"]["pose"]
-        gated["pose"] = float((g["grads"]["pose"] - r).norm() / r.norm())
+        replay_rel = float((g["grads"]["pose"] - r).norm() / r.norm())
         print(f"{tag} pose gradient: card {g['grads']['pose'].tolist()}, CPU "
               f"{c['grads']['pose'].tolist()} (rel L2 {grad_rel['pose']:.3e}), CPU on the card's "
-              f"K3 decisions {r.tolist()} (rel L2 {gated['pose']:.3e})", flush=True)
+              f"K3 decisions {r.tolist()} (rel L2 {replay_rel:.3e})", flush=True)
         _pose_gap_ray(tag, g["dir_grads"], c["dir_grads"], traces.calls, cpu)
     mask_agree = float((g["mask"] == c["mask"]).float().mean())
     # the rays whose outputs differ by more than REF_TOL['abs'], by output
@@ -982,13 +1120,13 @@ def phase_train_reference(live=False, cameras=False):
         grad_gate = TRAIN_REF_TOL["grad_rel_l2"]
         if any(g["launches"][k] <= 0 for k in TRAIN_REF_KERNELS):
             raise RuntimeError(f"the card's training step missed a kernel: {g['launches']}")
-    bad = {k: v for k, v in gated.items() if not v <= grad_gate}
+    bad = {k: v for k, v in grad_rel.items() if not v <= grad_gate}
     if bad:
         raise RuntimeError(f"{tag} training gradients on the card disagree: {bad}")
     if any(n != 0 for n in c["launches"].values()):
         raise RuntimeError("the CPU step launched a kernel")
     return dict(loss_rel=loss_rel, term_rel=term_rel, grad_rel_l2=grad_rel,
-                pose_rel_l2_on_card_trace=gated.get("pose"), mask_agreement=mask_agree,
+                pose_rel_l2_on_card_trace=replay_rel, mask_agreement=mask_agree,
                 rays_that_differ=ray_diff,
                 trace_divergence=divergence, launches=g["launches"])
 
@@ -1620,6 +1758,7 @@ def phase_neus(card):
                                       ms=_time(lambda: fm.fused_sdf_value(x, fw), reps=10))
     print(f"[neus] 8x256 SDF net padded to width {fm.KERNEL_WIDTH}, N={N_POINTS}: {res} "
           f"[{card}]", flush=True)
+    res["k3"] = _k3_on_net("neus", imp, card)
 
     with tempfile.TemporaryDirectory() as d:
         conf_path = os.path.join(d, "conf_neus.conf")
@@ -1836,6 +1975,7 @@ def phase_geometry(card):
         if bad:
             raise RuntimeError(f"the fitted SDF misses the sphere: {bad}")
         summary["fit"] = fit
+        summary["k3"] = _k3_on_net("geometry", imp, card)
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1885,6 +2025,401 @@ def phase_geometry(card):
     return res
 
 
+MGPU_VIEWS = 3            # exp_runner: one epoch of 3 views, iterations 0-2
+MGPU_RES = 128
+MGPU_RENDER_RAYS = 16
+MGPU_HITS = 1024          # secondary_batch_size
+MGPU_TIMEOUT = 600        # seconds for all the ranks of a run
+MGPU_DEVICE = "cuda:0"    # every rank's device
+# 2 gloo ranks on cuda:0 against one process on the same card, the same
+# injected samples: the ranks' sums of (num, den) and gradients run in another
+# order than one process's (rel ~1e-7), and a rank's batch is half the rays
+MGPU_TOL = {"loss_rel": 1e-5, "grad_rel_l2": 1e-4, "render_abs": 1e-5, "hit_abs": 1e-6}
+# hit_abs: the secondary hits' masks are equal, and their points and
+# directions lie within 1e-6 of the one-process step's, the bracket of the
+# gathered tracer's bisection, which runs as many steps as the slowest ray of
+# its batch (ROADMAP Queue 3). The witness that the batch's size is the
+# cause: rank 0's hits equal bit for bit those of one process stepping on
+# rank 0's half of the batch alone.
+
+
+class _FixedMinSdfSteps:
+    """Give every training forward of the port the same min-SDF step vector
+    (each rank's generator would draw its own)."""
+
+    def __init__(self, steps01):
+        self.steps01 = steps01
+
+    def __enter__(self):
+        from nefii_tpu_torch.models.idr import IDRNetwork
+
+        self.real = real = IDRNetwork.forward_with_uv
+        steps01 = self.steps01
+
+        def fixed(model, inputs, gen, **kw):
+            if kw.get("training"):
+                kw.setdefault("steps01", steps01.to(inputs["uv"].device))
+            return real(model, inputs, gen, **kw)
+
+        IDRNetwork.forward_with_uv = fixed
+        return self
+
+    def __exit__(self, *exc):
+        from nefii_tpu_torch.models.idr import IDRNetwork
+
+        IDRNetwork.forward_with_uv = self.real
+
+
+def _mgpu_step(spec, tag, part=None):
+    """One full-width frozen step of the shipped conf (2048 px x 64 rays, K1
+    bf16 trace, K2 shading) on this rank's slice of view 0's epoch-0 sample
+    (or on slice `part` = (rank, world) of it in one process), and its
+    distillation step, through IDRTrainRunner: the loss terms, the
+    gradients, the pool gathered along the ray axis, the distilled batch
+    selected from it, the parameters after both updates, seconds and peak
+    memory."""
+    import torch
+
+    from nefii_tpu_torch.parallel import dist, spmd
+    from nefii_tpu_torch.training.trainer import POOL_KEYS, IDRTrainRunner, secondary_batch
+
+    dev = torch.device(spec["device"])
+    runner = IDRTrainRunner(conf=spec["conf"], data_split_dir=spec["scene"], freeze_geometry=True,
+                            geometry=spec["geometry"], secondary_batch_size=MGPU_HITS,
+                            exps_folder_name=os.path.join(spec["dir"], f"{tag}{dist.rank()}"),
+                            device=spec["device"])
+    runner._sample_pixels(0)
+    _, model_input, ground_truth = runner.train_dataset.collate([runner.train_dataset[0]])
+    part = part or (None, None)
+    batch = spmd.shard_batch(runner._device_inputs(model_input), *part)
+    gt = spmd.shard_batch({"rgb": torch.as_tensor(ground_truth["rgb"], device=dev)}, *part)
+    params = [p for g in runner.optimizers.values() for p in g.params]
+    names = {id(p): n for n, p in runner.model.named_parameters()}
+    runner._sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ld, out, finite = runner.train_step(batch, gt, False, False, runner._alpha(), distil=True)
+    runner._sync()
+    step_s = time.perf_counter() - t0
+    grads = {names[id(p)]: p.grad.detach().cpu().clone() for p in params}
+    pool = {k: dist.gather_along(out[k], 1) for k in POOL_KEYS}
+    pb, k, n_hit = secondary_batch(pool, MGPU_HITS, runner.num_rays, dist.process_count())
+    t1 = time.perf_counter()
+    distilled = runner._train_with_secondary(out, False, False)
+    runner._sync()
+    return dict(finite=finite, terms={t: float(v.detach()) for t, v in ld.items()}, grads=grads,
+                pool={t: v.cpu() for t, v in pool.items()}, hits=n_hit, k=k, distilled=distilled,
+                batch={t: v[:k].cpu() for t, v in pb.items()},
+                params={n: p.detach().cpu().clone() for n, p in runner.model.named_parameters()},
+                step_s=step_s, secondary_s=time.perf_counter() - t1,
+                peak=torch.cuda.max_memory_allocated(dev), rays=batch["uv"].shape[:-1].numel())
+
+
+def _mgpu_render(spec):
+    """View 0 at MGPU_RES^2 with MGPU_RENDER_RAYS rays a pixel through the
+    render CLI's RenderRunner (each rank its slice of every chunk)."""
+    import torch
+
+    from nefii_tpu_torch.scripts import render
+
+    argv = ["--conf", spec["conf"], "--data_split_dir", spec["scene"], "--old_expdir",
+            spec["render_exp"], "--num_rays", str(MGPU_RENDER_RAYS), "--max_views", "1",
+            "--out_dir", os.path.join(spec["dir"], "renders"), "--device", spec["device"]]
+    opt = render.add_argument(__import__("argparse").ArgumentParser()).parse_args(argv)
+    runner = render.RenderRunner(**vars(opt))
+    t0 = time.perf_counter()
+    out = runner.render_view(0)
+    return dict(out={k: out[k] for k in ("sg_rgb_values", "idr_rgb_values", "normal_values",
+                                         "network_object_mask")},
+                seconds=time.perf_counter() - t0)
+
+
+def _mgpu_cli(spec, exps):
+    """MGPU_VIEWS steps of exp_runner.main with distillation after each: the
+    parameters, the step records, the run directory and the peak memory."""
+    import torch
+
+    from nefii_tpu_torch.training import exp_runner
+    from nefii_tpu_torch.utils import checkpoints as ckpt
+
+    dev = torch.device(spec["device"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    runner = exp_runner.main(spec["cli_argv"] + ["--device", spec["device"], "--exps_folder_name",
+                                                 os.path.join(spec["dir"], exps)])
+    return dict(params=ckpt.params_to_jax(runner.model), stats=runner.step_stats,
+                rundir=runner.rundir, peak=torch.cuda.max_memory_allocated(dev))
+
+
+def _mgpu_worker(rank, world, store, spec, out_path):
+    """A rank of the multi-gpu phase, started with spawn. World 1: the step
+    without a process group, then over an NCCL group of one on cuda:0, then
+    the one-process render. World 2 (spec["backend"]: gloo on cuda:0, or
+    NCCL with rank r on cuda:r): the step, 3 steps of exp_runner.main with
+    distillation, the render. The launches of the kernels over the whole
+    run."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as tdist
+
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores (torchrun's one thread a rank would
+    # starve the host code of a one-process run)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    os.environ["LOCAL_RANK"] = str(rank)
+    res = {}
+    fm.reset_launch_counts()
+    ft.reset_launch_counts()
+    try:
+        with _InjectedDirections(), _FixedMinSdfSteps(spec["steps01"]):
+            if world == 1:
+                res["plain"] = _mgpu_step(spec, "plain")
+                res["half"] = _mgpu_step(spec, "half", part=(0, 2))
+                dev = torch.device(spec["device"])
+                tdist.init_process_group("nccl", init_method=f"file://{store}", world_size=1,
+                                         rank=0, device_id=dev)
+                dist.warmup(dev)
+                res["backend"] = tdist.get_backend()
+                res["nccl"] = _mgpu_step(spec, "nccl")
+                res["cli"] = _mgpu_cli(spec, "cli_one")
+                res["render"] = _mgpu_render(spec)
+            else:
+                if spec["backend"] == "nccl":
+                    spec = dict(spec, device=f"cuda:{rank}")
+                dist.initialize(num_processes=world, process_id=rank, device=spec["device"],
+                                backend=spec["backend"], init_method=f"file://{store}")
+                res["backend"] = tdist.get_backend()
+                res["step"] = _mgpu_step(spec, f"step_{spec['backend']}")
+                res["cli"] = _mgpu_cli(spec, f"cli_{spec['backend']}{rank}")
+                res["render"] = _mgpu_render(spec)
+        res["launches"] = {**fm.LAUNCHES, **ft.LAUNCHES}
+    finally:
+        dist.shutdown()
+    torch.save(res, out_path)
+
+
+def _mgpu_run(world, spec, d):
+    """Spawn the `world` ranks of _mgpu_worker, join them within
+    MGPU_TIMEOUT seconds (or kill them), fail unless each exited 0; -> each
+    rank's results."""
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    tag = f"{world}{spec['backend']}"
+    store = os.path.join(d, f"store{tag}")
+    outs = [os.path.join(d, f"world{tag}_rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=_mgpu_worker, args=(r, world, store, spec, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MGPU_TIMEOUT
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise RuntimeError(f"[multi-gpu] the ranks of world {world} exited with {codes}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def _check_two_ranks(one, two, d, backend, card):
+    """Hold 2 ranks' results (over `backend`) against the one-process run on
+    the card: the step within MGPU_TOL, its secondary hits and distilled
+    batch; exp_runner's parameters equal on both ranks and rank 0 alone
+    wrote; the render within MGPU_TOL['render_abs']. Prints s/step and peak
+    memory of 1 and 2 ranks. -> the figures."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.utils import checkpoints as ckpt
+
+    where = f"on {MGPU_DEVICE}" if backend == "gloo" else "on cuda:0 and cuda:1"
+    ref = one["plain"]
+    report = {}
+    for r, res in enumerate(two):
+        st = res["step"]
+        loss_rel = abs(st["terms"]["loss"] - ref["terms"]["loss"]) / abs(ref["terms"]["loss"])
+        grad_rel = {}
+        for g in ("rendering_network", "envmap_material_network"):
+            a = torch.cat([st["grads"][k].reshape(-1) for k in sorted(st["grads"])
+                           if k.startswith(g + ".")])
+            b = torch.cat([ref["grads"][k].reshape(-1) for k in sorted(ref["grads"])
+                           if k.startswith(g + ".")])
+            grad_rel[g] = _rel_l2(a, b)
+        # the hits: the mask equal, the hit points and every direction
+        # within MGPU_TOL["hit_abs"] (the points of the rays that hit
+        # nothing are never distilled)
+        hit = ref["pool"]["secondary_mask"][..., 0]
+        hit_err = max(float((st["pool"]["secondary_points"][hit]
+                             - ref["pool"]["secondary_points"][hit]).abs().max()),
+                      float((st["pool"]["secondary_dir"]
+                             - ref["pool"]["secondary_dir"]).abs().max()))
+        pool_same = (torch.equal(st["pool"]["secondary_mask"], ref["pool"]["secondary_mask"])
+                     and hit_err <= MGPU_TOL["hit_abs"])
+        pool_exact = pool_same and hit_err == 0.0
+        if r == 0:
+            # the witness: the same rays in a batch of the same size
+            half, n = one["half"]["pool"], st["pool"]["secondary_mask"].shape[1] // 2
+            strategies = st["pool"]["secondary_mask"].shape[0]
+            witness = all(torch.equal(st["pool"][k][:, :n], half[k][:strategies])
+                          for k in st["pool"])
+        batch_err = max(float((st["batch"][k] - ref["batch"][k]).abs().max())
+                        for k in ref["batch"])
+        batch_same = st["k"] == ref["k"] and batch_err <= MGPU_TOL["hit_abs"]
+        report[r] = dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, pool_hits_equal=pool_same,
+                         pool_bit_for_bit=pool_exact, hit_point_err=hit_err,
+                         pool_equals_half_batch=witness,
+                         distilled_equal=batch_same, distilled_point_err=batch_err,
+                         first_step_s=st["step_s"], peak=st["peak"])
+        print(f"[multi-gpu] 2 ranks over {res['backend']} {where}, rank {r}: {st['rays']} "
+              f"rays, loss rel {loss_rel:.3e}, grad rel L2 {grad_rel}, secondary hits: masks "
+              f"equal, points and directions within {hit_err:.3e} ({st['hits']} hits; bit for "
+              f"bit: {pool_exact}; rank 0's bit for bit one process's on rank 0's half: "
+              f"{witness}), distilled batch equal {batch_same} ({st['k']} hits, "
+              f"within {batch_err:.3e}); the first step (with its warm-up) "
+              f"{st['step_s']:.3f} s, peak {st['peak'] / 2**30:.3f} GiB [{card}]", flush=True)
+        if not (loss_rel <= MGPU_TOL["loss_rel"]
+                and all(v <= MGPU_TOL["grad_rel_l2"] for v in grad_rel.values())
+                and pool_same and witness and batch_same
+                and st["distilled"] == ref["distilled"]):
+            raise RuntimeError(f"[multi-gpu] rank {r}'s step disagrees with one process")
+
+    # exp_runner: the same parameters on both ranks, rank 0 alone wrote;
+    # s/step of the steps after the first, 1 and 2 ranks
+    cli = [res["cli"] for res in two]
+
+    def steady(c):
+        return float(np.mean([s["seconds"] for s in c["stats"][1:]]))
+
+    s1, s2 = steady(one["cli"]), [steady(c) for c in cli]
+    print(f"[multi-gpu] exp_runner {MGPU_VIEWS} steps of 2048 px x 64 rays with "
+          f"distillation, s/step after the first: 1 rank {s1:.3f}, 2 ranks over {backend} "
+          f"{where} {s2[0]:.3f} / {s2[1]:.3f}; peak memory 1 rank "
+          f"{one['cli']['peak'] / 2**30:.3f} GiB, 2 ranks {cli[0]['peak'] / 2**30:.3f} / "
+          f"{cli[1]['peak'] / 2**30:.3f} GiB [{card}]", flush=True)
+    equal = all(np.array_equal(cli[0]["params"][k], cli[1]["params"][k])
+                for k in cli[0]["params"])
+    wrote = [os.path.exists(os.path.join(d, f"cli_{backend}{r}")) for r in range(2)]
+    trained = ckpt.load_collection(os.path.join(cli[0]["rundir"], "checkpoints"),
+                                   ckpt.MODEL, "latest")[0]
+    saved = all(np.array_equal(trained[k], cli[0]["params"][k]) for k in trained)
+    steps = [s["iter"] for s in cli[0]["stats"]]
+    print(f"[multi-gpu] exp_runner on 2 ranks over {backend}: iterations {steps}, "
+          f"{[round(s['seconds'], 3) for s in cli[0]['stats']]} s/step, distilled "
+          f"{[s['secondary_points'] for s in cli[0]['stats']]} hits; parameters bit for bit "
+          f"equal on both ranks: {equal}; run directories written by rank 0 / rank 1: "
+          f"{wrote}; rank 0's checkpoint holds its parameters: {saved} [{card}]", flush=True)
+    if not (equal and wrote == [True, False] and saved and steps == [0, 1, 2]
+            and all(s["secondary_points"] > 0 for s in cli[0]["stats"])):
+        raise RuntimeError("[multi-gpu] the 2-rank exp_runner run failed its checks")
+
+    # the render
+    render_err = max(float(np.abs(two[r]["render"]["out"][k].astype(np.float64)
+                                  - one["render"]["out"][k]).max())
+                     for r in range(2) for k in one["render"]["out"])
+    print(f"[multi-gpu] {MGPU_RES}^2 render at {MGPU_RENDER_RAYS} rays: 2 ranks over {backend} "
+          f"{two[0]['render']['seconds']:.3f} / {two[1]['render']['seconds']:.3f} s, one "
+          f"process {one['render']['seconds']:.3f} s; largest difference {render_err:.3e} "
+          f"[{card}]", flush=True)
+    if not render_err <= MGPU_TOL["render_abs"]:
+        raise RuntimeError("[multi-gpu] the 2-rank render differs from one process's")
+    return dict(s_per_step_1=s1, s_per_step_2=s2, peak_1=one["cli"]["peak"],
+                peak_2=[c["peak"] for c in cli], ranks=report, render_max_abs=render_err,
+                cli_params_equal=equal)
+
+
+def phase_multi_gpu(card):
+    """Multi-process training and rendering on the one card: (1) an NCCL
+    world of 1 on cuda:0, whose full-width frozen step and distillation
+    equal the step without a process group bit for bit; (2) 2 gloo ranks
+    with CUDA tensors on cuda:0 (NCCL refuses two ranks on one device): the
+    same step within MGPU_TOL of the one-process step, its pool and distilled
+    batch equal; 3 steps of exp_runner.main with distillation, after which
+    both ranks hold the same parameters and only rank 0 wrote; a 128^2
+    16-ray render within MGPU_TOL['render_abs'] of the one-process render.
+    Prints s/step of 1 and 2 ranks (2 ranks share one card: not a scaling
+    figure) and each rank's peak memory. Where the machine has 2 cards or
+    more, the same 2-rank checks run again over NCCL, rank r on cuda:r."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.config import parse_string
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+    from nefii_tpu_torch.models.idr import IDRNetwork
+    from nefii_tpu_torch.utils import checkpoints as ckpt
+
+    text = _conf_text(NO_VIS)
+    with tempfile.TemporaryDirectory() as d:
+        conf_path = os.path.join(d, "train.conf")
+        with open(conf_path, "w") as f:
+            f.write(text)
+        scene = write_sphere_scene(os.path.join(d, "scene"), MGPU_VIEWS, MGPU_RES)
+        mconf = parse_string(text).get_config("model")
+        model = IDRNetwork.from_conf(mconf, device=MGPU_DEVICE, seed=0)
+        params = ckpt.params_to_jax(model)
+        del model
+        geo = os.path.join(d, "geometry", "checkpoints")
+        ckpt.save_collection(geo, ckpt.MODEL, "latest", params, {"epoch": 0})
+        render_exp = os.path.join(d, "render_exp")
+        ckpt.save_collection(os.path.join(render_exp, "seed0", "checkpoints"), ckpt.MODEL,
+                             "latest", params, {"epoch": 0})
+        n_steps = mconf.get_config("ray_tracer").get_int("n_steps")
+        spec = dict(dir=d, conf=conf_path, scene=scene, geometry=geo, render_exp=render_exp,
+                    steps01=torch.from_numpy(
+                        np.random.default_rng(5).random(n_steps).astype(np.float32)),
+                    cli_argv=["--conf", conf_path, "--data_split_dir", scene,
+                              "--freeze_geometry", "--geometry", geo, "--roughness_warmup", "2",
+                              "--secondary_train_interval", "1", "--secondary_batch_size",
+                              str(MGPU_HITS), "--max_niter", str(MGPU_VIEWS - 1)],
+                    device=MGPU_DEVICE, backend="gloo")
+        t0 = time.perf_counter()
+        (one,) = _mgpu_run(1, spec, d)
+        t1 = time.perf_counter()
+        two = _mgpu_run(2, spec, d)
+        t2 = time.perf_counter()
+
+        # (1) an NCCL world of 1: bit for bit the step without a group
+        plain, nccl = one["plain"], one["nccl"]
+        same = (plain["terms"] == nccl["terms"]
+                and all(torch.equal(plain["grads"][k], nccl["grads"][k]) for k in plain["grads"])
+                and all(torch.equal(plain["params"][k], nccl["params"][k])
+                        for k in plain["params"]))
+        print(f"[multi-gpu] world of 1 over {one['backend']} on {MGPU_DEVICE}: loss "
+              f"{nccl['terms']['loss']:.6f}, the step without a process group "
+              f"{plain['terms']['loss']:.6f}; loss, gradients and updated parameters bit for bit "
+              f"equal: {same}; {nccl['rays']} rays, {nccl['step_s']:.3f} s (the first step, "
+              f"without a group, {plain['step_s']:.3f} s), distillation "
+              f"{nccl['secondary_s']:.3f} s ({nccl['distilled']} hits) [{card}]", flush=True)
+        if not same or not nccl["finite"] or nccl["distilled"] <= 0:
+            raise RuntimeError("[multi-gpu] the NCCL world of 1 differs from the plain step")
+
+        # (2) 2 gloo ranks sharing the card, and 2 NCCL ranks where there are 2 cards
+        report = _check_two_ranks(one, two, d, "gloo", card)
+        launches = {k: one["launches"][k] + sum(res["launches"][k] for res in two)
+                    for k in one["launches"]}
+        print(f"[multi-gpu] runs of world 1 / 2: {t1 - t0:.1f} / {t2 - t1:.1f} s; launches "
+              f"{launches} [{card}]", flush=True)
+        for name in ("fused_sdf_value", "fused_sdf_fwd_bwd"):
+            if launches[name] <= 0:
+                raise RuntimeError(f"[multi-gpu] the ranks did not launch kernel {name}")
+        if torch.cuda.device_count() >= 2:
+            report["nccl_2_cards"] = _check_two_ranks(
+                one, _mgpu_run(2, dict(spec, backend="nccl"), d), d, "nccl", card)
+    return dict(nccl_world1_bit_for_bit=same, **report, launches=launches)
+
+
 def main():
     import torch
 
@@ -1908,11 +2443,13 @@ def main():
     cameras = phase_cameras(card)
     view_diff = phase_view_diff(card)
     fast = phase_fast_multi_ray(card)
+    mgpu = phase_multi_gpu(card)
     print(json.dumps({"render": stats, "reference": ref, "train_reference": train_ref,
                       "unfrozen_reference": unfrozen_ref, "train": train, "physg": physg,
                       "unfrozen": unfrozen, "neus": neus, "trace_kernel": trace,
                       "geometry": geometry, "cameras_reference": cameras_ref,
                       "cameras": cameras, "view_diff": view_diff, "fast_multi_ray": fast,
+                      "multi_gpu": {k: v for k, v in mgpu.items() if k != "launches"},
                       "card": card}), flush=True)
     src = "nefii_tpu_torch/ops/kernels/csrc/fused_mlp.cu"
     tc_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_tc.cuh"
@@ -1932,7 +2469,8 @@ def main():
             "cameras_launches": cameras.pop("launches"),
             "view_diff_launches": view_diff.pop("launches"),
             "fast_multi_ray_launches": fast.pop("launches"),
-            "fast_multi_ray_render_launches": fast.pop("render_launches")}
+            "fast_multi_ray_render_launches": fast.pop("render_launches"),
+            "multi_gpu_launches": mgpu["launches"]}
 
     def paths(name):
         return {k: v[name] for k, v in live.items()}
@@ -1967,9 +2505,10 @@ def main():
              design="split fp16 (hi.hi + lo.hi + hi.lo, weights scaled by 2^s per layer) on "
                     "wgmma m64n256k16 over a refilled pool of 32 live rays a block, bulk-copy "
                     "weight ring", library_ms=None,
-             **{k: trace["camera"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                "bound_by", "fill", "waste", "evals_needed",
-                                                "evals_executed")},
+             **{k: trace["camera"][k] for k in ("max_abs_err", "ms", "kernel_alone_ms",
+                                                "plain_ms", "bound_ms", "bound_by", "fill",
+                                                "waste", "evals_needed", "evals_executed",
+                                                "near_share", "retrace_evals")},
              random_rays=trace["random"], random_rays_secondary_conf=trace["random_secondary"]),
     ]
     print(json.dumps({"kernels": records}), flush=True)

@@ -62,7 +62,7 @@ as it recomputes any other.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -273,7 +273,8 @@ class IDRNetwork(nn.Module):
                         training: bool = False, freeze_geo: bool = False,
                         fake_roughness: bool = False, fake_specular: bool = False,
                         steps01: Optional[torch.Tensor] = None,
-                        secondary_limit: int = 0, remat: bool = False):
+                        secondary_limit: int = 0, remat: bool = False,
+                        all_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         """Render the rays of `inputs` (uv [B,S,2] or multi-ray [B,S,R,2],
         pose [B,4,4] or [B,7], intrinsics, object_mask). Without `training`
         no graph is kept. With `fast_multi_ray` a multi-ray batch traces the
@@ -293,15 +294,18 @@ class IDRNetwork(nn.Module):
         `secondary_mask`, `secondary_dir`) of the first S' strategies, equal
         to the JAX pipeline's: S' is the fewest strategies whose hits reach
         the limit, or every strategy (a limit of S * N or more gives the
-        whole pool)."""
+        whole pool). In a multi-process run `inputs` is this rank's slice
+        of the batch and `all_reduce` sums a tensor over the ranks: each
+        strategy's hit count is summed, so that every rank keeps the
+        strategies the whole batch's first `secondary_limit` hits need."""
         self._render_spec()
         with torch.set_grad_enabled(training and torch.is_grad_enabled()):
             return self._forward_with_uv(inputs, gen, training, training and not freeze_geo,
                                          fake_roughness, fake_specular, steps01,
-                                         secondary_limit, remat)
+                                         secondary_limit, remat, all_reduce)
 
     def _forward_with_uv(self, inputs, gen, training, live, fake_roughness, fake_specular,
-                         steps01, secondary_limit, remat):
+                         steps01, secondary_limit, remat, all_reduce):
         intrinsics, uv, pose = inputs["intrinsics"], inputs["uv"], inputs["pose"]
         object_mask = inputs["object_mask"].reshape(-1)
         multi_ray = uv.dim() == 4
@@ -435,7 +439,7 @@ class IDRNetwork(nn.Module):
                 with torch.no_grad(), record_function("secondary_pool"):
                     pool, n_evals = self._secondary_pool(
                         ret, pool_sel, pool_pts, pool_view, gen, sdf_fn, self._sfg_closure(),
-                        secondary_limit,
+                        secondary_limit, all_reduce=all_reduce,
                         fake_roughness=fake_roughness, fake_specular=fake_specular)
                 output.update(pool)
                 output["n_sdf_evals"] = output["n_sdf_evals"] + n_evals
@@ -456,7 +460,7 @@ class IDRNetwork(nn.Module):
 
     # ------------------------------------------------------------------
     def _secondary_pool(self, ret, sel, points, view_dirs, gen, sdf_fn, sfg_fn, limit, *,
-                        fake_roughness, fake_specular):
+                        fake_roughness, fake_specular, all_reduce=None):
         """The secondary hits of every ray, [S', N, ...] in the JAX pipeline's
         [strategy, ray] order, and the SDF evaluations it ran: the shaded
         rays' from their shading (`ret`); for the rays that missed, what the
@@ -465,7 +469,10 @@ class IDRNetwork(nn.Module):
         it, each strategy's directions and the secondary trace -- strategy by
         strategy until the hits reach `limit`. They need no visibility or
         indirect radiance: their colours are defaults. The hit counts stay on
-        the device: one read a strategy decides whether to go on."""
+        the device: one read a strategy decides whether to go on. With
+        `all_reduce` (a multi-process run) each strategy's count is summed
+        over the ranks once it is complete, one scalar a strategy, and every
+        rank runs the loop, its missed rays or none."""
         N = points.shape[0]
         S = ret["secondary_mask"].shape[0]
         pool = {}
@@ -479,27 +486,31 @@ class IDRNetwork(nn.Module):
         miss = miss.nonzero()[:, 0]
         hits = pool["secondary_mask"].reshape(S, N).sum(1)
         n_evals = 0
-        if miss.numel():
-            pts = points[miss].detach()
-            feats, normals, view = self._surface(pts, view_dirs[miss], sfg_fn)
-            n_evals += pts.shape[0]
-            em = self.envmap_material_network
-            lgt, rough = em.get_lgtSGs(), None
-            trace = self.scene_fns(sdf_fn, sfg_fn).trace
+        if miss.numel() or all_reduce is not None:
+            if miss.numel():
+                pts = points[miss].detach()
+                feats, normals, view = self._surface(pts, view_dirs[miss], sfg_fn)
+                n_evals += pts.shape[0]
+                em = self.envmap_material_network
+                lgt, rough = em.get_lgtSGs(), None
+                trace = self.scene_fns(sdf_fn, sfg_fn).trace
             for s, name in enumerate(self._render_spec()["strategies"]):
                 if s > 0 and int(hits[:s].sum()) >= limit:
                     break
-                if name == "brdf" and rough is None:
-                    rough = em(pts, feats, normals, fake_roughness=fake_roughness,
-                               fake_specular=fake_specular)["sg_roughness"]
-                    rough = rough.expand(pts.shape[0], 1) if rough.shape[0] == 1 else rough
-                wi, _ = ptr.sample_direction(name, gen, normals, view, rough, lgt)
-                lp, hm, ne = trace(pts, wi)
-                n_evals += ne
-                pool["secondary_points"][s, miss] = lp
-                pool["secondary_mask"][s, miss, 0] = hm
-                pool["secondary_dir"][s, miss] = wi
-                hits[s] += hm.sum()
+                if miss.numel():
+                    if name == "brdf" and rough is None:
+                        rough = em(pts, feats, normals, fake_roughness=fake_roughness,
+                                   fake_specular=fake_specular)["sg_roughness"]
+                        rough = rough.expand(pts.shape[0], 1) if rough.shape[0] == 1 else rough
+                    wi, _ = ptr.sample_direction(name, gen, normals, view, rough, lgt)
+                    lp, hm, ne = trace(pts, wi)
+                    n_evals += ne
+                    pool["secondary_points"][s, miss] = lp
+                    pool["secondary_mask"][s, miss, 0] = hm
+                    pool["secondary_dir"][s, miss] = wi
+                    hits[s] += hm.sum()
+                if all_reduce is not None:
+                    hits[s] = all_reduce(hits[s:s + 1])[0]
         # the strategies before the one whose hits reach the limit, and that one
         keep = min(S, int((hits.cumsum(0) < limit).sum()) + 1)
         return {k: v[:keep] for k, v in pool.items()}, n_evals

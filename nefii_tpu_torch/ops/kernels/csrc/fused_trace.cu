@@ -70,6 +70,16 @@
 // Points and steps use explicitly rounded adds and multiplies (no FMA
 // contraction), so they round as the plain PyTorch version does; the
 // encoding uses sinf/cosf, not the fast intrinsics.
+//
+// Near decisions. Split fp16 holds the sdf close to fp32's, not to the bit:
+// a stop test (sdf <= threshold) or a line-search sign test (sdf < 0) on a
+// value that close to its threshold can go the other way, and the ray then
+// ends a sub-threshold step from where the fp32 trace ends; the ends' sums of
+// those values can likewise cross (acc_s < acc_e) on one side only. A
+// decision whose values lie within delta of its threshold (of each other, for
+// the crossing) marks the ray near (near_ray, and
+// the count in counters[3]); the wrapper re-traces the near rays in fp32 (K1
+// fp32 under the gathered tracer) and keeps that trace for them.
 
 #include "sdf_mlp_split.cuh"
 
@@ -90,6 +100,7 @@ enum : int { PH_INIT = 0, PH_STEP = 1, PH_LS = 2 };  // what the pending queries
 
 struct TraceCfg {
   float thresh;     // sdf_threshold
+  float delta;      // a decision on an sdf within delta of what it is compared with is near
   float ls_factor;  // 1 - line_search_step; line-search step j scales it by 2^-j
   int ls_iters;     // line_step_iters
   int trace_iters;  // sphere_tracing_iters
@@ -107,6 +118,8 @@ struct Rays {
   float* acc_s;  // out [n]
   float* acc_e;
   uint8_t* unf;
+  uint8_t* near_ray;            // out [n]: a decision of the ray's trace was near
+  unsigned long long* n_near;  // out: the rays with a near decision
   long long n;
 };
 
@@ -118,11 +131,18 @@ struct Slot {
   int ray;             // >= 0, SLOT_EMPTY or SLOT_DRY
   int it, j, phase;    // trace iteration, line-search step, PH_*
   int unf_s, unf_e;
+  int near;            // a decision so far was near (TraceCfg::delta)
   int q_s, q_e;        // queries pending: the start point, the end point
   int row_s, row_e;    // their rows in the tile
 };
 
-__device__ __forceinline__ void head(Slot& s, float thresh) {
+// a stop test of a live end whose sdf lies within cfg.delta of the threshold
+// is near: split fp16 may decide it otherwise than fp32
+__device__ __forceinline__ void head(Slot& s, const TraceCfg& cfg) {
+  const float thresh = cfg.thresh;
+  if ((s.unf_s && fabsf(__fsub_rn(s.next_s, thresh)) <= cfg.delta) ||
+      (s.unf_e && fabsf(__fsub_rn(s.next_e, thresh)) <= cfg.delta))
+    s.near = 1;
   s.curr_s = s.unf_s ? s.next_s : 0.0f;
   if (s.curr_s <= thresh) s.curr_s = 0.0f;
   s.curr_e = s.unf_e ? s.next_e : 0.0f;
@@ -135,6 +155,8 @@ __device__ __forceinline__ void retire(Slot& s, const Rays& R) {
   R.acc_s[s.ray] = s.acc_s;
   R.acc_e[s.ray] = s.acc_e;
   R.unf[s.ray] = s.unf_s ? 1 : 0;
+  R.near_ray[s.ray] = s.near ? 1 : 0;
+  if (s.near) atomicAdd(R.n_near, 1ull);
   s.ray = SLOT_EMPTY;
   s.q_s = s.q_e = 0;
 }
@@ -144,7 +166,7 @@ __device__ void advance(Slot& s, float sd_s, float sd_e, const TraceCfg& cfg, co
   if (s.phase == PH_INIT) {
     s.next_s = sd_s;
     s.next_e = sd_e;
-    head(s, cfg.thresh);
+    head(s, cfg);
     s.it = 0;
   } else {
     if (s.phase == PH_STEP) {
@@ -156,7 +178,11 @@ __device__ void advance(Slot& s, float sd_s, float sd_e, const TraceCfg& cfg, co
       if (s.q_e) s.next_e = sd_e;
       ++s.j;
     }
-    // back-step line search for an end that crossed the surface
+    // back-step line search for an end that crossed the surface; the sign
+    // test of an end just evaluated is near within cfg.delta of 0
+    if (s.j < cfg.ls_iters && ((s.q_s && fabsf(s.next_s) <= cfg.delta) ||
+                               (s.q_e && fabsf(s.next_e) <= cfg.delta)))
+      s.near = 1;
     if (s.j < cfg.ls_iters && (s.next_s < 0.0f || s.next_e < 0.0f)) {
       s.q_s = s.next_s < 0.0f;
       s.q_e = s.next_e < 0.0f;
@@ -166,10 +192,12 @@ __device__ void advance(Slot& s, float sd_s, float sd_e, const TraceCfg& cfg, co
       s.phase = PH_LS;
       return;
     }
+    // the crossing test of live ends within cfg.delta of each other is near
+    if ((s.unf_s || s.unf_e) && fabsf(__fsub_rn(s.acc_e, s.acc_s)) <= cfg.delta) s.near = 1;
     const bool not_crossed = s.acc_s < s.acc_e;
     s.unf_s = s.unf_s && not_crossed;
     s.unf_e = s.unf_e && not_crossed;
-    head(s, cfg.thresh);
+    head(s, cfg);
     ++s.it;
   }
   if (s.it >= cfg.trace_iters || !(s.unf_s || s.unf_e)) {
@@ -201,6 +229,7 @@ __device__ void refill(Slot& s, unsigned long long* next_ray, const Rays& R, int
       R.acc_s[r] = 0.0f;
       R.acc_e[r] = 0.0f;
       R.unf[r] = 0;
+      R.near_ray[r] = 0;
     } else {
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -212,6 +241,7 @@ __device__ void refill(Slot& s, unsigned long long* next_ray, const Rays& R, int
       s.acc_e = R.far[r];
       s.curr_s = s.curr_e = s.next_s = s.next_e = 0.0f;
       s.unf_s = s.unf_e = 1;
+      s.near = 0;
       s.q_s = s.q_e = 1;
       s.it = s.j = 0;
       s.phase = PH_INIT;
@@ -317,7 +347,8 @@ drain:
 // rec: the n_rec split-fp16 records of the forward chain; wbuf:
 // the fp32 buffer the biases are read from; wlast [WIDTH]: the sdf column of
 // the final linear; pool: gridDim.x x TR_SLOTS slots; counters: the next ray
-// to take, the evaluations executed, the empty rows (zeroed by the caller).
+// to take, the evaluations executed, the empty rows, the near rays (zeroed by
+// the caller; R.n_near points at the last).
 __global__ void __launch_bounds__(TC_THREADS, 1)
 sphere_trace_split_kernel(const __grid_constant__ Rays R, const __half* __restrict__ rec, int n_rec,
                           const float* __restrict__ wbuf, const __grid_constant__ Plan plan,
@@ -507,28 +538,31 @@ int nefii_fused_trace_config(int* width, int* slots, int* tile_rows, int* slot_b
 }
 
 // One launch traces n_rays rays: cam, dirs [n_rays][3], isect (uint8 mask),
-// near, far [n_rays] fp32 in; acc_s, acc_e [n_rays] fp32, unf [n_rays] uint8
-// out. rec: n_rec records of the forward chain in split fp16, layer l's
-// weights times 2^shift[l] (trace_weights); pool: grid x TR_SLOTS
-// slots of scratch; counters: 3 uint64 zeroed by the caller (the next ray,
-// then out: the evaluations executed and the empty rows of the tiles).
+// near, far [n_rays] fp32 in; acc_s, acc_e [n_rays] fp32, unf, near_ray
+// [n_rays] uint8 out (near_ray: a stop or sign decision of the ray's trace
+// took an sdf within delta of its threshold). rec: n_rec records of the
+// forward chain in split fp16, layer l's weights times 2^shift[l]
+// (trace_weights); pool: grid x TR_SLOTS slots of scratch; counters: 4 uint64
+// zeroed by the caller (the next ray, then out: the evaluations executed, the
+// empty rows of the tiles, the near rays).
 int nefii_sphere_trace(const void* cam, const void* dirs, const void* isect, const void* near,
                        const void* far, const void* rec, int n_rec, const int* shift,
                        const void* wbuf, const long long* desc, int n_layers, int x_cols,
                        const void* wlast,
-                       float b_last, float thresh, float ls_factor, int ls_iters, int trace_iters,
-                       int multires, void* acc_s, void* acc_e, void* unf, void* pool,
-                       void* counters, long long n_rays, int grid, void* stream) {
+                       float b_last, float thresh, float delta, float ls_factor, int ls_iters,
+                       int trace_iters, int multires, void* acc_s, void* acc_e, void* unf,
+                       void* near_ray, void* pool, void* counters, long long n_rays, int grid,
+                       void* stream) {
   Plan plan;
   const int d_emb = 3 * (1 + 2 * multires);
   if (!make_plan(desc, n_layers, x_cols, &plan) || x_cols > SP_NX || n_rays <= 0 ||
       n_rays > 0x7fffffffLL || grid <= 0 || multires < 0 || d_emb > x_cols || ls_iters < 0 ||
-      trace_iters < 0)
+      trace_iters < 0 || !(delta >= 0.0f))
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < plan.n; ++l)
     if (plan.l[l].k_h % 16 || plan.l[l].k_x % 16) return (int)cudaErrorInvalidValue;
   if (n_rec != forward_records(plan)) return (int)cudaErrorInvalidValue;
-  TraceCfg cfg{thresh, ls_factor, ls_iters, trace_iters, d_emb, b_last, {}};
+  TraceCfg cfg{thresh, delta, ls_factor, ls_iters, trace_iters, d_emb, b_last, {}};
   for (int l = 0; l < plan.n; ++l) {
     if (shift[l] < -60 || shift[l] > 60) return (int)cudaErrorInvalidValue;
     cfg.unscale[l] = ldexpf(1.0f, -shift[l]);
@@ -536,7 +570,9 @@ int nefii_sphere_trace(const void* cam, const void* dirs, const void* isect, con
   const Rays R{static_cast<const float*>(cam), static_cast<const float*>(dirs),
                static_cast<const uint8_t*>(isect), static_cast<const float*>(near),
                static_cast<const float*>(far), static_cast<float*>(acc_s),
-               static_cast<float*>(acc_e), static_cast<uint8_t*>(unf), n_rays};
+               static_cast<float*>(acc_e), static_cast<uint8_t*>(unf),
+               static_cast<uint8_t*>(near_ray), static_cast<unsigned long long*>(counters) + 3,
+               n_rays};
   cudaError_t e = cudaFuncSetAttribute(sphere_trace_split_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, TR_SMEM);
   if (e != cudaSuccess) return (int)e;

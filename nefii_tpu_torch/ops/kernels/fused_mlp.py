@@ -575,20 +575,43 @@ def pe_backward(dx_emb: torch.Tensor, pts: torch.Tensor, multires: int) -> torch
     return dp
 
 
-def build_fused_sdf(network, dtype: torch.dtype = torch.float32):
-    """fn(pts [N,3]) -> sdf [N]: K1's hidden chain + the sdf column in fp32.
-    In bf16 the column is reduced inside the tensor-core kernel
-    (fused_sdf_value); in fp32 after the FMA kernel."""
-    fw = network_weights(network, dtype)
+def sdf_column(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h [N,K] . w [K] + b, each row summed in one fixed order (pairwise
+    halves of the zero-padded products). A matrix product's kernel, and with
+    it its order of summation, may follow the rows' count; here a row's sdf
+    does not depend on the other rows of its batch."""
+    s = h * w
+    k = s.shape[1]
+    p = 1 << (k - 1).bit_length() if k > 1 else 1
+    if p != k:
+        s = F.pad(s, (0, p - k))
+    while p > 1:
+        p //= 2
+        s = s[:, :p] + s[:, p:2 * p]
+    return s[:, 0] + b
+
+
+def sdf_closure(fw: FusedWeights):
+    """fn(pts [N,3]) -> sdf [N]: K1's hidden chain on `fw` + the sdf column
+    in fp32. In bf16 the column is reduced inside the tensor-core kernel
+    (fused_sdf_value); in fp32 after the FMA kernel, by sdf_column, so that a
+    ray's trace does not depend on the rays traced beside it (K3's near rays
+    are traced again alone)."""
 
     def fn(pts: torch.Tensor) -> torch.Tensor:
         x = embed_padded(pts, fw)
-        if dtype == torch.bfloat16:
+        if fw.dtype == torch.bfloat16:
             return fused_sdf_value(x, fw)
         h = fused_hidden(x, fw)[:, :fw.real_width].float()
-        return (h @ fw.w_last[:, :1])[:, 0] + fw.b_last[0]
+        return sdf_column(h, fw.w_last[:, 0], fw.b_last[0])
 
     return fn
+
+
+def build_fused_sdf(network, dtype: torch.dtype = torch.float32):
+    """fn(pts [N,3]) -> sdf [N] through K1 (sdf_closure) on the network's
+    packed weights."""
+    return sdf_closure(network_weights(network, dtype))
 
 
 def build_fused_sdf_feature_grad(network):

@@ -21,14 +21,25 @@ counts the point queries evaluated, the count of the gathered tracer
 reported beside it (`stats`). Per-ray results do not depend on which rays
 share a tile.
 
+Split fp16 holds the sdf close to fp32's but not to the bit, and a stop test
+(sdf <= sdf_threshold), a line-search sign test (sdf < 0) or the crossing
+test (acc_start < acc_end) on values that close to their threshold can go
+the other way: the ray then ends a sub-threshold step from the fp32 trace. The
+kernel flags a ray whose decision took values within NEAR_DELTA of their
+threshold and counts the flagged rays in the counters the wrapper reads
+anyway; the wrapper traces those rays again with `tracer`'s gathered fp32
+trace on K1 fp32 (`csrc/fused_mlp.cu`) and keeps that trace for them.
+
 The plain version has two modes: `tile=None` (the default) evaluates and
 counts the live queries, as the kernel does; `tile=T` gives a tile of T rays
 the Pallas kernel's semantics (another iteration while one of its rays is
 unfinished, every evaluation counting the tile's 2 T points), for the count
 parity with the Pallas kernel. `split=True` runs its chain in the kernel's
-arithmetic, so that the card can tell the scheme's error from the
-kernel's (`agreement` compares two traces). fp32 only, as the TPU kernel.
-Each wrapper launch adds one to `LAUNCHES`.
+arithmetic and, as the wrapper does, its near rays' re-trace in fp32, so
+that the card can tell the scheme's error from the kernel's (`agreement`
+compares two traces). `_trace_kernel` and `_trace_plain` are the traces
+without the re-trace, for measurement. fp32 only, as the TPU kernel.
+Each kernel launch adds one to `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -42,12 +53,26 @@ import torch
 from nefii_tpu_torch.ops.kernels.fused_mlp import (
     KERNEL_WIDTH, SPLIT_K, SPLIT_NX, SPLIT_REC, TC_BLOCK_ROWS, FusedWeights, _grid,
     _softplus100, _split_mm, embed_padded, fused_hidden_plain, network_weights, pack_split,
+    sdf_closure,
 )
 
 # launches of the CUDA kernel; the wrapper adds one where it launches, nowhere else
 LAUNCHES: Dict[str, int] = {"fused_sphere_trace": 0}
 
 POOL_SLOTS = 32   # rays in a block's pool (TR_SLOTS in csrc/fused_trace.cu)
+# A stop test (sdf <= sdf_threshold), line-search sign test (sdf < 0) or
+# crossing test (acc_start < acc_end) of the split-fp16 trace whose values lie
+# within NEAR_DELTA of its threshold (of each other) is near: the ray is
+# traced again in fp32. NEAR_DELTA is 5 times the worst |split-fp16 sdf -
+# fp32 sdf| that chip_smoke.py's trace phase measured (8.345e-7, on an H100,
+# over its camera, random and secondary-conf ray sets of the flagship net at
+# their points near, far, the fp32 trace's ends and their midpoint), rounded
+# up; the phase fails unless NEAR_DELTA covers its measurement twice over.
+# chip_smoke.py holds it on two more nets, the Step-1 fit of its geometry
+# phase (8.345e-7 again) and NeuS's 8x256 net padded to 512 (1.073e-6), and
+# fails where a ray's flags differ from the K1-fp32 trace's on any of them.
+# It is a constant: a geometry with larger activations is not measured.
+NEAR_DELTA = 4.2e-6
 
 
 def reset_launch_counts() -> None:
@@ -104,15 +129,10 @@ def _sdf_plain(pts: torch.Tensor, fw: FusedWeights, split: bool = False) -> torc
     return h @ fw.wlast_col.to(h.device) + fw.b_last[0].to(h.device)
 
 
-def fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer,
-                             tile: Optional[int] = None, split: bool = False):
-    """K3 in plain PyTorch: -> (acc_start, acc_end, unfinished_start, n_evals).
-
-    Dense over the rays. With tile=None the SDF is evaluated at the live
-    queries only and n_evals counts them (the kernel's count); with tile=T
-    at every start and end point of the tiles of T rays that the Pallas
-    kernel would evaluate, counted as it counts. split=True runs the SDF
-    chain in the kernel's split fp16."""
+def _trace_plain(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer,
+                 tile: Optional[int] = None, split: bool = False):
+    """The trace of fused_sphere_trace_plain without the re-trace of its near
+    rays: -> (acc_start, acc_end, unfinished_start, n_evals, near [N] bool)."""
     N = cam.shape[0]
     T = max(N, 1) if tile is None else tile
     n_pad = -(-max(N, T) // T) * T
@@ -146,7 +166,15 @@ def fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw: FusedWeig
         sd_e[i_e] = sd[i_s.numel():]
         return (torch.where(m_s, sd_s, zero), torch.where(m_e, sd_e, zero), pts.shape[0])
 
+    near_ray = torch.zeros_like(m)
+
+    def mark(live, value, target):
+        """A decision on `value` against `target` at the `live` ends is near."""
+        near_ray.logical_or_(live & ((value - target).abs() <= NEAR_DELTA))
+
     def head(unf_s, unf_e, next_s, next_e):
+        mark(unf_s, next_s, thresh)
+        mark(unf_e, next_e, thresh)
         curr_s = torch.where(unf_s, next_s, zero)
         curr_s = torch.where(curr_s <= thresh, zero, curr_s)
         curr_e = torch.where(unf_e, next_e, zero)
@@ -166,8 +194,12 @@ def fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw: FusedWeig
         acc_e = acc_e - curr_e
         next_s, next_e, k = sdf_at(acc_s, acc_e, unf_s, unf_e, live)
         n_ev += k
+        ev_s, ev_e = unf_s, unf_e  # the ends just evaluated
         for j in range(tracer.line_step_iters):
+            mark(ev_s, next_s, 0.0)
+            mark(ev_e, next_e, 0.0)
             np_s, np_e = next_s < 0, next_e < 0
+            ev_s, ev_e = np_s, np_e
             neg = tiles_of(np_s | np_e)
             if not bool(neg.any()):
                 break
@@ -178,10 +210,39 @@ def fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw: FusedWeig
             n_ev += k
             next_s = torch.where(np_s, sd_s, next_s)
             next_e = torch.where(np_e, sd_e, next_e)
+        mark(unf_s | unf_e, acc_e, acc_s)
         not_crossed = acc_s < acc_e
         curr_s, curr_e, unf_s, unf_e = head(unf_s & not_crossed, unf_e & not_crossed,
                                             next_s, next_e)
-    return acc_s[:N], acc_e[:N], unf_s[:N], n_ev
+    return acc_s[:N], acc_e[:N], unf_s[:N], n_ev, near_ray[:N]
+
+
+def fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer,
+                             tile: Optional[int] = None, split: bool = False,
+                             stats: Optional[dict] = None):
+    """K3 in plain PyTorch: -> (acc_start, acc_end, unfinished_start, n_evals).
+
+    Dense over the rays. With tile=None the SDF is evaluated at the live
+    queries only and n_evals counts them (the kernel's count); with tile=T
+    at every start and end point of the tiles of T rays that the Pallas
+    kernel would evaluate, counted as it counts. split=True runs the SDF
+    chain in the kernel's split fp16 and, as the wrapper does, re-traces the
+    near rays (NEAR_DELTA) in fp32 and adds that trace's evaluations
+    (`_trace_plain` keeps the split trace of every ray). `stats`, if given,
+    receives the near flags of the trace (`near` [N] bool) and their count
+    (`n_near`), before the re-trace."""
+    acc_s, acc_e, unf_s, n_ev, near_ray = _trace_plain(cam, dirs, mask_intersect, near, far,
+                                                       fw, tracer, tile, split)
+    n_near = int(near_ray.sum())
+    if stats is not None:
+        stats.update(near=near_ray, n_near=n_near)
+    if split and n_near:
+        idx = near_ray.nonzero()[:, 0]
+        r_s, r_e, r_unf, k = fused_sphere_trace_plain(
+            cam[idx], dirs[idx], mask_intersect[idx], near[idx], far[idx], fw, tracer)
+        acc_s[idx], acc_e[idx], unf_s[idx] = r_s, r_e, r_unf
+        n_ev += k
+    return acc_s, acc_e, unf_s, n_ev
 
 
 def agreement(a, b):
@@ -212,8 +273,8 @@ def _lib() -> ctypes.CDLL:
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.nefii_sphere_trace.argtypes = [
             vp, vp, vp, vp, vp, vp, i, ctypes.POINTER(i), vp, ctypes.POINTER(ll), i, i, vp, f, f,
-            f, i, i, i,
-            vp, vp, vp, vp, vp, ll, i, vp]
+            f, f, i, i, i,
+            vp, vp, vp, vp, vp, vp, ll, i, vp]
         lib.nefii_sphere_trace.restype = i
         lib.nefii_trace_error_string.argtypes = [i]
         lib.nefii_trace_error_string.restype = ctypes.c_char_p
@@ -247,13 +308,12 @@ def _trace_records(fw: FusedWeights, device: torch.device):
     return rec, n_rec, shifts
 
 
-def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer,
-                       stats: Optional[dict] = None):
-    """K3: -> (acc_start, acc_end, unfinished_start, n_evals). CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise. `stats`, if
-    given, receives the kernel's tiles and their empty rows."""
-    if cam.device.type == "cpu":
-        return fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw, tracer)
+def _trace_kernel(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer,
+                  stats: Optional[dict] = None):
+    """One launch of K3 on CUDA tensors, without the re-trace of its near
+    rays: -> (acc_start, acc_end, unfinished_start, n_evals, near [N] bool,
+    n_near). Raises unless the inputs are what the kernel takes. `stats`, if
+    given, receives the kernel's evaluations, tiles and their empty rows."""
     if cam.device.type != "cuda":
         raise ValueError(f"fused_sphere_trace: tensors on {cam.device} are not supported")
     if fw.dtype != torch.float32:
@@ -280,12 +340,13 @@ def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, t
     acc_s = torch.empty(n, dtype=torch.float32, device=cam.device)
     acc_e = torch.empty_like(acc_s)
     unf = torch.empty(n, dtype=torch.bool, device=cam.device)
+    near_ray = torch.empty(n, dtype=torch.bool, device=cam.device)
     if n == 0:
-        return acc_s, acc_e, unf, 0
+        return acc_s, acc_e, unf, 0, near_ray, 0
     lib = _lib()
     grid = _grid(n, cam.device, POOL_SLOTS, 1)
-    # the next ray to take, the evaluations executed, the empty rows
-    counters = torch.zeros(3, dtype=torch.int64, device=cam.device)
+    # the next ray to take, the evaluations executed, the empty rows, the near rays
+    counters = torch.zeros(4, dtype=torch.int64, device=cam.device)
     pool = torch.empty(grid * POOL_SLOTS * _SLOT_BYTES, dtype=torch.uint8, device=cam.device)
     wlast = fw.wlast_col.to(cam.device).contiguous()
     desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
@@ -293,19 +354,46 @@ def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, t
         cam.data_ptr(), dirs.data_ptr(), mask_intersect.data_ptr(), near.data_ptr(),
         far.data_ptr(), rec.data_ptr(), n_rec, (ctypes.c_int * len(shifts))(*shifts),
         fw.buf.data_ptr(), desc, len(fw.layers),
-        fw.x_cols, wlast.data_ptr(), fw.b_sdf, float(tracer.sdf_threshold),
+        fw.x_cols, wlast.data_ptr(), fw.b_sdf, float(tracer.sdf_threshold), NEAR_DELTA,
         1.0 - float(tracer.line_search_step), int(tracer.line_step_iters),
         int(tracer.sphere_tracing_iters), int(fw.multires), acc_s.data_ptr(), acc_e.data_ptr(),
-        unf.data_ptr(), pool.data_ptr(), counters.data_ptr(), n, grid,
+        unf.data_ptr(), near_ray.data_ptr(), pool.data_ptr(), counters.data_ptr(), n, grid,
         torch.cuda.current_stream(cam.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_sphere_trace: CUDA error {err} "
                            f"({lib.nefii_trace_error_string(err).decode()})")
     LAUNCHES["fused_sphere_trace"] += 1
-    _, n_evals, empty = counters.tolist()
+    _, n_evals, empty, n_near = counters.tolist()
     if stats is not None:
-        stats.update(evals=n_evals, empty_rows=empty,
-                     tiles=(n_evals + empty) // TC_BLOCK_ROWS)
+        stats.update(evals=n_evals, empty_rows=empty, tiles=(n_evals + empty) // TC_BLOCK_ROWS)
+    return acc_s, acc_e, unf, n_evals, near_ray, n_near
+
+
+def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer,
+                       stats: Optional[dict] = None):
+    """K3: -> (acc_start, acc_end, unfinished_start, n_evals). CPU tensors run
+    the plain version; CUDA tensors launch the kernel or raise. The rays the
+    kernel flags near are traced again in fp32 by `tracer`'s gathered trace
+    on K1 fp32. `stats`, if given, receives the kernel's evaluations, tiles
+    and their empty rows, its near flags (`near`) and their count
+    (`n_near`), and the re-trace's evaluations (`retrace_evals`, included in
+    n_evals)."""
+    if cam.device.type == "cpu":
+        return fused_sphere_trace_plain(cam, dirs, mask_intersect, near, far, fw, tracer,
+                                        stats=stats)
+    acc_s, acc_e, unf, n_evals, near_ray, n_near = _trace_kernel(
+        cam, dirs, mask_intersect, near, far, fw, tracer, stats)
+    if stats is not None:
+        stats.update(near=near_ray, n_near=n_near, retrace_evals=0)
+    if n_near:
+        # the near rays, in index order, without a second host sync
+        idx = torch.argsort(near_ray.to(torch.uint8), descending=True, stable=True)[:n_near]
+        r_s, r_e, r_unf, k = tracer._sphere_trace(sdf_closure(fw), cam[idx], dirs[idx],
+                                                  mask_intersect[idx], near[idx], far[idx])
+        acc_s[idx], acc_e[idx], unf[idx] = r_s, r_e, r_unf
+        n_evals += k
+        if stats is not None:
+            stats["retrace_evals"] = k
     return acc_s, acc_e, unf, n_evals
 
 

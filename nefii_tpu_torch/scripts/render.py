@@ -15,9 +15,14 @@ shortest axis, within the tracer's bounding sphere).
         --timestamp latest --num_rays 256 [--device cuda]
 
 Rays go through the model in chunks of pixels_per_chunk(memory_capacity_level,
-num_rays) pixels. Each view draws its Monte-Carlo samples from a
-torch.Generator seeded with the view index. TF32 is off for matmuls and
-convolutions, so the plain MLPs run in full fp32.
+num_rays, world size) pixels. Each view draws its Monte-Carlo samples from a
+torch.Generator seeded with the view index (and the rank). TF32 is off for
+matmuls and convolutions, so the plain MLPs run in full fp32.
+
+Multi-GPU, as the trainer (training/exp_runner.py): under torchrun or with
+--multihost --coordinator_address --num_processes --process_id, each
+process renders its contiguous slice of every chunk on its card
+(spmd.eval_forward), the chunk's outputs are gathered, and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -55,14 +60,20 @@ def add_argument(parser):
 class RenderRunner:
     def __init__(self, **kwargs):
         from nefii_tpu_torch.config import ConfigFactory, ConfigTree, get_class
+        from nefii_tpu_torch.ops.kernels import build
+        from nefii_tpu_torch.parallel import dist
         from nefii_tpu_torch.utils import checkpoints as ckpt
 
         # full-fp32 matmuls and convolutions (no TF32) for the plain MLPs
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.device = torch.device(kwargs.get("device", "cuda"))
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(kwargs.get("device", "cuda")).type == "cuda" and \
+                not torch.cuda.is_available():
             raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
+        self.rank, self.world, self.is_main = dist.rank(), dist.process_count(), dist.is_main()
+        self.device = dist.world_device(kwargs.get("device", "cuda"))
+        if self.device.type == "cuda":
+            dist.build_once(build.build_all)
 
         conf = kwargs["conf"]
         self.conf = conf if isinstance(conf, ConfigTree) else ConfigFactory.parse_file(conf)
@@ -85,13 +96,15 @@ class RenderRunner:
         timestamp = kwargs.get("timestamp", "latest")
         if timestamp == "latest" and os.path.isdir(expdir):
             timestamp = sorted(os.listdir(expdir))[-1]
+        timestamp = dist.broadcast_str(timestamp)
         ckdir = os.path.join(expdir, timestamp, "checkpoints")
         flat, _ = ckpt.load_collection(ckdir, ckpt.MODEL, kwargs.get("checkpoint", "latest"))
         ckpt.params_from_jax(self.model, flat)
         print(f"restored checkpoint from {ckdir}")
 
         self.out_dir = kwargs.get("out_dir") or os.path.join(expdir, timestamp, "renders")
-        os.makedirs(self.out_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.out_dir, exist_ok=True)
         self.envmap_size = tuple(kwargs.get("envmap_size", (256, 512)))
         self.max_views = kwargs.get("max_views", -1)
         self.export_mesh_resolution = kwargs.get("export_mesh_resolution", 0)
@@ -100,7 +113,9 @@ class RenderRunner:
 
     # ------------------------------------------------------------------
     def render_view(self, img_idx: int):
-        """Full-resolution render of one view with multi-ray AA."""
+        """Full-resolution render of one view with multi-ray AA (every rank
+        renders its slice of each chunk and gets the whole view)."""
+        from nefii_tpu_torch.parallel import spmd
         from nefii_tpu_torch.utils import general as utils
 
         ds = self.dataset
@@ -113,8 +128,10 @@ class RenderRunner:
 
         total = ds.total_pixels
         rays_per_px = max(self.num_rays, 1)
-        n_pix = min(utils.pixels_per_chunk(self.memory_capacity_level, rays_per_px), total)
-        gen = torch.Generator(device=self.device).manual_seed(img_idx)
+        n_pix = max(min(utils.pixels_per_chunk(self.memory_capacity_level, rays_per_px,
+                                               self.world), total), self.world)
+        n_pix -= n_pix % self.world
+        gen = torch.Generator(device=self.device).manual_seed(spmd.rank_seed(img_idx, self.rank))
         dev = self.device
         evals = []
 
@@ -126,8 +143,8 @@ class RenderRunner:
                                               device=dev),
                 "pose": torch.as_tensor(np.asarray(chunk["pose"], np.float32), device=dev),
             }
-            out = self.model.forward_with_uv(batch, gen)
-            evals.append(int(out["n_sdf_evals"]))
+            out = spmd.eval_forward(self.model, batch, gen, OUTPUT_KEYS)
+            evals.append(out["n_sdf_evals"])
             return {k: out[k].cpu().numpy() for k in OUTPUT_KEYS}
 
         t0 = time.perf_counter()
@@ -197,26 +214,37 @@ class RenderRunner:
         print(f"exported {len(verts)}-vertex mesh to {path}")
 
     def run(self):
+        """Render the views on every rank; rank 0 writes them, the envmap
+        and the mesh while the others wait."""
+        from nefii_tpu_torch.parallel import dist
+
         n = len(self.dataset)
         if self.max_views > 0:
             n = min(n, self.max_views)
         for i in range(n):
             out = self.render_view(i)
+            if not self.is_main:
+                continue
             self.write_view(i, out)
             s = self.stats[-1]
             print(f"rendered view {i + 1}/{n}: {s['seconds']:.3f} s, "
                   f"{s['pixels'] / s['seconds']:.1f} px/s, {s['sdf_evals']} SDF evals, "
                   f"hit fraction {s['hit_fraction']:.3f}")
-        self.write_envmap()
-        if self.export_mesh_resolution > 0:
-            self.write_mesh()
-        print("outputs in", self.out_dir)
+        if self.is_main:
+            self.write_envmap()
+            if self.export_mesh_resolution > 0:
+                self.write_mesh()
+            print("outputs in", self.out_dir)
+        dist.barrier()
 
 
 def main(argv=None):
+    from nefii_tpu_torch.training.exp_runner import init_distributed
+
     parser = argparse.ArgumentParser()
     parser = add_argument(parser)
     opt = parser.parse_args(argv)
+    init_distributed(opt)
     runner = RenderRunner(**vars(opt))
     runner.run()
     return runner

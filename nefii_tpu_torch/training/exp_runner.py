@@ -16,8 +16,19 @@ Without `--freeze_geometry` (or `--freeze_idr`) the geometry trains too
 directory or a torch `.pth`, `--geometry_neus` a NeuS `.pth`.
 `--train_cameras` trains the camera poses too (`train.learning_rate_cam`,
 default 1e-3); a conf with `loss.view_diff_weight > 0` trains with the
-view-diff pairing; the two together raise ValueError, as in JAX. The
-multi-process flags are accepted by the parser and raise when set.
+view-diff pairing; the two together raise ValueError, as in JAX.
+
+Multi-GPU: one process per card, either under torchrun
+
+    torchrun --nproc_per_node=N -m nefii_tpu_torch.training.exp_runner ...
+
+or with the JAX package's flags, one command per process:
+
+    python -m nefii_tpu_torch.training.exp_runner ... --multihost \
+        --coordinator_address host:port --num_processes N --process_id r
+
+(NCCL; `--device cuda` is each process's card, cuda:LOCAL_RANK, or the rank
+modulo the host's cards). `--device cpu` runs the processes over gloo.
 """
 
 from __future__ import annotations
@@ -77,7 +88,8 @@ def add_argument(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
     parser.add_argument("--local_rank", type=int, default=-1)
     parser.add_argument("--multihost", default=False, action="store_true",
-                        help="multi-process training (not ported: raises)")
+                        help="multi-process run from --coordinator_address, --num_processes "
+                             "and --process_id (torchrun needs none of them)")
     parser.add_argument("--coordinator_address", type=str, default="")
     parser.add_argument("--num_processes", type=int, default=-1)
     parser.add_argument("--process_id", type=int, default=-1)
@@ -91,14 +103,25 @@ def add_argument(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return parser
 
 
+def init_distributed(opt) -> None:
+    """Join the process group when the flags (--multihost) or torchrun's
+    environment ask for more than one process; else nothing."""
+    from nefii_tpu_torch.parallel import dist
+
+    if opt.multihost or dist.requested_world() > 1:
+        dist.initialize(coordinator_address=opt.coordinator_address or None,
+                        num_processes=opt.num_processes if opt.num_processes > 0 else None,
+                        process_id=opt.process_id if opt.process_id >= 0 else None,
+                        device=opt.device)
+
+
 def main(argv=None):
     from nefii_tpu_torch.training.trainer import IDRTrainRunner
 
     parser = argparse.ArgumentParser()
     parser = add_argument(parser)
     opt = parser.parse_args(argv)
-    if opt.multihost or opt.num_processes > 1:
-        raise NotImplementedError("multi-process training is not ported (ROADMAP.md queue 1)")
+    init_distributed(opt)
 
     runner = IDRTrainRunner(**vars(opt), nepochs=opt.nepoch, max_niters=opt.max_niter)
     runner.run()

@@ -9,6 +9,9 @@ keeps on top of the port's exp_runner flags, --device among them).
 
 --batch_size is the number of SDF points a step. --data_split_dir adds the
 normals | depth render of one view every train.plot_freq iterations.
+Multi-GPU launches as exp_runner's (torchrun, or --multihost with
+--coordinator_address, --num_processes and --process_id); --batch_size must
+divide by the number of processes.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import argparse
 
 
 def main(argv=None):
-    from nefii_tpu_torch.training.exp_runner import add_argument
+    from nefii_tpu_torch.training.exp_runner import add_argument, init_distributed
     from nefii_tpu_torch.training.geometry_trainer import GeometryTrainRunner
 
     parser = argparse.ArgumentParser()
@@ -30,6 +33,7 @@ def main(argv=None):
                              "prefetch thread feeds the native sampler)")
     parser.add_argument("--not_scale_to_unit", default=False, action="store_true")
     opt = parser.parse_args(argv)
+    init_distributed(opt)
 
     runner = GeometryTrainRunner(
         conf=opt.conf,

@@ -14,9 +14,17 @@ The native sampler runs on a background thread that fills a queue of four
 batches; ctypes releases the GIL in the native loops, so sampling overlaps
 the device step. The main thread uploads each batch to the device.
 
+Multi-GPU, one process per card (training/exp_runner.py's launch): every
+rank's sampler draws the same batch from the same seed and each rank takes
+its contiguous slice; the L1 is a (num, den) pair summed over the ranks and
+the gradients are summed before the update, so the step equals the
+single-process step on the whole batch (the JAX runner's psum'd loss over its
+mesh). Rank 0 writes the run directory, checkpoints and plots.
+
 Differences by design from the JAX runner:
-  * One device. The JAX runner shards the point batch over a mesh with a
-    psum'd (num, den) loss, which equals this loss on one device.
+  * A batch_points that does not divide by the world size raises ValueError:
+    the JAX runner shrinks its mesh to the largest device count that divides
+    it, and the port's processes cannot leave their group.
   * --is_continue restores the parameters of the newest run directory that
     holds the checkpoint, looked up before this run makes its own (the JAX
     runner looks after, in the directory it has just made, and finds none).
@@ -40,6 +48,7 @@ import torch
 
 from nefii_tpu_torch.config import ConfigFactory, ConfigTree, get_class
 from nefii_tpu_torch.datasets.sdf_dataset import SDFDataset
+from nefii_tpu_torch.parallel import dist, spmd
 from nefii_tpu_torch.training.trainer import AdamGroup, multistep_lr
 from nefii_tpu_torch.utils import checkpoints as ckpt
 from nefii_tpu_torch.utils import general as utils
@@ -51,20 +60,27 @@ class GeometryTrainRunner:
     def __init__(self, **kwargs):
         conf = kwargs["conf"]
         self.conf = conf if isinstance(conf, ConfigTree) else ConfigFactory.parse_file(conf)
-        self.device = torch.device(kwargs.get("device", "cuda"))
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(kwargs.get("device", "cuda")).type == "cuda" and \
+                not torch.cuda.is_available():
             raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
+        self.rank, self.world, self.is_main = dist.rank(), dist.process_count(), dist.is_main()
+        self.device = dist.world_device(kwargs.get("device", "cuda"))
+        self.all_reduce = spmd.loss_all_reduce()
         # full-fp32 matmuls (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.batch_points = kwargs.get("batch_points", 16384)
+        if self.batch_points % self.world:
+            raise ValueError(f"batch_points {self.batch_points} does not divide by the "
+                             f"{self.world} processes")
         self.max_niters = kwargs.get("max_niters", 800_000)
         self.exps_folder_name = kwargs.get("exps_folder_name", "exps")
         self.expname = kwargs.get("expname") or (
             self.conf.get_string("train.expname", default="geometry") + "_geometry")
         self.seed = kwargs.get("seed", 0)
 
-        self.timestamp = kwargs.get("timestamp") or datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+        self.timestamp = dist.broadcast_str(
+            kwargs.get("timestamp") or datetime.now().strftime("%Y_%m_%d_%H_%M_%S"))
         self.expdir = os.path.join(self.exps_folder_name, self.expname)
         restore_from = (self._checkpoint_dir(kwargs.get("old_expdir") or self.expdir,
                                              kwargs.get("checkpoint", "latest"))
@@ -72,13 +88,19 @@ class GeometryTrainRunner:
         self.rundir = os.path.join(self.expdir, self.timestamp)
         self.checkpoints_path = os.path.join(self.rundir, "checkpoints")
         self.plots_dir = os.path.join(self.rundir, "plots")
-        for d in (self.rundir, self.checkpoints_path, self.plots_dir):
-            utils.mkdir_ifnotexists(d)
-        conf_path = kwargs["conf"] if isinstance(kwargs["conf"], str) else None
-        if conf_path and os.path.exists(conf_path):
-            shutil.copy(conf_path, os.path.join(self.rundir, "runconf.conf"))
-        with open(os.path.join(self.rundir, "runcmd.txt"), "a") as f:
-            f.write(" ".join(sys.argv) + "\n")
+        if self.is_main:
+            for d in (self.rundir, self.checkpoints_path, self.plots_dir):
+                utils.mkdir_ifnotexists(d)
+            conf_path = kwargs["conf"] if isinstance(kwargs["conf"], str) else None
+            if conf_path and os.path.exists(conf_path):
+                shutil.copy(conf_path, os.path.join(self.rundir, "runconf.conf"))
+            with open(os.path.join(self.rundir, "runcmd.txt"), "a") as f:
+                f.write(" ".join(sys.argv) + "\n")
+        dist.barrier()
+
+        from nefii_tpu_torch import native
+
+        dist.build_once(native.get_lib)
 
         # data: mesh -> SDF sample stream
         self.dataset = SDFDataset(
@@ -131,18 +153,30 @@ class GeometryTrainRunner:
         return os.path.join(old_expdir, stamps[-1], "checkpoints")
 
     def save_checkpoints(self, it: int):
-        params = ckpt.params_to_jax(self.model)
-        for tag in (str(it), "latest"):
-            ckpt.save_collection(self.checkpoints_path, ckpt.MODEL, tag, params, {"epoch": it})
+        """Rank 0 writes; the other ranks wait for it."""
+        if self.is_main:
+            params = ckpt.params_to_jax(self.model)
+            for tag in (str(it), "latest"):
+                ckpt.save_collection(self.checkpoints_path, ckpt.MODEL, tag, params,
+                                     {"epoch": it})
+        dist.barrier()
 
     # ------------------------------------------------------------------
     def train_step(self, pts: torch.Tensor, sdf_gt: torch.Tensor) -> torch.Tensor:
         """One Adam step on the L1 loss of the points [P,3] against their
-        SDF [P,1]. -> the loss before the update (detached)."""
+        SDF [P,1] (in a multi-process run this rank's slice of the batch; the
+        loss is the whole batch's). -> the loss before the update (detached)."""
         self.optimizer.zero_grad()
         pred = self.model.implicit_network(pts)[:, 0:1]
-        loss = (pred - sdf_gt).abs().sum() / pred.numel()
+        diff = (pred - sdf_gt).abs()
+        if self.all_reduce is None:
+            loss = diff.sum() / pred.numel()
+        else:
+            num, den = self.all_reduce(torch.stack([diff.sum(),
+                                                    diff.new_tensor(float(diff.numel()))]))
+            loss = num / den
         loss.backward()
+        spmd.all_reduce_grads(self.optimizer.params)
         self.optimizer.step()
         return loss.detach()
 
@@ -196,6 +230,8 @@ class GeometryTrainRunner:
             if isinstance(item, Exception):
                 raise RuntimeError("the SDF sampler failed") from item
             pts, sdf_gt, sample_seconds = item
+            if self.world > 1:
+                pts, sdf_gt = spmd.shard(pts, name="points"), spmd.shard(sdf_gt, name="sdf")
             t1 = time.perf_counter()
             loss = self.train_step(torch.as_tensor(pts, device=self.device),
                                    torch.as_tensor(sdf_gt, device=self.device))
@@ -206,14 +242,16 @@ class GeometryTrainRunner:
                                         sample_seconds=sample_seconds, loss=lv))
             if it % self.ckpt_freq == 0:
                 self.save_checkpoints(it)
-            if self.plot_dataset is not None and it > 0 and it % self.plot_freq == 0:
+            if self.is_main and self.plot_dataset is not None and it > 0 and \
+                    it % self.plot_freq == 0:
                 self.vis(it)
             if it % self.log_freq == 0:
                 if not np.isfinite(lv):
                     print("[WARNING] NaN in geometry loss — checkpoint and exit")
                     self.save_checkpoints(it)
                     return
-                print(f"geometry [{it}/{n_iters}]: l1 = {lv:.6f}", flush=True)
+                if self.is_main:
+                    print(f"geometry [{it}/{n_iters}]: l1 = {lv:.6f}", flush=True)
             it += 1
         self.save_checkpoints(it)
 

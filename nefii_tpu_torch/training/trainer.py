@@ -21,9 +21,20 @@ the sg_rgb EXR and the envmap EXR, and on the train split the SDF's
 zero-surface as surface_<it>.obj (plot.surface_resolution, default 100);
 scalars are printed.
 
+Multi-GPU: one process per card over torch.distributed (`parallel/dist.py`;
+JAX runs one process over every chip of its host). Every rank draws the same
+epoch sample (the same numpy seeds) and trains on its contiguous slice of the
+batch (`spmd.shard_batch`); the loss's (num, den) pairs are summed over the
+ranks (`spmd.loss_all_reduce`) and the gradients summed before each group's
+update (`spmd.all_reduce_grads`), so a step of W processes computes the
+gradient of the single-process step on the whole batch. The ranks' Monte-Carlo
+generators are seeded from (seed, rank), rank 0's as the single process's.
+Rank 0 makes the directories and writes the checkpoints, vis and logs; vis
+renders through the sharded eval forward on every rank. A world of 1 is the
+single-process trainer.
+
 Differences by design:
-  * One process on one device; there is no mesh. Multi-process training
-    raises. The port has no compaction budgets, so nothing escalates them.
+  * The port has no compaction budgets, so nothing escalates them.
   * `train.remat` checkpoints the forward after the primary trace, in two
     regions (`IDRNetwork.forward_with_uv(remat=True)`); the JAX package's
     jax.checkpoint takes the trace too. Nothing is differentiated through
@@ -35,13 +46,17 @@ Differences by design:
     leaf of its "train" label.
   * The NaN guard checks the loss before the update, so the checkpoint it
     writes holds the last finite parameters.
-  * The secondary step distils at most `secondary_batch_size` hits and no
-    padding (the JAX step pads to a static size and masks the padding out of
-    the loss, which gives the same loss and gradients). Its pool is the JAX
+  * The secondary step distils at most `secondary_batch_size` hits and, in
+    one process, no padding (the JAX step pads to a static size and masks
+    the padding out of the loss, which gives the same loss and gradients);
+    W processes pad the hits to a multiple of W with masked rows, cut them
+    over the ranks and take the L1 as (num, den). Its pool is the JAX
     pipeline's, the hits traced from the points of the rays that missed
     included; the forward builds the pool only on the steps that distil,
     and the missed rays' part only for the strategies that hold the first
-    `secondary_batch_size` hits (`IDRNetwork.forward_with_uv(secondary_limit=...)`).
+    `secondary_batch_size` hits (`IDRNetwork.forward_with_uv(secondary_limit=...)`,
+    whose hit counts are summed over the ranks). W processes gather their
+    pools along the ray axis, in rank order, before they select.
 """
 
 from __future__ import annotations
@@ -51,7 +66,7 @@ import shutil
 import sys
 import time
 from datetime import datetime
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -60,6 +75,7 @@ from torch.profiler import record_function
 from nefii_tpu_torch.config import ConfigFactory, ConfigTree, get_class
 from nefii_tpu_torch.models.loss import IDRLoss
 from nefii_tpu_torch.models.pixel_pair_generator import PixelPairGenerator
+from nefii_tpu_torch.parallel import dist, spmd
 from nefii_tpu_torch.utils import checkpoints as ckpt
 from nefii_tpu_torch.utils import exr as exr_io
 from nefii_tpu_torch.utils import general as utils
@@ -173,12 +189,17 @@ class RowAdam(AdamGroup):
         self.nu = torch.where(keep, old_nu, self.nu)
 
 
-def secondary_batch(out: Dict, k_max: int, num_rays: int):
+POOL_KEYS = ("secondary_points", "secondary_mask", "secondary_dir")
+
+
+def secondary_batch(out: Dict, k_max: int, num_rays: int, multiple: int = 1):
     """The batch the secondary step distils: the first `k_max` hits of the
     pool out["secondary_mask"] [S', N, 1] in its [strategy, ray] order (the
     JAX trainer's stable argsort), each seen along num_rays copies of its
-    ray. -> ({points, ray_dirs} [K,R,3], K, hits in the pool), or None when
-    the pool has no hit or the render type traces no secondary rays."""
+    ray, then rows of the pool's first entry up to a multiple of `multiple`
+    rows (the padding of the JAX step, masked out of its loss). -> ({points,
+    ray_dirs} [K',R,3], K hits, hits in the pool), or None when the pool has
+    no hit or the render type traces no secondary rays."""
     if "secondary_mask" not in out:
         return None
     mask = out["secondary_mask"].reshape(-1)
@@ -186,23 +207,31 @@ def secondary_batch(out: Dict, k_max: int, num_rays: int):
     if n_hit < 1:
         return None
     order = torch.argsort((~mask).to(torch.int8), stable=True)[:min(k_max, n_hit)]
-    R = max(num_rays, 1)
     K = order.shape[0]
-    batch = {"points": out["secondary_points"].reshape(-1, 3)[order][:, None].expand(K, R, 3),
-             "ray_dirs": out["secondary_dir"].reshape(-1, 3)[order][:, None].expand(K, R, 3)}
+    if K % multiple:
+        order = torch.cat([order, order.new_zeros(multiple - K % multiple)])
+    R = max(num_rays, 1)
+    rows = order.shape[0]
+    batch = {"points": out["secondary_points"].reshape(-1, 3)[order][:, None].expand(rows, R, 3),
+             "ray_dirs": out["secondary_dir"].reshape(-1, 3)[order][:, None].expand(rows, R, 3)}
     return batch, K, n_hit
 
 
 def distillation_loss(model, batch: Dict[str, torch.Tensor], gen: torch.Generator, *,
-                      freeze_geo=True, fake_roughness=False, fake_specular=False
-                      ) -> torch.Tensor:
+                      freeze_geo=True, fake_roughness=False, fake_specular=False,
+                      valid: Optional[torch.Tensor] = None, all_reduce=None) -> torch.Tensor:
     """Secondary self-distillation: L1(sg_rgb, idr_rgb) over the points of
-    batch {points, ray_dirs} [K,R,3] (the JAX make_point_grad_fn, whose
-    `valid` mask masks padding the port does not add). Without `freeze_geo`
-    the implicit net trains through the features."""
+    batch {points, ray_dirs} [K,R,3] (the JAX make_point_grad_fn). Without
+    `freeze_geo` the implicit net trains through the features. With
+    `all_reduce` (a rank's slice of the rows, `valid` [K] masking the
+    padding) the L1 is a (num, den) pair summed over the ranks."""
     out = model.forward_with_point(batch, gen, freeze_geo=freeze_geo,
                                    fake_roughness=fake_roughness, fake_specular=fake_specular)
-    return (out["sg_rgb_values"] - out["idr_rgb_values"]).abs().mean()
+    diff = (out["sg_rgb_values"] - out["idr_rgb_values"]).abs()
+    if all_reduce is None:
+        return diff.mean()
+    num, den = all_reduce(torch.stack([(diff * valid[:, None]).sum(), valid.sum() * 3.0]))
+    return torch.where(den > 0, num / den.clamp(min=1.0), torch.zeros_like(num))
 
 
 PROFILE_STEPS = 3
@@ -275,9 +304,18 @@ class IDRTrainRunner:
     def __init__(self, **kwargs):
         conf = kwargs["conf"]
         self.conf = conf if isinstance(conf, ConfigTree) else ConfigFactory.parse_file(conf)
-        self.device = torch.device(kwargs.get("device", "cuda"))
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(kwargs.get("device", "cuda")).type == "cuda" and \
+                not torch.cuda.is_available():
             raise RuntimeError("--device cuda: torch.cuda.is_available() is False")
+        # this process's rank and card in a multi-process run (dist.initialize)
+        self.rank, self.world = dist.rank(), dist.process_count()
+        self.is_main = dist.is_main()
+        self.device = dist.world_device(kwargs.get("device", "cuda"))
+        self.all_reduce = spmd.loss_all_reduce()
+        if self.device.type == "cuda":
+            from nefii_tpu_torch.ops.kernels import build
+
+            dist.build_once(build.build_all)
         # full-fp32 matmuls and convolutions (no TF32) for the plain MLPs
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -309,24 +347,14 @@ class IDRTrainRunner:
             timestamp = stamps[-1] if stamps else datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
         elif not is_continue:
             timestamp = datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
-        self.timestamp = timestamp
+        # hosts' clocks and directory listings may disagree: rank 0's stamp
+        self.timestamp = timestamp = dist.broadcast_str(timestamp)
         self.rundir = os.path.join(self.expdir, timestamp)
         self.checkpoints_path = os.path.join(self.rundir, "checkpoints")
         self.plots_dir = os.path.join(self.rundir, "plots")
-        for d in (self.rundir, self.checkpoints_path, self.plots_dir):
-            utils.mkdir_ifnotexists(d)
-        conf_path = kwargs["conf"] if isinstance(kwargs["conf"], str) else None
-        if conf_path and os.path.exists(conf_path):
-            shutil.copy(conf_path, os.path.join(self.rundir, "runconf.conf"))
-        if not is_continue:
-            import nefii_tpu_torch
-
-            dst = os.path.join(self.rundir, "code", "nefii_tpu_torch")
-            if not os.path.exists(dst):
-                shutil.copytree(os.path.dirname(os.path.abspath(nefii_tpu_torch.__file__)), dst,
-                                ignore=shutil.ignore_patterns("__pycache__", "*.pyc", "build"))
-        with open(os.path.join(self.rundir, "runcmd.txt"), "a") as f:
-            f.write(" ".join(sys.argv) + "\n")
+        if self.is_main:
+            self._write_run_dir(kwargs["conf"], is_continue)
+        dist.barrier()
 
         # ---- data -----------------------------------------------------------
         dataset_class = get_class(self.conf.get_string("train.dataset_class"))
@@ -397,11 +425,29 @@ class IDRTrainRunner:
         if self.cur_iter == 0:
             steps_per_epoch = max(1, -(-len(self.train_dataset) // self.batch_size))
             self.cur_iter = self.start_epoch * steps_per_epoch
-        self.gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            spmd.rank_seed(self.seed + 1, self.rank))
         # per training step: iteration, seconds, rays, loss, the seconds and
         # distilled hits of its secondary step (0 when none ran), the
         # view-diff pairing's seconds (0 without it) and its loss term
         self.step_stats: List[Dict] = []
+
+    def _write_run_dir(self, conf, is_continue: bool) -> None:
+        """The run directory: runconf.conf, the code backup, runcmd.txt."""
+        for d in (self.rundir, self.checkpoints_path, self.plots_dir):
+            utils.mkdir_ifnotexists(d)
+        conf_path = conf if isinstance(conf, str) else None
+        if conf_path and os.path.exists(conf_path):
+            shutil.copy(conf_path, os.path.join(self.rundir, "runconf.conf"))
+        if not is_continue:
+            import nefii_tpu_torch
+
+            dst = os.path.join(self.rundir, "code", "nefii_tpu_torch")
+            if not os.path.exists(dst):
+                shutil.copytree(os.path.dirname(os.path.abspath(nefii_tpu_torch.__file__)), dst,
+                                ignore=shutil.ignore_patterns("__pycache__", "*.pyc", "build"))
+        with open(os.path.join(self.rundir, "runcmd.txt"), "a") as f:
+            f.write(" ".join(sys.argv) + "\n")
 
     # ------------------------------------------------------------------
     def _partial_loads(self, kwargs, is_continue):
@@ -460,11 +506,14 @@ class IDRTrainRunner:
                 self.specular_warmup > 0 and self.cur_iter < self.specular_warmup)
 
     def save_checkpoints(self, epoch: int):
-        states = {k: g.state_dict() for k, g in self.optimizers.items()}
-        if self.cam_optimizer is not None:
-            states["cam"] = self.cam_optimizer.state_dict()
-        ckpt.save_all(self.checkpoints_path, epoch, self.model, states, self.cur_iter,
-                      self.pose_vecs)
+        """Rank 0 writes; the other ranks wait for it."""
+        if self.is_main:
+            states = {k: g.state_dict() for k, g in self.optimizers.items()}
+            if self.cam_optimizer is not None:
+                states["cam"] = self.cam_optimizer.state_dict()
+            ckpt.save_all(self.checkpoints_path, epoch, self.model, states, self.cur_iter,
+                          self.pose_vecs)
+        dist.barrier()
 
     def _sample_pixels(self, epoch: int):
         """Pixel or patch sampling from the epoch-seeded generator (the JAX
@@ -524,7 +573,9 @@ class IDRTrainRunner:
         from pose_vecs by batch["pose_indices"]). -> (loss dict, model
         outputs, finite). A non-finite loss updates nothing. With `distil`
         the outputs hold the secondary-hit pool as far as the secondary
-        step's batch needs it."""
+        step's batch needs it. In a multi-process run `batch` and `gt` are
+        this rank's slices; the loss is the whole batch's on every rank, so
+        every rank skips a non-finite step together."""
         optimizers = list(self.optimizers.values())
         if self.cam_optimizer is not None:
             optimizers.append(self.cam_optimizer)
@@ -536,35 +587,48 @@ class IDRTrainRunner:
             out = self.model.forward_with_uv(
                 batch, self.gen, training=True, freeze_geo=self.freeze_geo,
                 fake_roughness=fake_r, fake_specular=fake_s,
-                secondary_limit=self.secondary_batch_size if distil else 0, remat=self.remat)
+                secondary_limit=self.secondary_batch_size if distil else 0, remat=self.remat,
+                all_reduce=self.all_reduce)
         with record_function("train.loss"):
-            ld = self.loss(out, gt, alpha=alpha)
+            ld = self.loss(out, gt, alpha=alpha, all_reduce=self.all_reduce)
         if not np.isfinite(float(ld["loss"].detach())):
             return ld, out, False
         with record_function("train.backward"):
             ld["loss"].backward()
         with record_function("train.update"):
             for group in optimizers:
+                spmd.all_reduce_grads(group.params)
                 group.step()
         return ld, out, True
 
     def _train_with_secondary(self, out, fake_r, fake_s) -> int:
         """Secondary self-distillation on at most secondary_batch_size of the
         step's secondary hits, each seen along num_rays copies of its ray.
-        -> the number of hits distilled (0: there was none, nothing ran)."""
-        picked = secondary_batch(out, self.secondary_batch_size, self.num_rays)
+        -> the number of hits distilled (0: there was none, nothing ran). W
+        processes select from their pools gathered along the ray axis, and
+        each distils its slice of the rows (padded to a multiple of W)."""
+        if self.world > 1:
+            out = {k: dist.gather_along(out[k], 1) for k in POOL_KEYS if k in out}
+        picked = secondary_batch(out, self.secondary_batch_size, self.num_rays, self.world)
         if picked is None:
             return 0
         batch, K, n_hit = picked
+        valid = None
+        if self.world > 1:
+            valid = spmd.shard((torch.arange(batch["points"].shape[0], device=self.device)
+                                < K).float())
+            batch = spmd.shard_batch(batch)
         for group in self.optimizers.values():
             group.zero_grad()
         with record_function("train.secondary"):
             loss = distillation_loss(self.model, batch, self.gen, freeze_geo=self.freeze_geo,
-                                     fake_roughness=fake_r, fake_specular=fake_s)
+                                     fake_roughness=fake_r, fake_specular=fake_s, valid=valid,
+                                     all_reduce=self.all_reduce)
             loss.backward()
             for group in self.optimizers.values():
+                spmd.all_reduce_grads(group.params)
                 group.step()
-        if self.cur_iter % 50 == 0:
+        if self.is_main and self.cur_iter % 50 == 0:
             print(f"\tsecondary_num={K}/{n_hit}, secondary_loss = {float(loss.detach()):.6f}")
         return K
 
@@ -576,7 +640,8 @@ class IDRTrainRunner:
     def run(self):
         mse2psnr = lambda x: -10.0 * np.log(x + 1e-8) / np.log(10.0)
         n_images = len(self.train_dataset)
-        prof = StepProfiler(self.profile_dir, self.device) if self.profile_dir else None
+        prof = (StepProfiler(self.profile_dir, self.device)
+                if self.profile_dir and self.is_main else None)
 
         def stop_profiler():
             if prof is not None:
@@ -619,6 +684,9 @@ class IDRTrainRunner:
                         batch, gt = self._append_paired_view(batch, gt, indices)
                     self._sync()
                     pair_seconds = time.perf_counter() - t0
+                # every rank pairs the whole batch, then takes its slice
+                rays = int(batch["uv"].shape[:-1].numel())
+                batch, gt = spmd.shard_batch(batch), spmd.shard_batch(gt)
                 fake_r, fake_s = self._fakes()
                 alpha = self._alpha()
                 distil = (self.secondary_train_interval > 0
@@ -642,7 +710,7 @@ class IDRTrainRunner:
                     sec_seconds = time.perf_counter() - t1
                 del out
                 self.step_stats.append(dict(
-                    iter=self.cur_iter, seconds=seconds, rays=int(batch["uv"].shape[:-1].numel()),
+                    iter=self.cur_iter, seconds=seconds, rays=rays,
                     loss=float(loss_dict["loss"].detach()), secondary_seconds=sec_seconds,
                     secondary_points=n_distilled, pairing_seconds=pair_seconds,
                     view_diff_loss=float(loss_dict["view_diff_loss"].detach())))
@@ -653,6 +721,8 @@ class IDRTrainRunner:
         self.save_checkpoints(self.nepochs)
 
     def log_scalars(self, epoch, loss_dict, mse2psnr, alpha):
+        if not self.is_main:
+            return
         it = self.cur_iter
         vals = {k: float(v.detach()) for k, v in loss_dict.items()}
         print(f"{self.expname} [{epoch}] ({it}): loss = {vals['loss']:.6f}, "
@@ -666,13 +736,16 @@ class IDRTrainRunner:
         """Render a full view and write the panel PNG (gt|sg|idr,
         diffuse|specular|normal, albedo|roughness|specular, depth), the sg_rgb
         EXR and the current envmap EXR; on the train split also the SDF's
-        zero-surface (the plain implicit net) as surface_<it>.obj."""
+        zero-surface (the plain implicit net) as surface_<it>.obj. Every rank
+        renders its share (render_image); rank 0 writes."""
         from nefii_tpu_torch.ops.sg import compute_envmap
         from nefii_tpu_torch.utils.plots import depth_map, export_surface
         from nefii_tpu_torch.utils.png import write_png
 
         dataset = self.plot_dataset if split == "train" else self.test_dataset
         out = self.render_image(dataset, img_idx)
+        if not self.is_main:
+            return
         H, W = dataset.img_res
 
         def im(key):
@@ -709,7 +782,8 @@ class IDRTrainRunner:
 
     @torch.no_grad()
     def render_image(self, dataset, img_idx: int = 0) -> Dict[str, np.ndarray]:
-        """Chunked full-image eval render, one ray per pixel."""
+        """Chunked full-image eval render, one ray per pixel, each chunk
+        through the sharded eval forward (every rank must call it)."""
         from nefii_tpu_torch.scripts.render import OUTPUT_KEYS
 
         saved = dataset.sampling_idx, dataset.sampling_rays
@@ -721,11 +795,12 @@ class IDRTrainRunner:
             # --train_cameras renders at the dataset's pose, not the learned one
             model_input["pose"] = dataset.pose_all[img_idx][None]
         total = dataset.total_pixels
-        n_pix = min(utils.pixels_per_chunk(self.memory_capacity_level, 1), total)
-        gen = torch.Generator(device=self.device).manual_seed(0)
+        n_pix = min(utils.pixels_per_chunk(self.memory_capacity_level, 1, self.world),
+                    total + (-total) % self.world)
+        gen = torch.Generator(device=self.device).manual_seed(spmd.rank_seed(0, self.rank))
 
         def forward(chunk):
-            out = self.model.forward_with_uv(self._device_inputs(chunk), gen)
+            out = spmd.eval_forward(self.model, self._device_inputs(chunk), gen, OUTPUT_KEYS)
             return {k: out[k].cpu().numpy() for k in OUTPUT_KEYS}
 
         out = utils.chunked_forward(forward, model_input, total, n_pix)

@@ -303,6 +303,22 @@ def test_padding_to_the_kernel_width_changes_no_value(name):
     assert fm.split_weights(fp).numel() == fm.split_records(fp) * fm.SPLIT_REC
 
 
+@pytest.mark.parametrize("k", [1, 3, 256, 257, 512])
+def test_sdf_column_rows_do_not_depend_on_the_batch(k):
+    """The fp32 sdf column sums each row in one fixed order: a row's value is
+    the same bit for bit whatever rows share its batch, and agrees with the
+    matrix product."""
+    rs = np.random.RandomState(k)
+    h = torch.from_numpy(rs.randn(1000, k).astype(np.float32))
+    w = torch.from_numpy(rs.randn(k).astype(np.float32))
+    b = torch.tensor(0.25)
+    full = fm.sdf_column(h, w, b)
+    for rows in (slice(0, 1), slice(123, 130), slice(500, 1000)):
+        assert torch.equal(full[rows], fm.sdf_column(h[rows], w, b))
+    np.testing.assert_allclose(full.numpy(), (h.double() @ w.double() + 0.25).numpy(),
+                               rtol=0, atol=1e-5 * np.sqrt(k))
+
+
 def test_wrappers_cpu_plain_empty_and_other_devices_raise():
     """CPU tensors take the plain path (no launch, N=0 allowed); a tensor on
     any device other than the CPU must launch the CUDA kernel or raise."""

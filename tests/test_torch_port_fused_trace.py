@@ -269,3 +269,40 @@ def test_k3_streams_the_forward_records_in_split_fp16():
         ft._trace_records(dataclasses.replace(fw, trace=(rec[:-8], shifts)),
                           torch.device("cpu"))
 
+
+
+def _rays_that_differ(a, b):
+    """Rays whose unfinished or hit flag differs, or whose ends lie more than
+    ATOL apart."""
+    d = torch.maximum((a[0] - b[0]).abs(), (a[1] - b[1]).abs())
+    return int(((d > ATOL) | (a[2] != b[2]) | ((a[0] < a[1]) != (b[0] < b[1]))).sum())
+
+
+def test_near_rays_retraced_in_fp32_agree_with_fp32(nets):
+    """The split-fp16 trace decides a stop or sign test within rounding of its
+    threshold otherwise than fp32 on some of 20,000 seeded rays (a ray then
+    ends a sub-threshold step away). Every such decision lies within
+    NEAR_DELTA of its threshold, so the re-trace of the near rays in fp32
+    leaves no ray that differs from the fp32 trace; it adds their
+    evaluations."""
+    _, _, net = nets
+    args = [torch.from_numpy(np.array(a)) for a in _flat(*_rays(20000, seed=3))]
+    fw, tracer = fm.prepare_weights(net), RayTracer(**TRACER)
+    stats = {}
+    with torch.no_grad():
+        ref = ft.fused_sphere_trace_plain(*args, fw, tracer)
+        raw = ft._trace_plain(*args, fw, tracer, split=True)[:4]
+        fixed = ft.fused_sphere_trace_plain(*args, fw, tracer, split=True, stats=stats)
+    assert _rays_that_differ(raw, ref) >= 1
+    assert _rays_that_differ(fixed, ref) == 0
+    near = stats["near"]
+    assert 0 < stats["n_near"] == int(near.sum()) < 0.1 * near.numel()
+    # only the near rays were traced again, each as the fp32 trace traces it
+    # (up to the summation order of another batch of points)
+    for got, before in zip(fixed[:3], raw[:3]):
+        assert torch.equal(got[~near], before[~near])
+    for got, want in zip(fixed[:2], ref[:2]):
+        np.testing.assert_allclose(got[near].numpy(), want[near].numpy(), atol=1e-6)
+    sub = [a[near] for a in args]
+    with torch.no_grad():
+        assert fixed[3] == raw[3] + ft.fused_sphere_trace_plain(*sub, fw, tracer)[3]

@@ -658,8 +658,6 @@ def test_exp_runner_trains_unfrozen_geometry(trained, tmp_path):
     # camera training is ported; with the view-diff loss it is refused, as in JAX
     pytest.param(["--freeze_geometry", "--train_cameras"], ValueError, "mutually exclusive",
                  id="flag1-train_cameras"),
-    pytest.param(["--freeze_geometry", "--multihost"], NotImplementedError, "multi-process",
-                 id="flag2-multi-process"),
 ])
 def test_exp_runner_refuses_what_is_not_ported(trained, flag, error, match):
     _, _, d = trained
