@@ -140,10 +140,26 @@ Phases, each of which raises on failure (exit code != 0):
    one-process render. Prints s/step of 1 and 2 ranks (2 ranks share one
    card: not a scaling figure) and each rank's peak memory. With 2 cards or
    more, the 2-rank checks run again over NCCL on cuda:0 and cuda:1.
+19. render-types: the 11 render types beside pt_render_indirect_mlp and "sg"
+   (path_tracing_sg, path_tracing, the hard, soft and indirect shadows, the
+   diff_geo, memsave, constant-envmap and blend variants) on confs/conf.conf
+   at full width with the JAX dispatch test's tweaks (a 128x128x3 constant
+   light, global materials, K = 2 blended): a 128x128 view at 16 rays of
+   each through RenderRunner (finite; s/view, peak memory, launches; K1's
+   sdf entry launched in the secondary trace of every type with a shadow,
+   K2 at the secondary hits of the three diff_geo = False types), and one
+   with use_fused_trace (K3 in the secondary trace of a soft-visibility
+   type); one frozen step and its distillation step (2048 px x 64 rays) of
+   path_tracing_diff_shadow, pt_render_diff_shadow_indirect_blend and
+   pt_render_shadow_indirect_mlp_envmap, and one live step of
+   pt_render_diff_shadow_indirect_mlp, through exp_runner.main (s/step, peak
+   memory); then each type's 16x16-ray render (fp32 trace, directions
+   injected, some into the surface) on the card against the CPU: the
+   path-traced images at >= 60 dB, REF_KEYS within REF_TOL.
 
 The line before the last is the kernels' JSON record (launches from the
 frozen training run, and beside them those of the render, the references,
-the live-geometry paths, the NeuS run and phases 14-18); the last line is
+the live-geometry paths, the NeuS run and phases 14-19); the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
@@ -796,12 +812,18 @@ STEP_KEYS = ("points", "idr_rgb_values", "sg_rgb_values")
 
 
 class _InjectedDirections:
-    """Replace the three Monte-Carlo samplers of the port's sampling module:
-    wi = normalize(n + 0.9 t(n)), t a fixed smooth function of the normal per
-    strategy, with the strategy's canonical pdf. The same surface point gets
+    """Replace the Monte-Carlo samplers of the port's sampling module:
+    wi = normalize(s n + 0.9 t(n)), t a fixed smooth function of the normal
+    per strategy, with the strategy's canonical pdf; s = 1, or with `turn`
+    s = -3 where another smooth function of the normal says so (those
+    secondary rays enter the surface and hit). The same surface point gets
     the same direction on every device."""
 
-    NAMES = ("cos_sampling", "brdf_sampling", "mix_sg_sampling_shared")
+    NAMES = ("cos_sampling", "brdf_sampling", "mix_sg_sampling_shared",
+             "constant_2d_light_sampling", "uniform_hemisphere_sampling")
+
+    def __init__(self, turn=False):
+        self.turn = turn
 
     def __enter__(self):
         import numpy as np
@@ -811,12 +833,15 @@ class _InjectedDirections:
 
         rs = np.random.RandomState(7)
         tables = [(torch.from_numpy((rs.randn(3, 3) * 2.0).astype(np.float32)),
-                   torch.from_numpy(rs.randn(3).astype(np.float32))) for _ in range(3)]
+                   torch.from_numpy(rs.randn(3).astype(np.float32))) for _ in range(4)]
+        turn = torch.from_numpy(rs.randn(3).astype(np.float32))
 
         def wi_for(k, n):
             a, c = (x.to(n.device) for x in tables[k])
             t = torch.sin(n @ a + c)
-            w = n + 0.9 * t / torch.linalg.norm(t, dim=-1, keepdim=True)
+            side = torch.where(torch.sin(3.0 * n @ turn.to(n.device)) > 0.4, -3.0, 1.0)[
+                ..., None] if self.turn else 1.0
+            w = side * n + 0.9 * t / torch.linalg.norm(t, dim=-1, keepdim=True)
             return w / torch.linalg.norm(w, dim=-1, keepdim=True)
 
         self.saved = {k: getattr(ts, k) for k in self.NAMES}
@@ -826,6 +851,9 @@ class _InjectedDirections:
             wi_for(1, n), ts.pdf_fn_brdf_ggx(wi_for(1, n), n, v, r, None))
         ts.mix_sg_sampling_shared = lambda gen, n, lgt: (
             wi_for(2, n), ts.pdf_fn_mix_sg_shared(wi_for(2, n), n, None, None, lgt))
+        ts.constant_2d_light_sampling = lambda gen, n, lgt: (
+            wi_for(2, n), ts.pdf_fn_constant_2d_light(wi_for(2, n), n, None, None, lgt))
+        ts.uniform_hemisphere_sampling = lambda gen, n: wi_for(3, n)
         self.module = ts
         return self
 
@@ -2420,6 +2448,272 @@ def phase_multi_gpu(card):
     return dict(nccl_world1_bit_for_bit=same, **report, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# 19. render-types
+# ---------------------------------------------------------------------------
+
+RT_TYPES = ("path_tracing_sg", "path_tracing", "path_tracing_shadow", "path_tracing_diff_shadow",
+            "pt_render_diff_shadow_indirect", "pt_render_diff_shadow_indirect_mlp",
+            "pt_render_indirect_mlp_memsave", "pt_render_shadow_indirect_mlp_envmap",
+            "pt_render_shadow_indirect_mlp_envmap_memsave",
+            "pt_render_diff_shadow_indirect_blend", "pt_render_diff_shadow2_indirect_blend")
+RT_RES = 128
+RT_RAYS = 16
+RT_STEP_TYPES = ("path_tracing_diff_shadow", "pt_render_diff_shadow_indirect_blend",
+                 "pt_render_shadow_indirect_mlp_envmap")
+RT_LIVE_TYPE = "pt_render_diff_shadow_indirect_mlp"
+RT_K3_TYPE = "pt_render_diff_shadow_indirect_mlp"
+# the path-traced images of card and CPU: the parity suite's estimator gate
+RT_REF_DB = 60.0
+
+
+def _rt_replace(rt):
+    """conf.conf's replacements for render type `rt` (the JAX package's
+    dispatch test's): a 128x128x3 constant light for the envmap types, global
+    roughness and specular for path_tracing_sg, two global base materials
+    for the blend types."""
+    from nefii_tpu_torch.models.idr import PT_RENDER_TYPES
+
+    rep = [("render_type = pt_render_indirect_mlp", f"render_type = {rt}")]
+    opts = PT_RENDER_TYPES[rt]
+    if opts.get("light_type") == "constant":
+        rep.append(("white_light = False", "white_light = False\n        light_type = constant"))
+    if rt == "path_tracing_sg" or opts.get("blend_materials"):
+        rep += [("roughness_mlp = True", "roughness_mlp = False"),
+                ("specular_mlp = True", "specular_mlp = False"),
+                ("same_mlp = True", "same_mlp = False")]
+    if opts.get("blend_materials"):
+        rep += [("num_base_materials = 1", "num_base_materials = 2"),
+                ("fix_specular_albedo = True", "fix_specular_albedo = False")]
+    return rep
+
+
+class _SecondaryLaunches:
+    """Count, by kernel, the launches of the path tracer's secondary rays: in
+    their trace ("trace:<kernel>") and in the fused sdf/feature/normal at
+    their hits ("shading:<kernel>"), the SceneFns closures of `model`."""
+
+    def __init__(self, model):
+        import collections
+
+        self.model, self.counts = model, collections.Counter()
+
+    def _counted(self, fn, part):
+        from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+        from nefii_tpu_torch.ops.kernels import fused_trace as ft
+
+        def run(*a, **kw):
+            before = {**fm.LAUNCHES, **ft.LAUNCHES}
+            try:
+                return fn(*a, **kw)
+            finally:
+                for k, v in {**fm.LAUNCHES, **ft.LAUNCHES}.items():
+                    self.counts[f"{part}:{k}"] += v - before[k]
+        return run
+
+    def __enter__(self):
+        real = self.model.scene_fns
+
+        def scene_fns(*a, **kw):
+            sf = real(*a, **kw)
+            return sf._replace(trace=self._counted(sf.trace, "trace"),
+                               implicit_with_grad=self._counted(sf.implicit_with_grad, "shading"))
+
+        self.model.scene_fns = scene_fns
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.scene_fns
+
+
+def _rt_view(d, rt, replace, card):
+    """One RT_RES^2 view at RT_RAYS rays a pixel of `rt` through RenderRunner,
+    from a checkpoint of the seeded init. -> (stats, launches, secondary
+    launches, peak memory)."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.config import parse_string
+    from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
+    from nefii_tpu_torch.models.idr import IDRNetwork
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.scripts.render import OUTPUT_KEYS, RenderRunner
+    from nefii_tpu_torch.utils import checkpoints as ckpt
+
+    conf = parse_string(_conf_text(_rt_replace(rt) + list(replace)))
+    exp = os.path.join(d, "exp_" + rt)
+    model = IDRNetwork.from_conf(conf.get_config("model"), device="cuda", seed=0)
+    ckpt.save_collection(os.path.join(exp, "seed0", "checkpoints"), ckpt.MODEL, "latest",
+                         ckpt.params_to_jax(model), {"epoch": 0})
+    del model
+    scene = os.path.join(d, "scene")
+    if not os.path.isdir(scene):
+        SceneDataset.write_camera_only_split(scene, 1, RT_RES, focal=160.0)
+    runner = RenderRunner(conf=conf, data_split_dir=scene, old_expdir=exp, num_rays=RT_RAYS,
+                          out_dir=os.path.join(d, "renders_" + rt), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_launch_counts()
+    ft.reset_launch_counts()
+    with _SecondaryLaunches(runner.model) as sec:
+        out = runner.render_view(0)
+    torch.cuda.synchronize()
+    launches = {**fm.LAUNCHES, **ft.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    for k in OUTPUT_KEYS:
+        if not np.isfinite(np.asarray(out[k], np.float64)).all():
+            raise RuntimeError(f"[render-types] {rt}: {k} is not finite")
+    if runner.model.envmap_material_network.light_type != "sg":
+        runner.write_envmap()
+    st = runner.stats[0]
+    print(f"[render-types] {rt}: {st['seconds']:.3f} s/view ({RT_RES}x{RT_RES}, {RT_RAYS} "
+          f"rays/px), hit fraction {st['hit_fraction']:.3f}, max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB; launches {launches}, secondary {dict(sec.counts)} [{card}]",
+          flush=True)
+    return st, launches, dict(sec.counts), peak
+
+
+def _rt_reference(rt):
+    """A REF_RES^2 render of `rt` (fp32 trace) through the kernels on the
+    card and through the plain versions on the CPU, the directions injected
+    (some into the surface, so that secondary rays hit): the path-traced
+    images' PSNR over the rays that hit on both, and REF_KEYS' errors."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
+    from nefii_tpu_torch.models.idr import IDRNetwork
+
+    mconf = _model_conf(_rt_replace(rt) + [FP32_TRACE]).get_config("model")
+    gpu = IDRNetwork.from_conf(mconf, device="cuda", seed=0)
+    cpu = IDRNetwork.from_conf(mconf, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    with tempfile.TemporaryDirectory() as d:
+        ds = SceneDataset(1.0, SceneDataset.write_camera_only_split(d, 1, REF_RES, focal=20.0),
+                          False)
+        _, inp, _ = ds.collate([ds[0]])
+    outs = []
+    with _InjectedDirections(turn=True):
+        for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+            batch = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in inp.items()}
+            out = model.forward_with_uv(batch, torch.Generator(device=dev).manual_seed(0))
+            outs.append({k: v.cpu().numpy() for k, v in out.items() if torch.is_tensor(v)})
+    g, c = outs
+    agree = float((g["network_object_mask"] == c["network_object_mask"]).mean())
+    both = g["network_object_mask"] & c["network_object_mask"]
+    if agree < REF_TOL["mask_agree"] or not both.any():
+        raise RuntimeError(f"[render-types] {rt}: hit masks disagree: {agree:.4f}")
+    errs = {k: float(np.abs(g[k][both] - c[k][both]).max()) for k in REF_KEYS}
+    bad = {k: v for k, v in errs.items() if not v <= REF_TOL["abs"]}
+    psnr = {}
+    for k in ("sg_rgb_values", "sg_diffuse_rgb_values", "sg_specular_rgb_values"):
+        mse = float(np.mean((g[k][both].astype(np.float64) - c[k][both]) ** 2))
+        psnr[k] = -10.0 * np.log10(max(mse, 1e-30))
+        if not np.isfinite(g[k]).all() or psnr[k] < RT_REF_DB:
+            bad[k] = psnr[k]
+    if bad:
+        raise RuntimeError(f"[render-types] {rt}: the card's render disagrees with the CPU's: "
+                           f"{bad}")
+    return dict(mask_agreement=agree, max_abs_err=errs, psnr_db=psnr)
+
+
+def _rt_live_step(d, scene, card):
+    """One live-geometry step of RT_LIVE_TYPE (2048 px x 64 rays, a
+    distillation step after it) through exp_runner.main: soft visibility and
+    the eq. 3 normals at the secondary hits keep their graph."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.training import exp_runner
+
+    conf_path = os.path.join(d, "live.conf")
+    with open(conf_path, "w") as f:
+        f.write(_conf_text(NO_VIS + (UNFROZEN_LR,) + tuple(_rt_replace(RT_LIVE_TYPE))))
+    argv = ["--conf", conf_path, "--data_split_dir", scene, "--exps_folder_name",
+            os.path.join(d, "exps_live"), "--roughness_warmup", "2",
+            "--secondary_train_interval", "1", "--secondary_batch_size", "1024",
+            "--max_niter", "0", "--device", "cuda"]
+    print("[render-types] live: python -m nefii_tpu_torch.training.exp_runner "
+          + " ".join(argv), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fm.reset_launch_counts()
+    ft.reset_launch_counts()
+    runner = exp_runner.main(argv)
+    torch.cuda.synchronize()
+    launches = {**fm.LAUNCHES, **ft.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    st = runner.step_stats[0]
+    print(f"[render-types] live {RT_LIVE_TYPE}: {st['seconds']:.3f} s/step, secondary step "
+          f"{st['secondary_seconds']:.3f} s, remat {runner.remat}, max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB; launches {launches} [{card}]", flush=True)
+    if runner.freeze_geo or not np.isfinite(st["loss"]) or st["secondary_points"] <= 0:
+        raise RuntimeError(f"[render-types] the live step failed: {st}")
+    return dict(s_per_step=[st["seconds"]], secondary_s=[st["secondary_seconds"]],
+                max_memory_allocated=peak, launches=launches, remat=runner.remat)
+
+
+def phase_render_types(card):
+    """The render types of the slice at full width: a view of each through
+    RenderRunner (the secondary rays' launches gated), the card-against-CPU
+    check of each, frozen and distillation steps, one live step, and a view
+    with K3 serving a soft-visibility path."""
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+    from nefii_tpu_torch.models.idr import PT_RENDER_TYPES
+
+    t0 = time.perf_counter()
+    res = {"views": {}, "reference": {}, "steps": {}}
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as d:
+        for rt in RT_TYPES:
+            st, launches, sec, peak = _rt_view(d, rt, (), card)
+            opts = PT_RENDER_TYPES[rt]
+            res["views"][rt] = dict(s_per_view=st["seconds"], hit_fraction=st["hit_fraction"],
+                                    sdf_evals=st["sdf_evals"], max_memory_allocated=peak,
+                                    launches=launches, secondary_launches=sec)
+            add(launches)
+            if opts.get("shadow") is not None and sec.get("trace:fused_sdf_value", 0) <= 0:
+                raise RuntimeError(f"[render-types] {rt}: the secondary trace did not launch "
+                                   f"K1's sdf entry: {sec}")
+            if opts.get("shadow") == "indirect" and not opts.get("diff_geo") and \
+                    sec.get("shading:fused_sdf_fwd_bwd", 0) <= 0:
+                raise RuntimeError(f"[render-types] {rt}: K2 did not serve the secondary hits: "
+                                   f"{sec}")
+        st, launches, sec, peak = _rt_view(d, RT_K3_TYPE, (K3_ON,), card)
+        res["views"]["k3_" + RT_K3_TYPE] = dict(
+            s_per_view=st["seconds"], max_memory_allocated=peak, launches=launches,
+            secondary_launches=sec)
+        add(launches)
+        if sec.get("trace:fused_sphere_trace", 0) <= 0:
+            raise RuntimeError(f"[render-types] K3 did not serve the secondary trace: {sec}")
+
+        scene = write_sphere_scene(os.path.join(d, "train_scene"), 1, TRAIN_RES)
+        for rt in RT_STEP_TYPES:
+            _, summary = _step2("rt_" + rt, d, _rt_replace(rt), scene, 1, (), card)
+            res["steps"][rt] = summary
+            add(summary["launches"])
+        res["steps"]["live_" + RT_LIVE_TYPE] = live = _rt_live_step(d, scene, card)
+        add(live["launches"])
+
+        for rt in RT_TYPES:
+            res["reference"][rt] = ref = _rt_reference(rt)
+            print(f"[render-types] {rt}: card vs cpu at {REF_RES}x{REF_RES} rays: mask "
+                  f"agreement {ref['mask_agreement']:.4f}, PSNR {ref['psnr_db']}, max abs err "
+                  f"{ref['max_abs_err']}", flush=True)
+    res["launches"] = total
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[render-types] {res['seconds']:.1f} s; launches {total} [{card}]", flush=True)
+    return res
+
+
 def main():
     import torch
 
@@ -2444,12 +2738,14 @@ def main():
     view_diff = phase_view_diff(card)
     fast = phase_fast_multi_ray(card)
     mgpu = phase_multi_gpu(card)
+    rtypes = phase_render_types(card)
     print(json.dumps({"render": stats, "reference": ref, "train_reference": train_ref,
                       "unfrozen_reference": unfrozen_ref, "train": train, "physg": physg,
                       "unfrozen": unfrozen, "neus": neus, "trace_kernel": trace,
                       "geometry": geometry, "cameras_reference": cameras_ref,
                       "cameras": cameras, "view_diff": view_diff, "fast_multi_ray": fast,
                       "multi_gpu": {k: v for k, v in mgpu.items() if k != "launches"},
+                      "render_types": {k: v for k, v in rtypes.items() if k != "launches"},
                       "card": card}), flush=True)
     src = "nefii_tpu_torch/ops/kernels/csrc/fused_mlp.cu"
     tc_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_tc.cuh"
@@ -2470,7 +2766,8 @@ def main():
             "view_diff_launches": view_diff.pop("launches"),
             "fast_multi_ray_launches": fast.pop("launches"),
             "fast_multi_ray_render_launches": fast.pop("render_launches"),
-            "multi_gpu_launches": mgpu["launches"]}
+            "multi_gpu_launches": mgpu["launches"],
+            "render_types_launches": rtypes["launches"]}
 
     def paths(name):
         return {k: v[name] for k, v in live.items()}

@@ -4,12 +4,14 @@ nefii_tpu/models/idr.py).
 Owns the implicit SDF net, the IDR radiance net, the envmap/material net and
 the tracers. `forward_with_uv` renders pixels (multi-ray AA reduced by
 `mean_pixel`, or with `fast_multi_ray` one pixel-mean ray traced and shaded
-a pixel and its R Monte-Carlo samples averaged) with
-`render_type = pt_render_indirect_mlp` (path traced) or
-`sg` (the closed-form SG renderer of the PhySG baseline), and the SG
-environment as background of the rays that miss. With `training=True` and
-`freeze_geo=True` (Step 2 on a frozen geometry) it keeps the autograd graph
-through the rendering and material networks and the light; the trace, the
+a pixel and its R Monte-Carlo samples averaged) with any of the JAX
+package's 13 render types: the 12 of `PT_RENDER_TYPES` (path traced by
+ops/path_tracing.py, `path_tracing_sg` its one-sample warped-SG prototype)
+or `sg` (the closed-form SG renderer of the PhySG baseline), and the light
+(SG mixture or constant map) as background of the rays that miss. With
+`training=True` and `freeze_geo=True` (Step 2 on a frozen geometry) it keeps
+the autograd graph through the rendering and material networks and the
+light; the trace, the
 surface points and every output of the implicit net are values, as the JAX
 package's stop-gradients make them. With `freeze_geo=False` the geometry
 trains too: the trace stays a value, and the implicit net keeps its graph
@@ -82,10 +84,46 @@ from nefii_tpu_torch.ops.sg import render_with_sg, safe_norm
 from nefii_tpu_torch.utils.camera import get_camera_params
 
 PT_RENDER_TYPES = {
+    # the warped-SG prototype (ops/path_tracing.py pt_render_with_sg)
+    "path_tracing_sg": dict(),
+    "path_tracing": dict(strategies=("cos", "brdf"), shadow=None),
+    "path_tracing_shadow": dict(strategies=("cos", "brdf", "mix_sg"), shadow="hard"),
+    "path_tracing_diff_shadow": dict(
+        strategies=("cos", "brdf", "mix_sg"), shadow="soft", diff_geo=True,
+        sphere_fallback=True,
+    ),
+    "pt_render_diff_shadow_indirect": dict(
+        strategies=("cos", "brdf", "mix_sg"), shadow="indirect", diff_geo=True,
+        sphere_fallback=True,
+    ),
+    "pt_render_diff_shadow_indirect_mlp": dict(
+        strategies=("cos", "brdf", "mix_sg"), shadow="indirect", diff_geo=True,
+    ),
     "pt_render_indirect_mlp": dict(
         strategies=("cos", "brdf", "mix_sg"), shadow="indirect", diff_geo=False,
     ),
+    "pt_render_indirect_mlp_memsave": dict(
+        strategies=("cos", "brdf", "mix_sg"), shadow="indirect", diff_geo=False,
+        speed_first=False,
+    ),
+    "pt_render_shadow_indirect_mlp_envmap": dict(
+        strategies=("cos", "brdf", "env2d"), shadow="indirect", diff_geo=False,
+        light_type="constant",
+    ),
+    "pt_render_shadow_indirect_mlp_envmap_memsave": dict(
+        strategies=("cos", "brdf", "env2d"), shadow="indirect", diff_geo=False,
+        light_type="constant", speed_first=False,
+    ),
+    "pt_render_diff_shadow_indirect_blend": dict(
+        strategies=("cos", "brdf", "mix_sg"), shadow="indirect", diff_geo=True,
+        sphere_fallback=True, blend_materials=True,
+    ),
+    "pt_render_diff_shadow2_indirect_blend": dict(
+        strategies=("cos", "brdf", "mix_sg"), shadow="indirect", diff_geo=True,
+        blend_materials=True,
+    ),
 }
+PT_SG_RENDER_TYPE = "path_tracing_sg"
 # the closed-form SG render (ops/sg.py render_with_sg): no secondary rays
 SG_RENDER_TYPE = "sg"
 
@@ -216,13 +254,13 @@ class IDRNetwork(nn.Module):
 
     def _render_spec(self) -> Optional[Dict]:
         """The path-tracing settings of render_type, or None for "sg". Raises
-        for a type the port does not render; the check waits for the first
+        for a type that does not exist; the check waits for the first
         render, as a model that is never rendered (Step 1's) needs none."""
         if self.render_type == SG_RENDER_TYPE:
             return None
         if self.render_type not in PT_RENDER_TYPES:
-            raise NotImplementedError(f"render_type {self.render_type!r}: the port renders "
-                                      f"{sorted([*PT_RENDER_TYPES, SG_RENDER_TYPE])}")
+            raise ValueError(f"render_type {self.render_type!r}: one of "
+                             f"{sorted([*PT_RENDER_TYPES, SG_RENDER_TYPE])}")
         return PT_RENDER_TYPES[self.render_type]
 
     # ------------------------------------------------------------------
@@ -253,20 +291,33 @@ class IDRNetwork(nn.Module):
             return build_fused_sphere_trace(self.implicit_network, tracer)
         return None
 
-    def scene_fns(self, sdf_fn, sfg_fn) -> ptr.SceneFns:
+    def scene_fns(self, sdf_fn, sfg_fn, value_only: bool = True) -> ptr.SceneFns:
+        """The path tracer's closures: the secondary tracer (K1 through
+        `sdf_fn`, K3 when use_fused_trace), the plain implicit net and its
+        gradient (values when `value_only`, else with their graph, the
+        gradient by `_sdf_input_grad`), the radiance net, and `sfg_fn`."""
         self._render_spec()
         tracer = self.secondary_ray_tracer or self.ray_tracer
         trace_fn = self._fused_trace_closure(tracer)
+        imp = self.implicit_network
 
-        def trace(origins, dirs):
+        def trace(origins, dirs, gen=None, training=False, steps01=None):
             with torch.no_grad():
                 res = tracer(sdf_fn, origins, torch.ones(origins.shape[0], dtype=torch.bool,
                                                          device=origins.device),
-                             dirs[:, None, :], sphere_trace_fn=trace_fn)
-            return res.points, res.object_mask, res.n_evals
+                             dirs[:, None, :], training=training, sphere_trace_fn=trace_fn,
+                             gen=gen, steps01=steps01)
+            return res.points, res.object_mask, res.dists, res.n_evals
 
-        return ptr.SceneFns(trace=trace, radiance=self.rendering_network,
-                            implicit_with_grad=sfg_fn, feature_size=self.feature_vector_size)
+        def implicit(pts):
+            with torch.set_grad_enabled(not value_only and torch.is_grad_enabled()):
+                return imp(pts)
+
+        return ptr.SceneFns(trace=trace, implicit=implicit,
+                            implicit_grad=lambda pts: imp.sdf_feature_grad(pts, value_only)[2],
+                            radiance=self.rendering_network, implicit_with_grad=sfg_fn,
+                            feature_size=self.feature_vector_size,
+                            bounding_sphere=self.object_bounding_sphere)
 
     # ------------------------------------------------------------------
     def forward_with_uv(self, inputs: Dict[str, torch.Tensor], gen: torch.Generator, *,
@@ -274,13 +325,15 @@ class IDRNetwork(nn.Module):
                         fake_roughness: bool = False, fake_specular: bool = False,
                         steps01: Optional[torch.Tensor] = None,
                         secondary_limit: int = 0, remat: bool = False,
-                        all_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+                        all_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                        secondary_steps01: Optional[torch.Tensor] = None):
         """Render the rays of `inputs` (uv [B,S,2] or multi-ray [B,S,R,2],
         pose [B,4,4] or [B,7], intrinsics, object_mask). Without `training`
         no graph is kept. With `fast_multi_ray` a multi-ray batch traces the
         pixel-mean uv [B,S] and the path tracer repeats each shaded point R
         times, its outputs averaged per pixel.
-        `steps01` injects the tracer's min-SDF step vector (training).
+        `steps01` injects the tracer's min-SDF step vector (training), and
+        `secondary_steps01` the secondary tracer's (training, `diff_geo`).
 
         With `training` and not `freeze_geo` the geometry trains: the output
         holds the eikonal gradients `grad_theta` at N//2 points uniform in
@@ -302,10 +355,10 @@ class IDRNetwork(nn.Module):
         with torch.set_grad_enabled(training and torch.is_grad_enabled()):
             return self._forward_with_uv(inputs, gen, training, training and not freeze_geo,
                                          fake_roughness, fake_specular, steps01,
-                                         secondary_limit, remat, all_reduce)
+                                         secondary_limit, remat, all_reduce, secondary_steps01)
 
     def _forward_with_uv(self, inputs, gen, training, live, fake_roughness, fake_specular,
-                         steps01, secondary_limit, remat, all_reduce):
+                         steps01, secondary_limit, remat, all_reduce, secondary_steps01):
         intrinsics, uv, pose = inputs["intrinsics"], inputs["uv"], inputs["pose"]
         object_mask = inputs["object_mask"].reshape(-1)
         multi_ray = uv.dim() == 4
@@ -336,7 +389,8 @@ class IDRNetwork(nn.Module):
         view_dirs = -ray_dirs_flat
         grad_theta = None
         shade_kw = dict(training=training, fake_roughness=fake_roughness,
-                        fake_specular=fake_specular, multi_ray_R=R if fast else 1)
+                        fake_specular=fake_specular, multi_ray_R=R if fast else 1,
+                        secondary_steps01=secondary_steps01)
 
         if live:
             surface_mask = network_object_mask & object_mask
@@ -405,8 +459,8 @@ class IDRNetwork(nn.Module):
 
         sg_rgb_values = dense(ret["sg_rgb"], 1.0)
         if self.render_background:
-            bg = sampling.sg_light_eval(ray_dirs_flat, em.get_lgtSGs())
-            sg_rgb_values = torch.where(surface_mask[:, None], sg_rgb_values, bg)
+            sg_rgb_values = torch.where(surface_mask[:, None], sg_rgb_values,
+                                        self.get_background_rgb(ray_dirs_flat))
 
         z = torch.zeros((), dtype=torch.int64)
         output = {
@@ -465,8 +519,9 @@ class IDRNetwork(nn.Module):
         [strategy, ray] order, and the SDF evaluations it ran: the shaded
         rays' from their shading (`ret`); for the rays that missed, what the
         JAX pipeline runs to get theirs -- sdf, feature and normal at their
-        points, the material net's roughness where the brdf strategy needs
-        it, each strategy's directions and the secondary trace -- strategy by
+        points, the material net's roughness (blended, as the path tracer
+        blends it) where the brdf strategy needs it, each strategy's
+        directions and the secondary trace -- strategy by
         strategy until the hits reach `limit`. They need no visibility or
         indirect radiance: their colours are defaults. The hit counts stay on
         the device: one read a strategy decides whether to go on. With
@@ -494,16 +549,20 @@ class IDRNetwork(nn.Module):
                 em = self.envmap_material_network
                 lgt, rough = em.get_lgtSGs(), None
                 trace = self.scene_fns(sdf_fn, sfg_fn).trace
-            for s, name in enumerate(self._render_spec()["strategies"]):
+            spec = self._render_spec()
+            for s, name in enumerate(spec["strategies"]):
                 if s > 0 and int(hits[:s].sum()) >= limit:
                     break
                 if miss.numel():
                     if name == "brdf" and rough is None:
-                        rough = em(pts, feats, normals, fake_roughness=fake_roughness,
-                                   fake_specular=fake_specular)["sg_roughness"]
+                        mat = em(pts, feats, normals, fake_roughness=fake_roughness,
+                                 fake_specular=fake_specular)
+                        rough, bw = mat["sg_roughness"], mat["sg_blending_weights"]
+                        if spec.get("blend_materials") and bw is not None:
+                            rough = (rough[None] * bw[..., None]).sum(-2)
                         rough = rough.expand(pts.shape[0], 1) if rough.shape[0] == 1 else rough
                     wi, _ = ptr.sample_direction(name, gen, normals, view, rough, lgt)
-                    lp, hm, ne = trace(pts, wi)
+                    lp, hm, _, ne = trace(pts, wi)
                     n_evals += ne
                     pool["secondary_points"][s, miss] = lp
                     pool["secondary_mask"][s, miss, 0] = hm
@@ -530,7 +589,8 @@ class IDRNetwork(nn.Module):
     # ------------------------------------------------------------------
     def forward_with_point(self, inputs: Dict[str, torch.Tensor], gen: torch.Generator, *,
                            freeze_geo: bool = True, fake_roughness: bool = False,
-                           fake_specular: bool = False):
+                           fake_specular: bool = False,
+                           secondary_steps01: Optional[torch.Tensor] = None):
         """Secondary self-distillation forward: shade the points [K,R,3] seen
         along ray_dirs [K,R,3] and average over R. Trains with the normals
         detached; without `freeze_geo` the features keep their graph, so the
@@ -541,7 +601,7 @@ class IDRNetwork(nn.Module):
         K, R, _ = points.shape
         ret = self.get_rbg_value(points.reshape(-1, 3), -ray_dirs.reshape(-1, 3), gen,
                                  self._sdf_closure(), training=True, value_only=freeze_geo,
-                                 normal_graph=False,
+                                 normal_graph=False, secondary_steps01=secondary_steps01,
                                  fake_roughness=fake_roughness, fake_specular=fake_specular)
         return {"idr_rgb_values": self.mean_pixel(ret["idr_rgb"], K, R),
                 "sg_rgb_values": self.mean_pixel(ret["sg_rgb"], K, R)}
@@ -549,7 +609,7 @@ class IDRNetwork(nn.Module):
     # ------------------------------------------------------------------
     def get_rbg_value(self, points, view_dirs, gen, sdf_fn, *, training=False,
                       value_only=True, normal_graph=True, fake_roughness=False,
-                      fake_specular=False, multi_ray_R=1):
+                      fake_specular=False, multi_ray_R=1, secondary_steps01=None):
         """Shading of surface points [M,3] seen along view_dirs [M,3], by
         render_type: the closed-form SG render, or the path tracer. The
         implicit net's sdf, feature and normal are values (K2 or the plain
@@ -558,7 +618,8 @@ class IDRNetwork(nn.Module):
         the radiance and material nets keep their graph. `multi_ray_R` > 1
         (fast_multi_ray) path-traces each point R times and averages its
         colours; the secondary-hit pool keeps the M*R rays. The SG render has
-        no samples, so it shades each point once."""
+        no samples, so it shades each point once. `secondary_steps01` injects
+        the secondary tracer's min-SDF vector (a test hook)."""
         sfg_fn = self._sfg_closure(value_only, normal_graph)
         sec_fn = self._sfg_closure(value_only, normal_graph=False)
         feature_vectors, normals, view_dirs = self._surface(points, view_dirs, sfg_fn)
@@ -576,14 +637,22 @@ class IDRNetwork(nn.Module):
             R = multi_ray_R
             pt_in = [mat["sg_specular_reflectance"], mat["sg_roughness"],
                      mat["sg_diffuse_albedo"], normals, view_dirs, points]
+            bw = mat["sg_blending_weights"]
             if R > 1:
                 # the per-point inputs (JAX idr.py get_rbg_value's rep)
                 per_point = [em.specular_mlp and not em.fix_specular_albedo, em.roughness_mlp,
                              True, True, True, True]
                 pt_in = [x.repeat_interleave(R, 0) if p else x for x, p in zip(pt_in, per_point)]
-            sg_ret = ptr.pt_render_core(
-                gen, mat["sg_lgtSGs"], *pt_in, self.scene_fns(sdf_fn, sec_fn),
-                training=training, remat_strategies=self.remat_strategies, **spec)
+                bw = bw.repeat_interleave(R, 0) if bw is not None else None
+            if self.render_type == PT_SG_RENDER_TYPE:
+                sg_ret = ptr.pt_render_with_sg(gen, mat["sg_lgtSGs"], *pt_in[:5],
+                                               training=training)
+            else:
+                sg_ret = ptr.pt_render_core(
+                    gen, mat["sg_lgtSGs"], *pt_in, self.scene_fns(sdf_fn, sec_fn, value_only),
+                    blending_weights=bw, training=training,
+                    remat_strategies=self.remat_strategies, trace_steps01=secondary_steps01,
+                    **spec)
             if R > 1:
                 for k in ("sg_rgb", "sg_specular_rgb", "sg_diffuse_rgb", "sg_diffuse_albedo"):
                     sg_ret[k] = self.mean_pixel(sg_ret[k], points.shape[0], R)
@@ -596,6 +665,15 @@ class IDRNetwork(nn.Module):
             "sg_specular_reflectance": mat["sg_specular_reflectance"],
             "sg_blending_weights": mat["sg_blending_weights"],
         }
+
+    # ------------------------------------------------------------------
+    def get_background_rgb(self, light_dir: torch.Tensor) -> torch.Tensor:
+        """The light's radiance along the miss rays' directions [N,3]: the SG
+        mixture, or the constant map's nearest texel."""
+        em = self.envmap_material_network
+        if em.light_type == "sg":
+            return sampling.sg_light_eval(light_dir, em.get_lgtSGs())
+        return sampling.envmap_lookup(light_dir, em.get_lgtSGs())
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -55,8 +55,8 @@ class RayTracer:
     rootfind_method: str = "bisection"
 
     def __post_init__(self):
-        if self.rootfind_method != "bisection":
-            raise NotImplementedError("the port's tracer implements the bisection rootfind only")
+        if self.rootfind_method not in ("bisection", "secant"):
+            raise ValueError(f"rootfind_method {self.rootfind_method!r}: bisection or secant")
 
     # ------------------------------------------------------------------
     def __call__(
@@ -223,7 +223,8 @@ class RayTracer:
     # ------------------------------------------------------------------
     def _ray_sampler_dense(self, sdf_fn, cam, dirs, object_mask, acc_start, acc_end,
                            training=False):
-        """n_steps-point sign-change sampler + bisection on the given rays. In
+        """n_steps-point sign-change sampler + rootfind (`rootfind_method`:
+        bisection or secant) on the given rays. In
         training only the rays inside the object mask take the root."""
         N, n = cam.shape[0], self.n_steps
         intervals = torch.linspace(0.0, 1.0, n, device=cam.device)[None, :]
@@ -247,7 +248,8 @@ class RayTracer:
                                     sampler_dists)
 
         prev = (idx - 1) % n  # x[idx-1] wraps at idx == 0, as in the reference
-        z_pred, bisect_evals = self._bisection(
+        find_root = self._secant if self.rootfind_method == "secant" else self._bisection
+        z_pred, bisect_evals = find_root(
             sdf_fn, take(sdf_val, prev), sdf_at_idx, take(pts_intervals, prev),
             take(pts_intervals, idx), cam, dirs)
         rootfind = (net_surface & object_mask) if training else net_surface
@@ -275,3 +277,28 @@ class RayTracer:
             work = work & ((z_high - z_low) > 1e-6)
             i += 1
         return z_mid, i * cam.shape[0]
+
+    def _secant(self, sdf_fn, sdf_low, sdf_high, z_low, z_high, cam, dirs):
+        """Masked secant rootfind on the same batch as `_bisection` (and with
+        its caveat for the rays without a bracket): each step evaluates the
+        secant's zero and keeps it as the low or the high end by its sign."""
+        eps = 1e-8
+
+        def predict(sdf_low, sdf_high, z_low, z_high):
+            z = -sdf_low * (z_high - z_low) / (sdf_high - sdf_low + eps) + z_low
+            return torch.clamp(z, 0.0, 2e1)
+
+        work = (sdf_low > 0) & (sdf_high < 0) & (z_high > z_low)
+        z_pred = predict(sdf_low, sdf_high, z_low, z_high)
+        i = 0
+        while i < self.n_rootfind_steps and bool(work.any()):
+            sdf_mid = eval_chunked(sdf_fn, cam + z_pred[:, None] * dirs, self.sdf_chunk)
+            ind_low, ind_high = sdf_mid > 0, sdf_mid < 0
+            z_low = torch.where(ind_low, z_pred, z_low)
+            sdf_low = torch.where(ind_low, sdf_mid, sdf_low)
+            z_high = torch.where(ind_high, z_pred, z_high)
+            sdf_high = torch.where(ind_high, sdf_mid, sdf_high)
+            z_pred = predict(sdf_low, sdf_high, z_low, z_high)
+            work = work & ((z_high - z_low) > 1e-6)
+            i += 1
+        return z_pred, i * cam.shape[0]

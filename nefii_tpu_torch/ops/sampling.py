@@ -1,6 +1,7 @@
-"""Importance sampling for the MC path tracer (counterpart of the render
-path's part of nefii_tpu/ops/sampling.py): cosine, GGX-BRDF and shared-light
-SG-mixture samplers, their pdfs, SG light evaluation and the MIS power
+"""Importance sampling for the MC path tracer (counterpart of
+nefii_tpu/ops/sampling.py): uniform-hemisphere, cosine, GGX-BRDF,
+shared-light SG-mixture and 2-D constant-envmap samplers, their pdfs, SG
+light evaluation, the envmap's nearest-texel lookup and the MIS power
 heuristic. Randomness comes from an explicit `torch.Generator`."""
 
 from __future__ import annotations
@@ -33,6 +34,16 @@ def rotate_to_normal(xyz: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 def _spherical(theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.sin(theta) * torch.cos(phi), torch.sin(theta) * torch.sin(phi),
                       torch.cos(theta)], dim=-1)
+
+
+def uniform_hemisphere_sampling(gen: torch.Generator, normal: torch.Tensor) -> torch.Tensor:
+    """Uniform directions on the hemisphere about `normal`; pdf = 1/(2 pi)."""
+    shape = normal.shape[:-1] + (1,)
+    r1, r2 = _uniform(gen, shape, normal), _uniform(gen, shape, normal)
+    phi = 2 * np.pi * r2
+    sin_theta = torch.sqrt(1 - r1 ** 2)
+    local = torch.cat([torch.cos(phi) * sin_theta, torch.sin(phi) * sin_theta, r1], dim=-1)
+    return rotate_to_normal(local, normal)
 
 
 # ---- cosine-weighted -----------------------------------------------------------
@@ -120,6 +131,76 @@ def pdf_fn_mix_sg_shared(wi, normal, viewdir, roughness, lgtSGs):
     c = lambdas / (2 * np.pi * (1 - torch.exp(-2.0 * lambdas)))
     D = torch.exp((wi @ xis.t() - 1.0) * lambdas[None, :])
     return (alpha * c[None, :] * D).sum(-1, keepdim=True)
+
+
+# ---- 2-D constant envmap [H,W,3] (PBRT infinite-area light, z-up equirect) ---------
+
+def _sample_1d_cdf(gen: torch.Generator, pdf: torch.Tensor) -> torch.Tensor:
+    """pdf [N, L] (its mean over L is 1) -> one index [N] per row: the first
+    interval of the row's cdf that holds a uniform draw."""
+    N, L = pdf.shape
+    cdf = torch.cumsum(pdf / L, dim=1)
+    cdf[:, -1] = 1.0
+    r = _uniform(gen, (N, 1), pdf)
+    return torch.argmax((r < cdf).to(torch.int8), dim=1)
+
+
+def _envmap_distribution(lgtMap: torch.Tensor) -> torch.Tensor:
+    """Texel density [H,W,1] of luminance x sin(theta), mean 1."""
+    H, W, _ = lgtMap.shape
+    energy = lgtMap.mean(-1, keepdim=True)
+    rows = torch.arange(H, device=lgtMap.device, dtype=lgtMap.dtype)
+    dist_f = energy * torch.sin((rows + 0.5) / H * np.pi)[:, None, None]
+    return dist_f / dist_f.sum() * H * W
+
+
+def constant_2d_light_sampling(gen: torch.Generator, normal: torch.Tensor, lgtMap: torch.Tensor):
+    """Sample wi proportional to the envmap's luminance x sin(theta): a row,
+    then a column in it; the direction is the texel's corner. Returns
+    (wi [...,3], pdf [...,1])."""
+    base_shape = normal.shape[:-1]
+    n_flat = int(np.prod(base_shape)) if base_shape else 1
+    H, W, _ = lgtMap.shape
+    p_uv = _envmap_distribution(lgtMap)
+    p_v = p_uv.sum(1) / W
+    p_u_if_v = p_uv / p_v[:, None, :]
+    v_id = _sample_1d_cdf(gen, p_v[:, 0][None, :].expand(n_flat, H))
+    u_id = _sample_1d_cdf(gen, p_u_if_v[v_id, :, 0])
+    phi = v_id.to(lgtMap.dtype) / H * np.pi
+    theta = np.pi * (1 - u_id.to(lgtMap.dtype) / W * 2.0)
+    wi = torch.stack([torch.cos(theta) * torch.sin(phi), torch.sin(theta) * torch.sin(phi),
+                      torch.cos(phi)], dim=-1)
+    sin_phi = torch.sin(phi)
+    pdf = torch.where(sin_phi == 0, torch.zeros_like(sin_phi),
+                      p_uv[v_id, u_id, 0] / (2 * np.pi * np.pi * sin_phi))
+    return wi.reshape(base_shape + (3,)), pdf.reshape(base_shape + (1,))
+
+
+def _texel(wi: torch.Tensor, H: int, W: int):
+    """-> (phi [...,1], row [...], column [...]) of the texel wi falls in."""
+    w = wi / torch.clamp(torch.linalg.norm(wi, dim=-1, keepdim=True), min=TINY_NUMBER)
+    phi = torch.arccos(torch.clamp(w[..., 2:3], -1.0, 1.0))
+    theta = torch.atan2(w[..., 1:2], w[..., 0:1])
+    u = (1.0 - theta / np.pi) / 2.0
+    v = phi / np.pi
+    u_id = torch.clamp(torch.floor(u * W).to(torch.int64), 0, W - 1)
+    v_id = torch.clamp(torch.floor(v * H).to(torch.int64), 0, H - 1)
+    return phi, v_id[..., 0], u_id[..., 0]
+
+
+def pdf_fn_constant_2d_light(wi, normal, viewdir, roughness, lgtMap):
+    H, W, _ = lgtMap.shape
+    phi, v_id, u_id = _texel(wi, H, W)
+    pdf_uv = _envmap_distribution(lgtMap)[v_id, u_id]
+    sin_phi = torch.sin(phi)
+    return torch.where(sin_phi == 0, torch.zeros_like(sin_phi),
+                       pdf_uv / (2 * np.pi * np.pi * sin_phi))
+
+
+def envmap_lookup(wi: torch.Tensor, lgtMap: torch.Tensor) -> torch.Tensor:
+    """Nearest-texel radiance of the envmap [H,W,3] along wi [...,3]."""
+    _, v_id, u_id = _texel(wi, lgtMap.shape[0], lgtMap.shape[1])
+    return lgtMap[v_id, u_id, :]
 
 
 # ---- multiple importance sampling ---------------------------------------------

@@ -4,8 +4,8 @@ evaluation, the closed-form SG renderer of the PhySG baseline
 Fresnel and geometry folded into its amplitude, SG products by
 `lambda_trick`, the clamped cosine as one SG and the stable hemisphere
 integral `hemisphere_int`) and `compute_envmap` (SG mixture -> equirect
-envmap in mitsuba/blender conventions). Every expression is the JAX
-package's, in its order, in fp32."""
+envmap in mitsuba/blender conventions, or a constant map's bilinear
+resize). Every expression is the JAX package's, in its order, in fp32."""
 
 from __future__ import annotations
 
@@ -196,8 +196,41 @@ def envmap_view_dirs(H: int, W: int, upper_hemi: bool = False, coordinate_type: 
 
 
 def compute_envmap(lgtSGs: torch.Tensor, H: int, W: int, upper_hemi: bool = False,
-                   coordinate_type: str = "mitsuba") -> torch.Tensor:
-    """SG mixture [M,7] -> equirect envmap [H,W,3]."""
+                   coordinate_type: str = "mitsuba", envmap_type: str = "sg") -> torch.Tensor:
+    """SG mixture [M,7] (or a constant map [M,M,3]) -> equirect envmap [H,W,3]."""
+    if envmap_type == "constant":
+        return compute_envmap_2d(lgtSGs, H, W)
     viewdirs = envmap_view_dirs(H, W, upper_hemi, coordinate_type, lgtSGs.device)
     lobes, lambdas, mus = extract_light_sg(lgtSGs)
     return sg_fn(viewdirs[..., None, :], lobes, lambdas, mus).sum(-2)
+
+
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] weights of a bilinear (triangle-kernel) resize of one
+    axis, as jax.image.resize builds them: the kernel widened by
+    n_in / n_out where the axis shrinks (antialiasing), each output's
+    weights renormalised to sum 1 (also where the border cuts the kernel)."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample_f = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample_f[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]
+         ).abs() / kernel_scale
+    w = torch.clamp(1.0 - x, min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def compute_envmap_2d(lgtMap: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Bilinear resize of a constant light map [h,w,3] to [H,W,3]
+    (jax.image.resize(..., "bilinear"), antialiased where a side shrinks)."""
+    h, w, _ = lgtMap.shape
+    out = lgtMap
+    if h != H:
+        out = torch.einsum("hwc,hH->Hwc", out, _resize_weights(h, H, lgtMap.device))
+    if w != W:
+        out = torch.einsum("hwc,wW->hWc", out, _resize_weights(w, W, lgtMap.device))
+    return out

@@ -194,10 +194,9 @@ class RenderRunner:
         from nefii_tpu_torch.ops.sg import compute_envmap
 
         em = self.model.envmap_material_network
-        if em.light_type != "sg":
-            raise NotImplementedError("envmap.exr of a constant light is not ported yet")
         env = compute_envmap(em.get_lgtSGs(), *self.envmap_size,
-                             coordinate_type=self.coordinate_type)
+                             coordinate_type=self.coordinate_type,
+                             envmap_type="sg" if em.light_type == "sg" else "constant")
         exr_io.write(os.path.join(self.out_dir, "envmap.exr"), env.cpu().numpy())
 
     def write_mesh(self):

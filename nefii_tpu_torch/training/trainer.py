@@ -768,12 +768,10 @@ class IDRTrainRunner:
         exr_io.write(os.path.join(self.plots_dir, f"{split}_{it}_sg_rgb.exr"),
                      out["sg_rgb_values"].reshape(H, W, 3))
         em = self.model.envmap_material_network
-        if em.light_type == "sg":
-            with torch.no_grad():
-                env = compute_envmap(em.get_lgtSGs(), 64, 128,
-                                     coordinate_type=self.coordinate_type)
-            exr_io.write(os.path.join(self.plots_dir, f"{split}_{it}_envmap.exr"),
-                         env.cpu().numpy())
+        with torch.no_grad():
+            env = compute_envmap(em.get_lgtSGs(), 64, 128, coordinate_type=self.coordinate_type,
+                                 envmap_type="sg" if em.light_type == "sg" else "constant")
+        exr_io.write(os.path.join(self.plots_dir, f"{split}_{it}_envmap.exr"), env.cpu().numpy())
         if split == "train":
             export_surface(self.model.implicit_network.sdf,
                            os.path.join(self.plots_dir, f"surface_{it}.obj"),

@@ -506,8 +506,8 @@ def test_sdf_conf_builds_and_sg_rendering_raises(tmp_path):
     package's does on the same weights (hit mask equal; points and normals
     within 1e-5; the shaded colours within the fp32 noise of the SG formula,
     rtol 1e-4, see test_torch_port_physg.py); Step 2 trains it. The name
-    stays from when the port raised there; a render type the port lacks
-    still raises."""
+    stays from when the port raised there; a render type that neither
+    package has raises."""
     with open(os.path.join(ROOT, "confs", "sdf.conf")) as f:
         text = f.read()
     conf = parse_string(text).get_config("model")
@@ -539,8 +539,8 @@ def test_sdf_conf_builds_and_sg_rendering_raises(tmp_path):
         assert np.abs(np.asarray(jout[k])[hit]).max() > 0, k
         np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]), atol=1e-5, rtol=1e-4,
                                    err_msg=k)
-    model.render_type = "path_tracing_sg"
-    with pytest.raises(NotImplementedError, match="render_type 'path_tracing_sg'"):
+    model.render_type = "no_such_type"
+    with pytest.raises(ValueError, match="render_type 'no_such_type'"):
         model.forward_with_uv({k: torch.from_numpy(v) for k, v in batch.items()}, gen)
     scene = write_sphere_scene(str(tmp_path / "scene"), 1, 8)
     runner = IDRTrainRunner(conf=parse_string(text), data_split_dir=scene, freeze_geometry=True,
