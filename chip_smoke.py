@@ -156,10 +156,24 @@ Phases, each of which raises on failure (exit code != 0):
    memory); then each type's 16x16-ray render (fp32 trace, directions
    injected, some into the surface) on the card against the CPU: the
    path-traced images at >= 60 dB, REF_KEYS within REF_TOL.
+20. tools: exp_runner.main on confs/conf.conf with --freeze_geometry
+   --subsample 0.5, one epoch (4 steps) of 2048 px x 64 rays with their
+   distillation steps on a 4-view 256x256 sphere (img_res 128x128, K scaled by 0.5, every
+   loss finite, K1's sdf entry and K2 launched; s/step, peak memory); on its
+   checkpoint the relighting sweep (vis_rotate_envlight.main, 180-degree
+   steps, a 128x128 view at 16 rays: two finite renders that differ, K1's
+   sdf entry and K2 launched; s/view) and idr_color_analyze.main on 2
+   pixels (K1 fp32 and K2 launched; the hemisphere colours within 1e-4 of
+   the same tool's --device cpu run, the hit flags equal); fit_envmap_with_sg
+   (128 SGs on a 256x512 map that compute_envmap makes from seeded SGs: the
+   first 3 steps from a shared init within rel 1e-4 of the CPU's, then 200
+   steps on the card, whose loss must fall; s/step); then
+   nefii_tpu_torch/workflows/neus2nefii.sh and run_s2_wmask.sh (--max_niter
+   1) through bash, each exiting 0.
 
 The line before the last is the kernels' JSON record (launches from the
 frozen training run, and beside them those of the render, the references,
-the live-geometry paths, the NeuS run and phases 14-19); the last line is
+the live-geometry paths, the NeuS run and phases 14-20); the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
@@ -2714,6 +2728,201 @@ def phase_render_types(card):
     return res
 
 
+TOOLS_RES = 256            # the subsample run's scene, trained at 128x128 (--subsample 0.5)
+TOOLS_VIEWS = 4
+TOOLS_STEPS = 4            # one epoch of the 4 views (the trainer stops at an epoch's end)
+TOOLS_SUBSAMPLE = 0.5
+SWEEP_RES = 128
+SWEEP_RAYS = 16
+SWEEP_STEP_DEG = 180       # two renders: 0 and 180 degrees
+IDR_PIXELS = ("64,64", "80,52")
+IDR_TOL = 1e-4             # the card's hemisphere colours against the CPU's, absolute
+SG_FIT_SHAPE = (256, 512)
+SG_FIT_SGS = 128
+SG_FIT_STEPS = 200
+SG_FIT_CHECKED = 3         # steps held against the CPU's from a shared init
+SG_FIT_REL = 1e-4
+TOOLS_KERNELS = ("fused_sdf_value", "fused_sdf_fwd_bwd")
+IDR_KERNELS = ("fused_sdf_hidden", "fused_sdf_fwd_bwd")
+
+
+def _fit_steps(fit, gt, init, n, device):
+    """fit_envmap_sg for n steps from `init`, logging each: -> ([lobes after
+    each step], the final loss)."""
+    steps = []
+    real = fit._save_progress
+    fit._save_progress = lambda lgt, *a: steps.append(lgt)
+    try:
+        _, loss = fit.fit_envmap_sg(gt, SG_FIT_SGS, "mitsuba", n, 1e-2, init=init, log_every=1,
+                                    out_dir="unused", device=device)
+    finally:
+        fit._save_progress = real
+    return steps, loss
+
+
+def _workflow(script, args, cwd, env):
+    """bash nefii_tpu_torch/workflows/<script> args; raises unless it exits 0."""
+    path = os.path.join(ROOT, "nefii_tpu_torch", "workflows", script)
+    t0 = time.perf_counter()
+    r = subprocess.run(["bash", path, *args], cwd=cwd, capture_output=True, text=True,
+                       env={**os.environ, "PYTHON": sys.executable, **env}, timeout=600)
+    seconds = time.perf_counter() - t0
+    print(f"[tools] bash {script}: exit {r.returncode} in {seconds:.1f} s", flush=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"[tools] {script} exited {r.returncode}:\n{r.stdout[-4000:]}\n"
+                           f"{r.stderr[-4000:]}")
+    return seconds
+
+
+def phase_tools(card):
+    """Phase 20: the dataset subsample, the offline tools and the workflows
+    on the card. A subsample run (exp_runner --subsample 0.5, frozen
+    geometry, one epoch of 2048 px x 64 rays a step with distillation on a
+    4-view 256x256 sphere trained at 128x128); the relighting sweep and
+    idr_color_analyze on its checkpoint (the latter against its own
+    --device cpu run); the SG fit (128 SGs on a 256x512 map, its first steps
+    against the CPU's); neus2nefii.sh and run_s2_wmask.sh through bash."""
+    import numpy as np
+    import torch
+
+    from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
+    from nefii_tpu_torch.datasets.synthetic import write_neus_scene, write_sphere_scene
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.ops.sg import compute_envmap
+    from nefii_tpu_torch.scripts import fit_envmap_with_sg as fit
+    from nefii_tpu_torch.scripts import idr_color_analyze, vis_rotate_envlight
+    from nefii_tpu_torch.utils import exr
+
+    t0 = time.perf_counter()
+    res = {}
+    total = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        fm.reset_launch_counts()
+        ft.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {**fm.LAUNCHES, **ft.LAUNCHES}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out, launches
+
+    with tempfile.TemporaryDirectory() as d:
+        # ---- the subsample run -------------------------------------------------
+        scene = write_sphere_scene(os.path.join(d, "scene"), TOOLS_VIEWS, TOOLS_RES)
+        runner, summary = _step2("tools-subsample", d, (), scene, TOOLS_STEPS,
+                                 ["--subsample", str(TOOLS_SUBSAMPLE)], card)
+        for k, v in summary["launches"].items():
+            total[k] = total.get(k, 0) + v
+        ds = runner.train_dataset
+        full = SceneDataset(1.0, scene, False)
+        want_res = [int(TOOLS_RES * TOOLS_SUBSAMPLE)] * 2
+        for K, K0 in zip(ds.intrinsics_all, full.intrinsics_all):
+            want = K0.copy()
+            want[[0, 0, 1, 1], [0, 2, 1, 2]] *= TOOLS_SUBSAMPLE
+            if not np.array_equal(K, want):
+                raise RuntimeError(f"[tools] K not scaled by {TOOLS_SUBSAMPLE}: {K} vs {K0}")
+        losses = [v for st in runner.step_stats for k, v in st.items() if k.endswith("loss")]
+        if ds.img_res != want_res or not np.isfinite(losses).all():
+            raise RuntimeError(f"[tools] subsample run: img_res {ds.img_res} (want {want_res}) "
+                               f"or a loss not finite: {losses}")
+        if any(summary["launches"][n] <= 0 for n in TOOLS_KERNELS):
+            raise RuntimeError(f"[tools] the subsample run did not launch {TOOLS_KERNELS}: "
+                               f"{summary['launches']}")
+        res["subsample"] = {k: summary[k] for k in ("s_per_step", "secondary_s",
+                                                    "max_memory_allocated", "launches")}
+        res["subsample"]["img_res"] = ds.img_res
+        conf = os.path.join(d, "tools-subsample.conf")
+        exp = ["--conf", conf, "--old_expdir", runner.expdir, "--timestamp", runner.timestamp]
+
+        # ---- the relighting sweep ----------------------------------------------
+        views = SceneDataset.write_camera_only_split(os.path.join(d, "views"), 1, SWEEP_RES,
+                                                     focal=160.0)
+        out = os.path.join(d, "sweep")
+        vr, launches = counted(lambda: vis_rotate_envlight.main(
+            exp + ["--data_split_dir", views, "--step_deg", str(SWEEP_STEP_DEG), "--num_rays",
+                   str(SWEEP_RAYS), "--out_dir", out, "--device", "cuda"]))
+        imgs = [exr.read(os.path.join(out, f"rot_{a:03d}", "render.exr"))
+                for a in range(0, 360, SWEEP_STEP_DEG)]
+        if any(i.shape != (SWEEP_RES, SWEEP_RES, 3) or not np.isfinite(i).all() for i in imgs) \
+                or np.array_equal(imgs[0], imgs[1]):
+            raise RuntimeError("[tools] the sweep's renders are not finite or do not differ")
+        if any(launches[n] <= 0 for n in TOOLS_KERNELS):
+            raise RuntimeError(f"[tools] the sweep did not launch {TOOLS_KERNELS}: {launches}")
+        s_view = [st["seconds"] for st in vr.stats]
+        res["sweep"] = dict(s_per_view=s_view, launches=launches,
+                            max_abs_diff_between_angles=float(np.abs(imgs[0] - imgs[1]).max()))
+        print(f"[tools] relighting sweep: {len(s_view)} views of {SWEEP_RES}x{SWEEP_RES} at "
+              f"{SWEEP_RAYS} rays/px, s/view {s_view}; launches {launches} [{card}]", flush=True)
+
+        # ---- idr_color_analyze, card against CPU -------------------------------
+        argv = exp + ["--data_split_dir", views, "--pixels", *IDR_PIXELS]
+        t1 = time.perf_counter()
+        got, launches = counted(lambda: idr_color_analyze.main(
+            argv + ["--out_dir", os.path.join(d, "idr_card"), "--device", "cuda"]))
+        idr_s = time.perf_counter() - t1
+        cpu = idr_color_analyze.main(argv + ["--out_dir", os.path.join(d, "idr_cpu"),
+                                             "--device", "cpu"])
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got["colors"], cpu["colors"]))
+        print(f"[tools] idr_color_analyze: {len(IDR_PIXELS)} pixels, hit {got['hit'].tolist()} "
+              f"(cpu {cpu['hit'].tolist()}), card vs cpu max abs err {err:.3g} (tol {IDR_TOL}); "
+              f"{idr_s:.2f} s; launches {launches} [{card}]", flush=True)
+        if not np.array_equal(got["hit"], cpu["hit"]) or not err <= IDR_TOL:
+            raise RuntimeError(f"[tools] idr_color_analyze: the card disagrees with the CPU")
+        if any(launches[n] <= 0 for n in IDR_KERNELS):
+            raise RuntimeError(f"[tools] idr_color_analyze did not launch {IDR_KERNELS}: "
+                               f"{launches}")
+        res["idr_color_analyze"] = dict(seconds=idr_s, max_abs_err=err, launches=launches,
+                                        hit=got["hit"].tolist())
+
+        # ---- the SG fit ---------------------------------------------------------
+        rs = np.random.RandomState(0)
+        sgs = rs.randn(16, 7).astype(np.float32)
+        sgs[:, 3] = np.abs(sgs[:, 3]) * 20.0
+        sgs[:, 4:] = np.abs(sgs[:, 4:])
+        with torch.no_grad():
+            gt = compute_envmap(torch.as_tensor(sgs, device="cuda"), *SG_FIT_SHAPE).cpu().numpy()
+        init = torch.randn((SG_FIT_SGS, 7), generator=torch.Generator().manual_seed(0)).numpy()
+        init[:, 3] *= 100.0
+        card_steps, _ = _fit_steps(fit, gt, init, SG_FIT_CHECKED, "cuda")
+        cpu_steps, _ = _fit_steps(fit, gt, init, SG_FIT_CHECKED, "cpu")
+        rel = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(card_steps, cpu_steps))
+        _, loss0 = fit.fit_envmap_sg(gt, SG_FIT_SGS, n_iter=0, init=init, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, loss = fit.fit_envmap_sg(gt, SG_FIT_SGS, n_iter=SG_FIT_STEPS, lr=1e-2, init=init,
+                                    device="cuda")
+        fit_s = (time.perf_counter() - t1) / SG_FIT_STEPS
+        print(f"[tools] SG fit: {SG_FIT_SGS} SGs on {SG_FIT_SHAPE[0]}x{SG_FIT_SHAPE[1]}, first "
+              f"{SG_FIT_CHECKED} steps card vs cpu rel {rel:.3g} (tol {SG_FIT_REL}); loss "
+              f"{loss0:.6g} -> {loss:.6g} in {SG_FIT_STEPS} steps, {fit_s * 1e3:.3f} ms/step "
+              f"[{card}]", flush=True)
+        if not rel <= SG_FIT_REL or not loss < loss0:
+            raise RuntimeError("[tools] the SG fit disagrees with the CPU or its loss did not fall")
+        res["sg_fit"] = dict(s_per_step=fit_s, loss_start=loss0, loss_end=loss, rel_err=rel)
+
+        # ---- the workflows ------------------------------------------------------
+        data = os.path.join(d, "data")
+        write_sphere_scene(os.path.join(data, "ball", "train"), 2, SWEEP_RES)
+        write_sphere_scene(os.path.join(data, "ball", "test"), 1, SWEEP_RES)
+        env = {"DATA_PATH": data, "SAVE_PATH": os.path.join(d, "wf_exps")}
+        res["workflows"] = {
+            "neus2nefii.sh": _workflow("neus2nefii.sh", [write_neus_scene(
+                os.path.join(d, "neus")), os.path.join(d, "converted")], d, env),
+            "run_s2_wmask.sh": _workflow("run_s2_wmask.sh", [
+                "ball", os.path.join(runner.expdir, runner.timestamp, "checkpoints"),
+                "--conf", conf, "--max_niter", "1"], d, env)}
+        if not os.path.isfile(os.path.join(d, "converted", "train", "cam_dict_norm.json")):
+            raise RuntimeError("[tools] neus2nefii.sh wrote no cam_dict_norm.json")
+    res["launches"] = total
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[tools] {res['seconds']:.1f} s; launches {total} [{card}]", flush=True)
+    return res
+
+
 def main():
     import torch
 
@@ -2739,6 +2948,7 @@ def main():
     fast = phase_fast_multi_ray(card)
     mgpu = phase_multi_gpu(card)
     rtypes = phase_render_types(card)
+    tools = phase_tools(card)
     print(json.dumps({"render": stats, "reference": ref, "train_reference": train_ref,
                       "unfrozen_reference": unfrozen_ref, "train": train, "physg": physg,
                       "unfrozen": unfrozen, "neus": neus, "trace_kernel": trace,
@@ -2746,6 +2956,7 @@ def main():
                       "cameras": cameras, "view_diff": view_diff, "fast_multi_ray": fast,
                       "multi_gpu": {k: v for k, v in mgpu.items() if k != "launches"},
                       "render_types": {k: v for k, v in rtypes.items() if k != "launches"},
+                      "tools": {k: v for k, v in tools.items() if k != "launches"},
                       "card": card}), flush=True)
     src = "nefii_tpu_torch/ops/kernels/csrc/fused_mlp.cu"
     tc_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_tc.cuh"
@@ -2767,7 +2978,8 @@ def main():
             "fast_multi_ray_launches": fast.pop("launches"),
             "fast_multi_ray_render_launches": fast.pop("render_launches"),
             "multi_gpu_launches": mgpu["launches"],
-            "render_types_launches": rtypes["launches"]}
+            "render_types_launches": rtypes["launches"],
+            "tools_launches": tools["launches"]}
 
     def paths(name):
         return {k: v[name] for k, v in live.items()}

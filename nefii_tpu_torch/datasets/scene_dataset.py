@@ -10,6 +10,8 @@ EXR images go through the port's utils/exr.py and PNG images through its
 utils/png.py; only JPG inputs need imageio, imported when such a file is read.
 Pixel and patch sampling take an explicit numpy Generator, as in the JAX
 package, so both packages draw the same pixels from the same seed.
+`subsample` resamples the images, masks and intrinsics on load through
+utils/resize.py, the port's equal of the JAX package's cv2.resize.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 from nefii_tpu_torch.utils import exr as exr_io
 from nefii_tpu_torch.utils.camera import rot_to_quat
 from nefii_tpu_torch.utils.png import read_png
+from nefii_tpu_torch.utils.resize import resize
 
 IMG_EXTENSIONS = ["png", "jpg", "jpeg", "JPG", "JPEG", "exr", "PNG", "EXR"]
 
@@ -71,11 +74,10 @@ class SceneDataset:
     def __init__(self, gamma: float, instance_dir: str, train_cameras: bool,
                  subsample: float = 1, wo_mask: bool = False):
         assert os.path.exists(instance_dir), f"Data directory is empty: {instance_dir}"
-        if subsample not in (None, 1):
-            raise NotImplementedError("subsample is not ported")
         self.instance_dir = instance_dir
         self.gamma = gamma
         self.train_cameras = train_cameras
+        self.subsample = subsample
         self.sampling_idx: Optional[np.ndarray] = None
         self.sampling_rays: Optional[np.ndarray] = None
 
@@ -111,6 +113,32 @@ class SceneDataset:
             self.object_masks = [load_mask(p).reshape(-1) for p in mask_paths]
         else:
             self.object_masks = [np.ones((self.total_pixels,), bool)] * self.n_cameras
+
+        if self.subsample is not None and self.subsample != 1:
+            self.resize()
+
+    def resize(self) -> None:
+        """Resample images, masks and intrinsics by `subsample`, as the JAX
+        package does through cv2.resize (utils/resize.py): area when the
+        images shrink, linear when they grow; masks resampled as float32
+        and then compared > 0.5."""
+        old_res = (self.img_res[0], self.img_res[1])
+        new_res = (int(old_res[0] * self.subsample), int(old_res[1] * self.subsample))
+        self.img_res = [new_res[0], new_res[1]]
+        self.total_pixels = new_res[0] * new_res[1]
+        scale = max(new_res) / max(old_res)
+        for K in self.intrinsics_all:
+            K[0, 0] *= scale
+            K[0, 2] *= scale
+            K[1, 1] *= scale
+            K[1, 2] *= scale
+        mode = "area" if scale < 1 else "linear"
+        self.rgb_images = [
+            resize(img.reshape(old_res[0], old_res[1], 3), new_res, mode).reshape(-1, 3)
+            for img in self.rgb_images]
+        self.object_masks = [
+            (resize(m.reshape(old_res).astype(np.float32), new_res, mode) > 0.5).reshape(-1)
+            for m in self.object_masks]
 
     def __len__(self) -> int:
         return self.n_cameras

@@ -5,6 +5,9 @@ as the JAX package's tests/scene_factory.py, computed per image instead of
 per pixel.
 
     write_sphere_scene(d, n_views=4, res=128)
+
+`write_neus_scene` writes the NeuS layout instead (cameras_sphere.npz,
+image/*.png, mask/*.png), the input of scripts/converters.py.
 """
 
 from __future__ import annotations
@@ -60,4 +63,39 @@ def write_sphere_scene(d: str, n_views: int = 3, res: int = 16, radius: float = 
                                 "W2C": np.linalg.inv(C2W).reshape(-1).tolist()}
     with open(os.path.join(d, "cam_dict_norm.json"), "w") as fjson:
         json.dump(cams, fjson)
+    return d
+
+
+def write_neus_scene(d: str, n_views: int = 2, res: int = 8, netease: bool = False,
+                     seed: int = 0) -> str:
+    """Write a NeuS-layout scene: `n_views` seeded random res x res PNG
+    images with full masks, and cameras_sphere.npz holding per view
+    world_mat (K @ W2C), camera_mat (K, focal 2.5 res), camera_mat_inv,
+    scale_mat (radius 0.5, a small offset), scale_mat_inv and w2c_mat, plus
+    c2w_mat when `netease` (that source's 7 entries a view). Returns d."""
+    os.makedirs(os.path.join(d, "image"), exist_ok=True)
+    os.makedirs(os.path.join(d, "mask"), exist_ok=True)
+    rs = np.random.RandomState(seed)
+    K = np.eye(4)
+    K[0, 0] = K[1, 1] = 2.5 * res
+    K[0, 2] = K[1, 2] = res / 2
+    data = {}
+    for i in range(n_views):
+        write_png(os.path.join(d, "image", f"{i:03d}.png"),
+                  rs.randint(0, 256, (res, res, 3)).astype(np.uint8))
+        write_png(os.path.join(d, "mask", f"{i:03d}.png"), np.full((res, res), 255, np.uint8))
+        W2C = np.eye(4)
+        W2C[:3, :3] = np.linalg.qr(rs.randn(3, 3))[0]
+        W2C[2, 3] = 2.0 + i
+        scale = np.diag([0.5, 0.5, 0.5, 1.0])
+        scale[:3, 3] = [0.1, -0.2, 0.05]
+        data[f"world_mat_{i}"] = K @ W2C
+        data[f"camera_mat_{i}"] = K
+        data[f"camera_mat_inv_{i}"] = np.linalg.inv(K)
+        data[f"scale_mat_{i}"] = scale
+        data[f"scale_mat_inv_{i}"] = np.linalg.inv(scale)
+        data[f"w2c_mat_{i}"] = W2C
+        if netease:
+            data[f"c2w_mat_{i}"] = np.linalg.inv(W2C)
+    np.savez(os.path.join(d, "cameras_sphere.npz"), **data)
     return d

@@ -15,8 +15,8 @@ package's layouts:
   * or an `.npz` with the canonical keys `save_npz` writes.
 
 The network runs on the given device through torch.nn.functional.conv2d
-and max_pool2d. Writing an `.npz` from the installed `lpips` package (the
-JAX module's `_export_main`) is not ported.
+and max_pool2d. `python -m nefii_tpu_torch.utils.lpips --export-from-torch
+out.npz [SRC...]` writes the canonical `.npz` (`_export_main`).
 """
 
 from __future__ import annotations
@@ -188,3 +188,67 @@ def lpips_from_path(pred: np.ndarray, gt: np.ndarray, weights_path: Optional[str
         return lpips_distance(net, pred, gt)
     except Exception as e:  # reported as the reason LPIPS is unavailable
         raise RuntimeError(f"LPIPS computation failed: {e}") from e
+
+
+def _export_main(argv) -> int:
+    """Write the canonical LPIPS-alex `.npz`:
+
+        python -m nefii_tpu_torch.utils.lpips --export-from-torch out.npz
+        python -m nefii_tpu_torch.utils.lpips --export-from-torch out.npz SRC...
+
+    With SRC paths (.pth/.pt/.npz files or a directory; e.g. a torchvision
+    alexnet state dict plus the lpips repo's `weights/v0.1/alex.pth` lin
+    heads) it merges and converts those. With none it exports the state dict
+    of the installed `lpips` package's `LPIPS(net='alex')`, which downloads
+    its weights on first use. Then point evaluate.py at the npz through
+    --lpips_weights or NEFII_LPIPS_WEIGHTS.
+    """
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="nefii_tpu_torch.utils.lpips")
+    ap.add_argument("--export-from-torch", metavar="OUT_NPZ", required=True)
+    ap.add_argument("sources", nargs="*",
+                    help=".pth/.pt/.npz file(s) or a directory; default: "
+                         "the installed `lpips` package (needs egress on "
+                         "first use)")
+    ns = ap.parse_args(argv)
+
+    if ns.sources:
+        canon: Dict[str, np.ndarray] = {}
+        for src in ns.sources:
+            canon.update(_collect_partial(src))
+        weights = _finalize(canon)
+    else:
+        try:
+            import lpips  # type: ignore
+        except ImportError:
+            print("error: the `lpips` package is not installed and no "
+                  "source paths were given.\n  pip install lpips   # then "
+                  "re-run (downloads AlexNet + lin weights on first use)")
+            return 2
+        model = lpips.LPIPS(net="alex")
+        weights = _finalize(_canon_from_torch_state(model.state_dict()))
+
+    save_npz(weights, ns.export_from_torch)
+    # the export loads through the same gate evaluate.py uses
+    load_weights(ns.export_from_torch)
+    print(f"wrote {ns.export_from_torch} "
+          f"({sum(v.size for v in weights.values())} params, verified "
+          "loadable). Use: evaluate.py --lpips_weights "
+          f"{ns.export_from_torch}  (or NEFII_LPIPS_WEIGHTS=...)")
+    return 0
+
+
+def _finalize(canon: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    missing = _missing_keys(canon)
+    if missing:
+        raise SystemExit(f"export incomplete: missing {missing} — supply a "
+                         "full lpips.LPIPS state dict, or a torchvision "
+                         "alexnet checkpoint plus the lin-head file")
+    return canon
+
+
+if __name__ == "__main__":
+    import sys
+
+    raise SystemExit(_export_main(sys.argv[1:]))

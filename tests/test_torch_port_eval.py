@@ -8,8 +8,9 @@ temporary .npz at rel 1e-5 of lpips_jax (float32 convolutions); the weight
 layouts (full LPIPS state dict, torchvision alexnet + lin heads directory,
 .npz) load to the same arrays; without weights LPIPS is "unavailable";
 evaluate.main on a written prediction/ground-truth folder gives JAX's
-results.txt numbers; evaluate and geometry_runner refuse to run without
-CUDA unless --device cpu is given.
+results.txt numbers; evaluate, geometry_runner, fit_envmap_with_sg,
+vis_rotate_envlight and idr_color_analyze refuse to run without CUDA unless
+--device cpu is given, and write nothing.
 """
 
 import os
@@ -22,7 +23,9 @@ from nefii_tpu.scripts import evaluate as jevaluate
 from nefii_tpu.utils import exr as jexr
 from nefii_tpu.utils import lpips_jax
 from nefii_tpu.utils import metrics as jmetrics
-from nefii_tpu_torch.scripts import evaluate
+from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
+from nefii_tpu_torch.scripts import evaluate, fit_envmap_with_sg, idr_color_analyze
+from nefii_tpu_torch.scripts import vis_rotate_envlight
 from nefii_tpu_torch.training import geometry_runner
 from nefii_tpu_torch.utils import lpips, metrics
 from nefii_tpu_torch.utils.png import write_png
@@ -188,3 +191,18 @@ def test_entry_points_default_to_cuda(tmp_path):
         geometry_runner.main(["--conf", os.path.join(ROOT, "confs", "sdf.conf"), "--mesh_path",
                               "unused.ply", "--exps_folder_name", str(tmp_path / "exps")])
     assert not (tmp_path / "exps").exists()
+
+    # the offline tools that compute on a device
+    env = str(tmp_path / "env.exr")
+    jexr.write(env, np.ones((8, 16, 3), np.float32))
+    with pytest.raises(RuntimeError, match="is_available"):
+        fit_envmap_with_sg.main(["--envmap", env, "--n_iter", "1", "--resize", "4", "8",
+                                 "--out_dir", str(tmp_path / "fit")])
+    scene = SceneDataset.write_camera_only_split(str(tmp_path / "scene"), 1, 8, focal=10.0)
+    render_argv = ["--conf", os.path.join(ROOT, "confs", "conf.conf"), "--data_split_dir",
+                   scene, "--old_expdir", str(tmp_path / "exp"), "--out_dir",
+                   str(tmp_path / "tool_out")]
+    for tool in (vis_rotate_envlight, idr_color_analyze):
+        with pytest.raises(RuntimeError, match="is_available"):
+            tool.main(render_argv)
+    assert sorted(os.listdir(tmp_path)) == ["env.exr", "gt", "pred", "scene"]
