@@ -78,12 +78,16 @@ Phases, each of which raises on failure (exit code != 0):
    launched and that K2 launched 0 times in the shading that keeps a graph
    (it serves the value-only secondary-hit pool); prints s/step and
    max_memory_allocated of each run.
-12. neus: confs/conf_neus.conf (NeuS's 8x256 SDF net, padded to the
-   kernels' width 512 on the card): K1 and K2 on that packing against their
-   plain versions, then a NeuS .pth imported with --geometry_neus and 2
-   frozen steps with the workflow's flags through exp_runner.main. Checks
-   the imported weights, finite losses and launches of K1 bf16 and K2. K3
-   on the NeuS net as on the fitted net of phase 13 (_k3_on_net).
+12. neus: confs/conf_neus.conf (NeuS's 8x256 SDF net): K1 bf16 (both
+   entries) and K2 at width 256, as the card's closures pack the net, against
+   their plain versions at 1, 63, 64, 65, 5000 and 262,144 points under phase
+   3's gates; the same on the net padded to 512, timed beside them, each with
+   its bound at the real width; K1 fp32 on its 512 packing. Then a NeuS .pth
+   imported with --geometry_neus and 2 frozen steps with the workflow's flags
+   through exp_runner.main. Checks the imported weights, finite losses and
+   launches of K1 bf16 and K2 at width 256 and none at 512 (the per-width
+   counts of fused_mlp.LAUNCHES); prints s/step and peak memory. K3 on the
+   NeuS net (at 512) as on the fitted net of phase 13 (_k3_on_net).
 13. geometry: Step 1, mesh export and LPIPS, which reach no kernel (plain
    fp32 cuBLAS). Builds the port's native runtime (g++, printed seconds);
    meshes the radius-0.5 sphere with get_surface_trace at resolution 256;
@@ -173,7 +177,9 @@ Phases, each of which raises on failure (exit code != 0):
 
 The line before the last is the kernels' JSON record (launches from the
 frozen training run, and beside them those of the render, the references,
-the live-geometry paths, the NeuS run and phases 14-20); the last line is
+the live-geometry paths, the NeuS run and phases 14-20; the tensor-core
+kernels' width-256 instantiations as records of their own, "<name>@256",
+their launches from the NeuS run); the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
@@ -318,6 +324,66 @@ def _check_bf16(name, got, ref):
     return err, scale
 
 
+def _check_k1_tc(tag, fw, pts):
+    """K1 bf16 on the tensor cores, the hidden entry and the sdf entry, on
+    the packing `fw` at RAGGED sizes and N_POINTS against the plain versions
+    (TOL, raises). -> (hidden errors, sdf errors) by size."""
+    import torch
+
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+
+    errs_h, errs_s = [], []
+    for n in RAGGED + (N_POINTS,):
+        x = fm.embed_padded(pts[:n], fw)
+        h = fm.fused_hidden(x, fw)
+        sdf = fm.fused_sdf_value(x, fw)
+        torch.cuda.synchronize()
+        eh, sh = _check_bf16(f"[{tag}] K1 bf16 (tensor cores, width {fw.width}) at N={n}", h,
+                             fm.fused_hidden_plain(x, fw))
+        es, ss = _check_bf16(f"[{tag}] fused_sdf_value (width {fw.width}) at N={n}", sdf,
+                             fm.fused_sdf_value_plain(x, fw))
+        errs_h.append(eh)
+        errs_s.append(es)
+        print(f"[{tag}] K1 bf16 (tensor cores, width {fw.width}) N={n}: hidden "
+              f"max_abs_err={eh:.3e} (max|h|={sh:.3e}); fused_sdf_value max_abs_err={es:.3e} "
+              f"(max|sdf|={ss:.3e})", flush=True)
+    return errs_h, errs_s
+
+
+def _check_k2(tag, fw, pts):
+    """K2 (split bf16 on the tensor cores) on the fp32 packing `fw` at RAGGED
+    sizes and N_POINTS against the fp32 plain version (TOL, raises) and,
+    printed beside, against its split-bf16 plain version. -> the errors by
+    size."""
+    import torch
+
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+
+    errs = []
+    for n in RAGGED + (N_POINTS,):
+        x = fm.embed_padded(pts[:n], fw)
+        h, dx = fm.fused_fwd_bwd(x, fw)
+        torch.cuda.synchronize()
+        h_ref, dx_ref = fm.fused_fwd_bwd_plain(x, fw)
+        h_sp, dx_sp = fm.fused_fwd_bwd_split_plain(x, fw)
+        err_h = (h - h_ref).abs().max().item()
+        err_dx = (dx - dx_ref).abs().max().item()
+        dx_scale = dx_ref.abs().max().item()
+        sp_h = (h - h_sp).abs().max().item()
+        sp_dx = (dx - dx_sp).abs().max().item()
+        scheme = max((h_sp - h_ref).abs().max().item(), (dx_sp - dx_ref).abs().max().item())
+        print(f"[{tag}] K2 (split bf16, tensor cores, width {fw.width}) N={n}: against fp32 "
+              f"plain h max_abs_err={err_h:.3e} dx max_abs_err={err_dx:.3e} "
+              f"(max|dx|={dx_scale:.3e}); against the split plain version h {sp_h:.3e} dx "
+              f"{sp_dx:.3e}; the split scheme itself {scheme:.3e}", flush=True)
+        if (not err_h <= TOL["fp32_abs"] or not err_dx <= TOL["grad_rel"] * dx_scale
+                or not bool(torch.isfinite(h).all() and torch.isfinite(dx).all())):
+            raise RuntimeError(f"[{tag}] K2 at width {fw.width} disagrees with its plain version "
+                               f"at N={n}: h {err_h:.3e} dx {err_dx:.3e}")
+        errs.append(max(err_h, err_dx))
+    return errs
+
+
 def phase_kernels():
     import torch
 
@@ -351,20 +417,7 @@ def phase_kernels():
 
         # K1 bf16 on the tensor cores: the hidden entry and the sdf entry
         fw = fm.prepare_weights(net, torch.bfloat16)
-        errs_h, errs_s = [], []
-        for n in RAGGED + (N_POINTS,):
-            x = fm.embed_padded(pts[:n], fw)
-            h = fm.fused_hidden(x, fw)
-            sdf = fm.fused_sdf_value(x, fw)
-            torch.cuda.synchronize()
-            eh, sh = _check_bf16(f"K1 bf16 (tensor cores) at N={n}", h,
-                                 fm.fused_hidden_plain(x, fw))
-            es, ss = _check_bf16(f"fused_sdf_value at N={n}", sdf, fm.fused_sdf_value_plain(x, fw))
-            errs_h.append(eh)
-            errs_s.append(es)
-            print(f"[kernels] K1 bf16 (tensor cores) N={n}: hidden max_abs_err={eh:.3e} "
-                  f"(max|h|={sh:.3e}); fused_sdf_value max_abs_err={es:.3e} (max|sdf|={ss:.3e})",
-                  flush=True)
+        errs_h, errs_s = _check_k1_tc("kernels", fw, pts)
         x = fm.embed_padded(pts, fw)
         ms_h = _time(lambda: fm.fused_hidden(x, fw), reps=10)
         ms_s = _time(lambda: fm.fused_sdf_value(x, fw), reps=10)
@@ -392,28 +445,7 @@ def phase_kernels():
         # K2 on the tensor cores in split bf16, against the fp32 plain version
         # (TOL) and, printed beside, against its split-bf16 plain version
         fw = fm.prepare_weights(net, torch.float32)
-        errs = []
-        for n in RAGGED + (N_POINTS,):
-            x = fm.embed_padded(pts[:n], fw)
-            h, dx = fm.fused_fwd_bwd(x, fw)
-            torch.cuda.synchronize()
-            h_ref, dx_ref = fm.fused_fwd_bwd_plain(x, fw)
-            h_sp, dx_sp = fm.fused_fwd_bwd_split_plain(x, fw)
-            err_h = (h - h_ref).abs().max().item()
-            err_dx = (dx - dx_ref).abs().max().item()
-            dx_scale = dx_ref.abs().max().item()
-            sp_h = (h - h_sp).abs().max().item()
-            sp_dx = (dx - dx_sp).abs().max().item()
-            scheme = max((h_sp - h_ref).abs().max().item(), (dx_sp - dx_ref).abs().max().item())
-            print(f"[kernels] K2 (split bf16, tensor cores) N={n}: against fp32 plain h "
-                  f"max_abs_err={err_h:.3e} dx max_abs_err={err_dx:.3e} (max|dx|={dx_scale:.3e}); "
-                  f"against the split plain version h {sp_h:.3e} dx {sp_dx:.3e}; the split "
-                  f"scheme itself {scheme:.3e}", flush=True)
-            if (not err_h <= TOL["fp32_abs"] or not err_dx <= TOL["grad_rel"] * dx_scale
-                    or not bool(torch.isfinite(h).all() and torch.isfinite(dx).all())):
-                raise RuntimeError(f"K2 disagrees with its plain version at N={n}: h {err_h:.3e} "
-                                   f"dx {err_dx:.3e}")
-            errs.append(max(err_h, err_dx))
+        errs = _check_k2("kernels", fw, pts)
         x = fm.embed_padded(pts, fw)
         ms = _time(lambda: fm.fused_fwd_bwd(x, fw), reps=10)
         plain_ms = _time(lambda: fm.fused_fwd_bwd_plain(x, fw))
@@ -664,7 +696,7 @@ def _k3_on_net(tag, net, card):
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
 
     tracer = _conf_tracer()
-    fw = fm.prepare_weights(net, torch.float32)
+    fw = fm.prepare_weights(net, torch.float32, fm.FMA_WIDTH)
     sdf_k1 = fm.build_fused_sdf(net, torch.float32)
     res = {}
     with torch.no_grad():
@@ -1745,15 +1777,19 @@ def _neus_state(imp):
 def phase_neus(card):
     """The workflow without masks (workflows/run_s2_womask.sh):
     confs/conf_neus.conf, whose SDF net is NeuS's 8x256 (skip at 4, multires
-    6, 256 features) with use_fused_sdf, bf16 trace. The CUDA kernels take
-    one width, 512: prepare_weights pads the 256-wide layers with zero
-    weights on the card. K1 (fp32, and bf16 both entries) and K2 on that
-    packing against their plain versions at N_POINTS points, then a NeuS
-    `.pth` (the seeded net's `sdf_network_fine`) imported through
-    exp_runner.main --geometry_neus with the workflow's flags (frozen
-    geometry, --wo_mask, --gamma 2.2, a distillation step after each of 2
-    steps of 2048 px x 64 rays). Checks the imported weights bit for bit,
-    finite losses, a frozen geometry, and launches of K1 bf16 and K2."""
+    6, 256 features) with use_fused_sdf, bf16 trace. On the card the model's
+    closures pack it at 256 for the tensor-core kernels (K1 bf16, K2) and at
+    512 for the FMA K1 and K3 (fused_mlp.packing_width). K1 bf16 (both
+    entries) and K2 on the 256 packing against their plain versions at
+    RAGGED sizes and N_POINTS points under phase 3's gates, and the same on
+    the net's 512 packing (the padded run of earlier versions), timed beside
+    them with the bounds at the real width; K1 fp32 on its 512 packing; K3
+    on the net (_k3_on_net). Then a NeuS `.pth` (the seeded net's
+    `sdf_network_fine`) imported through exp_runner.main --geometry_neus
+    with the workflow's flags (frozen geometry, --wo_mask, --gamma 2.2, a
+    distillation step after each of 2 steps of 2048 px x 64 rays). Checks
+    the imported weights bit for bit, finite losses, a frozen geometry, and
+    launches of K1 bf16 and K2 at width 256 and at no other."""
     import numpy as np
     import torch
 
@@ -1770,36 +1806,59 @@ def phase_neus(card):
     imp = src.implicit_network
     gen = torch.Generator(device="cuda").manual_seed(2)
     pts = torch.randn(N_POINTS, 3, generator=gen, device="cuda") * 0.5
+    tc_width = fm.packing_width(imp, fm.TC_WIDTHS)
+    if (tc_width, fm.packing_width(imp, (fm.FMA_WIDTH,))) != (256, 512):
+        raise RuntimeError(f"NeuS packing widths: {tc_width} (tensor cores)")
+    hidden_flops, col_flops = _chain_flops(imp)
     res = {}
     with torch.no_grad():
-        for dtype in (torch.float32, torch.bfloat16):
-            fw = fm.prepare_weights(imp, dtype)
-            if fw.width != fm.KERNEL_WIDTH or fw.real_width != 256:
-                raise RuntimeError(f"NeuS packing: width {fw.width}, real {fw.real_width}")
-            x = fm.embed_padded(pts, fw)
-            h, ref = fm.fused_hidden(x, fw), fm.fused_hidden_plain(x, fw)
-            if dtype == torch.float32:
-                err = (h - ref).abs().max().item()
-                if not err <= TOL["fp32_abs"] or not bool(torch.isfinite(h).all()):
-                    raise RuntimeError(f"K1 fp32 on the NeuS net disagrees: {err:.3e}")
-                hk, dx = fm.fused_fwd_bwd(x, fw)
-                hr, dxr = fm.fused_fwd_bwd_plain(x, fw)
-                e_h = (hk - hr).abs().max().item()
-                e_dx = (dx - dxr).abs().max().item()
-                if not (e_h <= TOL["fp32_abs"]
-                        and e_dx <= TOL["grad_rel"] * dxr.abs().max().item()):
-                    raise RuntimeError(f"K2 on the NeuS net disagrees: h {e_h:.3e} dx {e_dx:.3e}")
-                res["k1_fp32"] = dict(max_abs_err=err, ms=_time(lambda: fm.fused_hidden(x, fw)))
-                res["k2"] = dict(max_abs_err_h=e_h, max_abs_err_dx=e_dx,
-                                 ms=_time(lambda: fm.fused_fwd_bwd(x, fw)))
-            else:
-                err, _ = _check_bf16("K1 bf16 on the NeuS net", h, ref)
-                es, _ = _check_bf16("fused_sdf_value on the NeuS net", fm.fused_sdf_value(x, fw),
-                                    fm.fused_sdf_value_plain(x, fw))
-                res["k1_bf16"] = dict(max_abs_err=err, sdf_max_abs_err=es,
-                                      ms=_time(lambda: fm.fused_sdf_value(x, fw), reps=10))
-    print(f"[neus] 8x256 SDF net padded to width {fm.KERNEL_WIDTH}, N={N_POINTS}: {res} "
-          f"[{card}]", flush=True)
+        fw = fm.prepare_weights(imp, torch.float32, fm.FMA_WIDTH)
+        if fw.width != 512 or fw.real_width != 256:
+            raise RuntimeError(f"NeuS packing: width {fw.width}, real {fw.real_width}")
+        x = fm.embed_padded(pts, fw)
+        h, ref = fm.fused_hidden(x, fw), fm.fused_hidden_plain(x, fw)
+        err = (h - ref).abs().max().item()
+        if not err <= TOL["fp32_abs"] or not bool(torch.isfinite(h).all()):
+            raise RuntimeError(f"K1 fp32 on the NeuS net disagrees: {err:.3e}")
+        res["k1_fp32"] = dict(max_abs_err=err, ms=_time(lambda: fm.fused_hidden(x, fw)))
+        for width in fm.TC_WIDTHS:
+            f16 = fm.prepare_weights(imp, torch.bfloat16, width)
+            f32 = fm.prepare_weights(imp, torch.float32, width)
+            errs_h, errs_s = _check_k1_tc("neus", f16, pts)
+            errs_k2 = _check_k2("neus", f32, pts)
+            x16, x32 = fm.embed_padded(pts, f16), fm.embed_padded(pts, f32)
+            weights, records = f16.tc.numel() * 2, fm.split_weights(f32).numel() * 2
+            # bounds at the real width: the net's own products, each input
+            # read and each output written once
+            run = {
+                "fused_sdf_value": dict(
+                    max_abs_err=max(errs_s), ms=_time(lambda: fm.fused_sdf_value(x16, f16), 10),
+                    **_bound(N_POINTS * (hidden_flops + col_flops),
+                             N_POINTS * (f16.emb_dim * 2 + 4) + weights, "bf16")),
+                "fused_sdf_hidden_tc": dict(
+                    max_abs_err=max(errs_h), ms=_time(lambda: fm.fused_hidden(x16, f16), 10),
+                    **_bound(N_POINTS * hidden_flops,
+                             N_POINTS * (f16.emb_dim + f16.real_width) * 2 + weights, "bf16")),
+                "fused_sdf_fwd_bwd": dict(
+                    max_abs_err=max(errs_k2), ms=_time(lambda: fm.fused_fwd_bwd(x32, f32), 10),
+                    **_bound(N_POINTS * 2 * hidden_flops * 3,
+                             N_POINTS * (2 * f32.emb_dim + f32.real_width) * 4 + records,
+                             "bf16")),
+            }
+            if width == tc_width:
+                run["fused_sdf_value"]["plain_ms"] = _time(
+                    lambda: fm.fused_sdf_value_plain(x16, f16))
+                run["fused_sdf_hidden_tc"]["plain_ms"] = _time(
+                    lambda: fm.fused_hidden_plain(x16, f16))
+                run["fused_sdf_fwd_bwd"]["plain_ms"] = _time(
+                    lambda: fm.fused_fwd_bwd_plain(x32, f32))
+            res[f"w{width}"] = run
+            print(f"[neus] width {width}{' (padded)' if width > tc_width else ''}, N={N_POINTS}: "
+                  + "; ".join(f"{k} {v['ms']:.3f} ms (bound at the real width {v['bound_ms']:.3f} "
+                              f"ms, {v['bound_ms'] / v['ms']:.1%})" for k, v in run.items())
+                  + f"; K2 streams {records // 2 // fm.SPLIT_REC} records a tile, K1 "
+                  f"{weights // 2 // (fm.TC_K * width)} chunks a step [{card}]", flush=True)
+    print(f"[neus] 8x256 SDF net: {res} [{card}]", flush=True)
     res["k3"] = _k3_on_net("neus", imp, card)
 
     with tempfile.TemporaryDirectory() as d:
@@ -1839,8 +1898,12 @@ def phase_neus(card):
     if len(stats) != NEUS_VIEWS or not all(np.isfinite(st["loss"]) and st["secondary_points"] > 0
                                            for st in stats):
         raise RuntimeError(f"expected {NEUS_VIEWS} finite steps with distillation: {stats}")
-    if launches["fused_sdf_value"] <= 0 or launches["fused_sdf_fwd_bwd"] <= 0:
-        raise RuntimeError(f"the NeuS run must launch K1 bf16 and K2: {launches}")
+    padded = {k: launches[f"{k}@{w}"] for k in fm.TC_KERNELS for w in fm.TC_WIDTHS
+              if w != tc_width and launches[f"{k}@{w}"]}
+    if launches[f"fused_sdf_value@{tc_width}"] <= 0 or \
+            launches[f"fused_sdf_fwd_bwd@{tc_width}"] <= 0 or padded:
+        raise RuntimeError(f"the NeuS run must launch K1 bf16 and K2 at width {tc_width} only: "
+                           f"{launches}")
     return dict(kernels=res, s_per_step=[st["seconds"] for st in stats],
                 max_memory_allocated=peak, launches=launches)
 
@@ -3020,6 +3083,27 @@ def main():
                                                 "near_share", "retrace_evals")},
              random_rays=trace["random"], random_rays_secondary_conf=trace["random_secondary"]),
     ]
+    # the width-256 instantiations (phase 12's path): launches from the NeuS
+    # run (those of the other paths beside them), times, plain times and
+    # bounds on NeuS's net at 256, the padded 512 packing's time beside them
+    for rec in records:
+        rec["width"] = 512
+    neus_k = neus["kernels"]
+    split_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_split.cuh"
+    for name, source, replaces, dtype, design in (
+            ("fused_sdf_hidden_tc", tc_src, k1, "bfloat16",
+             "wgmma m64n256k16 on two tiles in ping-pong, bulk-copy weight ring"),
+            ("fused_sdf_value", tc_src, k1, "bfloat16",
+             "the tensor-core K1 with the sdf column in its epilogue, two tiles in ping-pong"),
+            ("fused_sdf_fwd_bwd", split_src, "nefii_tpu/ops/pallas/fused_mlp.py:240", "float32",
+             "split bf16 (hi.hi + lo.hi + hi.lo) on wgmma m64n128k16, bulk-copy weight ring")):
+        key = f"{name}@256"
+        records.append(dict(
+            name=key, route="cuda", source=source, replaces=replaces,
+            launches=live["neus_launches"][key],
+            **{k: v.get(key, 0) for k, v in live.items() if k != "neus_launches"},
+            dtype=dtype, design=design, width=256, net="confs/conf_neus.conf 8x256",
+            padded_512_ms=neus_k["w512"][name]["ms"], library_ms=None, **neus_k["w256"][name]))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

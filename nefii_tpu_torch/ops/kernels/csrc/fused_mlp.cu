@@ -14,7 +14,7 @@
 //                          (sdf_mlp_tc.cuh: wgmma, bulk-copy weight ring);
 //     nefii_sdf_value      the same tensor-core kernel with an sdf epilogue:
 //                          sdf = h . w_last[:, 0] + b_last[0] in fp32, so the
-//                          [N, 512] hidden state never reaches memory.
+//                          [N, W] hidden state never reaches memory.
 //   _kernel_fwd_bwd (fused_mlp.py:240), reached through
 //   build_fused_sdf_feature_grad: nefii_sdf_fwd_bwd, the same forward in
 //   fp32 accuracy, then the input-space backward seeded by the sdf column of
@@ -22,6 +22,12 @@
 //   layer's x part into its own accumulator. It runs on the tensor cores in
 //   split bf16 (three bf16 products per multiply-add); its design and bound
 //   are in sdf_mlp_split.cuh.
+//
+// Widths. The FMA kernel takes width WIDTH = 512 only. The tensor-core
+// kernels (K1 bf16, K2) are compiled for TC_WIDTHS, 256 and 512; their
+// entries take the packing's width and launch that instantiation, and refuse
+// any other. A net runs at the smallest compiled width that holds it
+// (fused_mlp.py), so NeuS's 8x256 runs unpadded.
 //
 // What bounds the fp32 FMA kernels on this card. The 8x512 chain is ~3.7
 // MFLOP per point against ~160 B of input and 1-2 KB of output, so it is
@@ -88,21 +94,52 @@ sdf_hidden_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
   }
 }
 
-template <bool SDF>
-int launch_tc(const void* x, const void* tc, const void* wbuf, const long long* desc,
-              int n_layers, int x_cols, const void* wlast, float b_last, void* out_h,
-              void* out_sdf, long long n_rows, int grid, void* stream) {
-  Plan plan;
-  if (!make_plan(desc, n_layers, x_cols, &plan) || x_cols > TC_BK || grid <= 0 ||
-      n_rows <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(sdf_tc_kernel<SDF>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+template <int W, bool SDF>
+int launch_tc_w(const void* x, const void* tc, const void* wbuf, const Plan& plan,
+                const void* wlast, float b_last, void* out_h, void* out_sdf, long long n_rows,
+                int grid, void* stream) {
+  using C = TcCfg<W>;
+  cudaError_t e = cudaFuncSetAttribute(sdf_tc_kernel<W, SDF>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  sdf_tc_kernel<SDF><<<grid, TC_THREADS, TC_SMEM, static_cast<cudaStream_t>(stream)>>>(
+  sdf_tc_kernel<W, SDF><<<grid, TC_THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(tc),
       static_cast<const __nv_bfloat16*>(wbuf), plan, static_cast<const float*>(wlast), b_last,
       static_cast<__nv_bfloat16*>(out_h), static_cast<float*>(out_sdf), n_rows);
+  return (int)cudaGetLastError();
+}
+
+template <bool SDF>
+int launch_tc(const void* x, const void* tc, const void* wbuf, const long long* desc,
+              int n_layers, int x_cols, int width, const void* wlast, float b_last, void* out_h,
+              void* out_sdf, long long n_rows, int grid, void* stream) {
+  Plan plan;
+  if (!make_plan(desc, n_layers, x_cols, &plan, width) || x_cols > TC_BK || grid <= 0 ||
+      n_rows <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (width == 512)
+    return launch_tc_w<512, SDF>(x, tc, wbuf, plan, wlast, b_last, out_h, out_sdf, n_rows, grid,
+                                 stream);
+  if (width == 256)
+    return launch_tc_w<256, SDF>(x, tc, wbuf, plan, wlast, b_last, out_h, out_sdf, n_rows, grid,
+                                 stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int W>
+int launch_split(const void* x, const void* rec, const void* wbuf, const Plan& plan,
+                 const void* wlast, void* h_out, void* dx_out, void* sbuf, int n_rec,
+                 long long n_rows, int grid, void* stream) {
+  using C = SplitCfg<W>;
+  if (n_rec != split_records<W>(plan)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(sdf_split_kernel<W>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  sdf_split_kernel<W><<<grid, TC_THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(rec),
+      static_cast<const float*>(wbuf), plan, static_cast<const float*>(wlast),
+      static_cast<float*>(h_out), static_cast<float*>(dx_out), static_cast<float*>(sbuf), n_rec,
+      n_rows);
   return (int)cudaGetLastError();
 }
 
@@ -114,13 +151,17 @@ const char* nefii_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// the FMA kernel's width, rows and threads a block; the tensor-core kernels'
+// rows a tile, threads a block and compiled widths (tc_widths[2])
 int nefii_fused_mlp_config(int* width, int* block_rows, int* threads, int* tc_block_rows,
-                           int* tc_threads) {
+                           int* tc_threads, int* tc_widths) {
   *width = WIDTH;
   *block_rows = BM;
   *threads = THREADS;
   *tc_block_rows = TC_BM;
   *tc_threads = TC_THREADS;
+  tc_widths[0] = 256;
+  tc_widths[1] = 512;
   return 0;
 }
 
@@ -140,45 +181,46 @@ int nefii_sdf_hidden(const void* x, const void* wbuf, const long long* desc, int
   return (int)cudaGetLastError();
 }
 
-// out[n_rows][WIDTH] bf16 = hidden chain of x[n_rows][x_cols] bf16 on the
-// tensor cores; tc holds the packed weight chunks, wbuf the biases.
+// out[n_rows][width] bf16 = hidden chain of x[n_rows][x_cols] bf16 on the
+// tensor cores at `width` (256 or 512); tc holds the packed weight chunks,
+// wbuf the biases. A block step holds 512 / width tiles of 64 rows.
 int nefii_sdf_hidden_tc(const void* x, const void* tc, const void* wbuf, const long long* desc,
-                        int n_layers, int x_cols, void* out, long long n_rows, int grid,
-                        void* stream) {
-  return launch_tc<false>(x, tc, wbuf, desc, n_layers, x_cols, nullptr, 0.0f, out, nullptr,
-                          n_rows, grid, stream);
+                        int n_layers, int x_cols, int width, void* out, long long n_rows,
+                        int grid, void* stream) {
+  return launch_tc<false>(x, tc, wbuf, desc, n_layers, x_cols, width, nullptr, 0.0f, out,
+                          nullptr, n_rows, grid, stream);
 }
 
 // sdf[n_rows] fp32 = (hidden chain of x) . wlast + b_last, the same kernel.
 int nefii_sdf_value(const void* x, const void* tc, const void* wbuf, const long long* desc,
-                    int n_layers, int x_cols, const void* wlast, float b_last, void* sdf,
-                    long long n_rows, int grid, void* stream) {
-  return launch_tc<true>(x, tc, wbuf, desc, n_layers, x_cols, wlast, b_last, nullptr, sdf,
-                         n_rows, grid, stream);
+                    int n_layers, int x_cols, int width, const void* wlast, float b_last,
+                    void* sdf, long long n_rows, int grid, void* stream) {
+  return launch_tc<true>(x, tc, wbuf, desc, n_layers, x_cols, width, wlast, b_last, nullptr,
+                         sdf, n_rows, grid, stream);
 }
 
-// h_out[n_rows][WIDTH] (last hidden state) and dx_out[n_rows][x_cols]
-// (d sdf / d x), fp32, on the tensor cores in split bf16; rec holds n_rec
-// records of K2's packed split weights (pack_split), wbuf the fp32 biases;
-// sbuf holds grid x (n_layers - 1) x TC_BM x WIDTH floats.
+// h_out[n_rows][width] (last hidden state) and dx_out[n_rows][x_cols]
+// (d sdf / d x), fp32, on the tensor cores in split bf16 at `width` (256 or
+// 512); rec holds n_rec records of K2's packed split weights (pack_split),
+// wbuf the fp32 biases; sbuf holds grid x (n_layers - 1) x TC_BM x width
+// floats.
 int nefii_sdf_fwd_bwd(const void* x, const void* rec, const void* wbuf, const long long* desc,
-                      int n_layers, int x_cols, const void* wlast, void* h_out, void* dx_out,
-                      void* sbuf, int n_rec, long long n_rows, int grid, void* stream) {
+                      int n_layers, int x_cols, int width, const void* wlast, void* h_out,
+                      void* dx_out, void* sbuf, int n_rec, long long n_rows, int grid,
+                      void* stream) {
   Plan plan;
-  if (!make_plan(desc, n_layers, x_cols, &plan) || x_cols > SP_NX || grid <= 0 || n_rows <= 0)
+  if (!make_plan(desc, n_layers, x_cols, &plan, width) || x_cols > SP_NX || grid <= 0 ||
+      n_rows <= 0)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < plan.n; ++l)
     if (plan.l[l].k_h % 16 || plan.l[l].k_x % 16) return (int)cudaErrorInvalidValue;
-  if (n_rec != split_records(plan)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(sdf_split_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SP_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  sdf_split_kernel<<<grid, TC_THREADS, SP_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(rec),
-      static_cast<const float*>(wbuf), plan, static_cast<const float*>(wlast),
-      static_cast<float*>(h_out), static_cast<float*>(dx_out), static_cast<float*>(sbuf), n_rec,
-      n_rows);
-  return (int)cudaGetLastError();
+  if (width == 512)
+    return launch_split<512>(x, rec, wbuf, plan, wlast, h_out, dx_out, sbuf, n_rec, n_rows, grid,
+                             stream);
+  if (width == 256)
+    return launch_split<256>(x, rec, wbuf, plan, wlast, h_out, dx_out, sbuf, n_rec, n_rows, grid,
+                             stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

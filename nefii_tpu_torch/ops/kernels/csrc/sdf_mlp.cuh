@@ -16,7 +16,7 @@
 
 namespace {
 
-constexpr int WIDTH = 512;                       // hidden width: every fused layer's padded output
+constexpr int WIDTH = 512;  // hidden width of this kernel and K3: every fused layer's padded output
 constexpr int BM = 32;                           // rows per block tile
 constexpr int TM = 8;                            // rows per thread
 constexpr int TN = 8;                            // output features per thread
@@ -95,16 +95,17 @@ __device__ __forceinline__ void forward_layer(const Layer& L, const float* in, c
   __syncthreads();
 }
 
-// desc: n_layers x 5 int64 (w, wx, b, k_h, k_x), offsets in elements.
-bool make_plan(const long long* desc, int n_layers, int x_cols, Plan* plan) {
+// desc: n_layers x 5 int64 (w, wx, b, k_h, k_x), offsets in elements; every
+// layer's output padded to `width`.
+bool make_plan(const long long* desc, int n_layers, int x_cols, Plan* plan, int width = WIDTH) {
   if (n_layers < 1 || n_layers > MAX_LAYERS) return false;
-  if (x_cols <= 0 || x_cols > WIDTH || x_cols % 8 != 0) return false;
+  if (x_cols <= 0 || x_cols > width || x_cols % 8 != 0) return false;
   plan->n = n_layers;
   plan->x_cols = x_cols;
   for (int l = 0; l < n_layers; ++l) {
     const long long* d = desc + 5 * l;
     Layer L{d[0], d[1], d[2], (int)d[3], (int)d[4]};
-    if (L.k_h <= 0 || L.k_h > WIDTH || L.k_h % 8 != 0) return false;
+    if (L.k_h <= 0 || L.k_h > width || L.k_h % 8 != 0) return false;
     if (l == 0 && (L.k_h != x_cols || L.k_x != 0)) return false;
     if (L.k_x != 0 && L.k_x != x_cols) return false;
     if (L.w < 0 || L.b < 0 || L.w % 8 || L.b % 8) return false;

@@ -2,13 +2,14 @@
 // the SDF MLP: K1 in bf16 (sdf_mlp_tc.cuh), K2 in split bf16
 // (sdf_mlp_split.cuh) and K3 in split fp16 (fused_trace.cu). All are
 // warp-specialised and persistent: a block of two consumer warpgroups and
-// one producer warpgroup walks 64-row tiles; the producer's one thread
-// streams weight records from global memory into a ring of shared-memory
-// stages with cp.async.bulk and mbarriers, the consumers run wgmma.mma_async
-// (bf16 or fp16 operands, fp32 accumulators in registers) on the activation
-// tile in shared memory and the record in its stage. What lives here: the
-// tile geometry, the 128-byte swizzle of the activation tile, the wgmma
-// descriptors and wrappers, the mbarriers, the bulk copy and the ring.
+// one producer warpgroup walks 64-row tiles (one at a time, or two at K1's
+// width 256); the producer's one thread streams weight records from global
+// memory into a ring of shared-memory stages with cp.async.bulk and
+// mbarriers, the consumers run wgmma.mma_async (bf16 or fp16 operands, fp32
+// accumulators in registers) on the activation tile in shared memory and the
+// record in its stage. What lives here: the tile geometry, the 128-byte
+// swizzle of the activation tile, the wgmma descriptors and wrappers, the
+// mbarriers, named barriers, the bulk copy and the ring.
 
 #pragma once
 
@@ -102,6 +103,26 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
 __device__ __forceinline__ void wgmma_k16(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
   wgmma_m64n256k16(d, da, db, scale_d);
 }
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 operands
+__device__ __forceinline__ void wgmma_k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 // d[64 x 32] (+)= A[64 x 16] B[16 x 32]
 __device__ __forceinline__ void wgmma_k16(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -180,6 +201,14 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
 }
+// named barrier `id` over `n` threads: wait for all of them, or only count
+// this thread's arrival
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 
 // The weight ring: STAGES stages, and at `bars` STAGES full mbarriers (one
 // arrive, the producer's, plus the record's bytes) followed by STAGES empty
@@ -215,13 +244,14 @@ __device__ __forceinline__ void ring_init(uint32_t bars) {
 
 // The producer's one thread: streams records 0 .. n_rec - 1 of BYTES each
 // from src into the ring at `ring` (stage s at ring + s * BYTES), once for
-// every tile this block walks, in TC_COPY_BYTES copies.
+// every step (a tile, or the tiles the block holds at once) this block
+// walks, in TC_COPY_BYTES copies.
 template <int STAGES, int BYTES>
 __device__ __forceinline__ void ring_produce(uint32_t ring, uint32_t bars, const uint8_t* src,
-                                             int n_rec, long long n_tiles) {
+                                             int n_rec, long long n_steps) {
   static_assert(BYTES % TC_COPY_BYTES == 0, "a record is whole bulk copies");
   Ring<STAGES> rg(bars);
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  for (long long step = blockIdx.x; step < n_steps; step += gridDim.x) {
     for (int c = 0; c < n_rec; ++c) {
       mbar_wait(rg.empty(rg.stage), rg.phase ^ 1u);
       mbar_arrive_expect_tx(rg.full(rg.stage), BYTES);

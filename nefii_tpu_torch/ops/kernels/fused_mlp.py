@@ -21,21 +21,29 @@ ctypes):
     hi.hi + lo.hi + hi.lo in fp32, which keeps the fp32 chain's accuracy
     (`fused_fwd_bwd_split_plain` is that arithmetic in plain PyTorch).
 
+Widths. The FMA K1 (and K3, fused_trace.py) takes hidden width FMA_WIDTH =
+512 only; the tensor-core K1 and K2 are compiled for TC_WIDTHS = (256, 512).
+A packing for a kernel on the card has the smallest of its widths that holds
+the network (`packing_width`): NeuS's 8x256 net runs at 256 in K1 bf16 and
+K2, at 512 in K1 fp32 and K3; on the CPU every packing keeps the network's
+own width. A width no kernel takes (above 512) is refused on the card.
+
 `prepare_weights` resolves weight norm, pads and folds the skip layer's
 1/sqrt(2) into split weights once per call, into one packed buffer that the
 kernels and the plain versions share; in bf16 it also packs K1's tensor-core
 chunks (`pack_tc`). K2 packs its split hi/lo records of both passes
 (`split_weights`) at its first launch and keeps them on the FusedWeights.
-`network_weights` keeps one FusedWeights a network and dtype while the
-parameters do not change, so the closures, built at every forward, pack a
-frozen geometry once. The final linear (outside `fused_sdf_value`) and the
+`network_weights` keeps one FusedWeights a network, dtype and width while
+the parameters do not change, so the closures, built at every forward, pack
+a frozen geometry once. The final linear (outside `fused_sdf_value`) and the
 positional encoding's backward stay outside the kernels, as in the JAX
 package.
 
 A wrapper given a CUDA tensor launches its kernel or raises; the plain
 version (`*_plain`) runs only for tensors on the CPU, and it is what the
 kernels are compared against. Each wrapper counts its launches in
-`LAUNCHES`. Nothing here imports triton or needs nvcc at import time.
+`LAUNCHES`, the tensor-core kernels also by width ("fused_sdf_value@256").
+Nothing here imports triton or needs nvcc at import time.
 """
 
 from __future__ import annotations
@@ -48,11 +56,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# launches of each CUDA kernel; a wrapper adds one where it launches, nowhere else
-LAUNCHES: Dict[str, int] = {"fused_sdf_hidden": 0, "fused_sdf_hidden_tc": 0,
-                            "fused_sdf_value": 0, "fused_sdf_fwd_bwd": 0}
+FMA_WIDTH = 512           # width of the FMA K1 and of K3 (WIDTH in csrc/sdf_mlp.cuh)
+TC_WIDTHS = (256, 512)    # widths the tensor-core K1 and K2 are compiled for
+TC_KERNELS = ("fused_sdf_hidden_tc", "fused_sdf_value", "fused_sdf_fwd_bwd")
+# launches of each CUDA kernel, and of the tensor-core kernels at each width
+# ("<kernel>@<width>"); a wrapper adds one where it launches, nowhere else
+LAUNCHES: Dict[str, int] = {"fused_sdf_hidden": 0, **{k: 0 for k in TC_KERNELS},
+                            **{f"{k}@{w}": 0 for k in TC_KERNELS for w in TC_WIDTHS}}
 
-KERNEL_WIDTH = 512    # hidden width the CUDA kernels take (WIDTH in csrc/fused_mlp.cu)
 # rows per block tile and resident blocks per SM of each design; the grids are
 # persistent (csrc: BM and THREADS' launch bounds, TC_BM and TC_THREADS')
 FMA_BLOCK_ROWS, FMA_BLOCKS_PER_SM = 32, 2
@@ -60,9 +71,15 @@ TC_BLOCK_ROWS, TC_BLOCKS_PER_SM = 64, 1
 TC_K = 64             # input rows of one tensor-core weight chunk (TC_BK)
 # K2's weight records (csrc/sdf_mlp_split.cuh): a record is SPLIT_REC bf16
 # values, the hi or the lo half of k16 slices of a K-major [N][16] block in
-# the 32-byte swizzle; one slice a record at N = 512, SPLIT_REC // (SPLIT_NX
-# * 16) = 8 at the backward's x_cols-wide outputs, padded to N = SPLIT_NX
+# the 32-byte swizzle; SPLIT_REC // (N * 16) slices a record (split_group):
+# one at N = 512, two at 256, 8 at the backward's x_cols-wide outputs,
+# padded to N = SPLIT_NX
 SPLIT_K, SPLIT_REC, SPLIT_NX = 16, 8192, 64
+
+
+def split_group(n: int) -> int:
+    """k16 slices a K2 record holds at N = n (SPLIT_REC values, hi or lo)."""
+    return SPLIT_REC // (n * SPLIT_K)
 
 
 def reset_launch_counts() -> None:
@@ -72,6 +89,27 @@ def reset_launch_counts() -> None:
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def network_width(network) -> int:
+    """The network's own packed width: its widest fused layer's output,
+    rounded up to a multiple of 16."""
+    return _round_up(max(layer.d_out for layer in network.layers[:-1]), 16)
+
+
+def fit_width(width: int, widths) -> int:
+    """The smallest of a kernel's compiled `widths` that holds a network of
+    packed width `width`; `width` itself where none does (the kernel's
+    wrapper then refuses the packing)."""
+    return min((w for w in widths if w >= width), default=width)
+
+
+def packing_width(network, widths) -> int:
+    """The width network_weights packs `network` at for a kernel compiled
+    for `widths`: on the card fit_width, elsewhere the network's own (the
+    plain versions give the same values at any padding)."""
+    own = network_width(network)
+    return fit_width(own, widths) if next(network.parameters()).is_cuda else own
 
 
 @dataclass
@@ -122,19 +160,15 @@ def prepare_weights(network, dtype: torch.dtype = torch.float32,
     width; input widths are padded to multiples of 16 and the embedding to
     x_cols. Padded weight rows/columns and biases are zero, so padded
     features never reach a real output (forward) or gradient (backward).
-    `width` pads the outputs further; by default a network on the card is
-    padded to KERNEL_WIDTH, the one width the CUDA kernels take (a 256-wide
-    NeuS geometry runs in them so, as the Pallas kernel pads its layers to
-    128 lanes), and one elsewhere to its own width.
+    `width` pads the outputs further, to the width of the kernel the packing
+    is for (packing_width); by default a packing keeps the network's own.
     """
     dims, embed_fn = network._layer_dims()
     n = len(dims)
     d_emb = dims[0]
     x_cols = _round_up(d_emb, 16)
     ws = [network.layers[l].effective_weight().t() for l in range(n - 2)]  # [in, out]
-    if width is None:
-        width = KERNEL_WIDTH if ws[0].is_cuda else 0
-    width = max(width, _round_up(max(w.shape[1] for w in ws), 16))
+    width = max(width or 0, network_width(network))
 
     blocks: List[torch.Tensor] = []
     offset = 0
@@ -235,11 +269,12 @@ def pack_split(b: torch.Tensor, n_pad: int, group: int,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """One K-major operand block b [n, k] (row i holds the k inputs of the
     product's output column i) -> K2's records, flat in `dtype`: n zero padded to n_pad and k to a
-    multiple of 16, cut into k16 slices [n_pad][16] in the 32-byte swizzle,
-    split into hi and lo; every `group` slices give a hi record and then a lo
-    record, so one bulk copy lands a record as the wgmma B descriptor reads it."""
+    multiple of 16 * group (the padding is zero slices), cut into k16 slices
+    [n_pad][16] in the 32-byte swizzle, split into hi and lo; every `group`
+    slices give a hi record and then a lo record, so one bulk copy lands a
+    record as the wgmma B descriptor reads it."""
     n, k = b.shape
-    kp = _round_up(k, SPLIT_K)
+    kp = _round_up(k, SPLIT_K * group)
     slices = F.pad(b.float(), (0, kp - k, 0, n_pad - n)).reshape(n_pad, kp // SPLIT_K, SPLIT_K)
     slices = slices.permute(1, 0, 2).contiguous()
     hi, lo = (_swizzle32(t).reshape(-1, group * n_pad * SPLIT_K)
@@ -255,12 +290,13 @@ def split_weights(fw: FusedWeights) -> torch.Tensor:
     padded to width, or to SPLIT_NX for the x_cols-wide outputs of layer 0
     and the skip layer's x part)."""
     if fw.split is None:
-        narrow = fw.width // SPLIT_NX
-        parts = [pack_split(w.t(), fw.width, 1) for L in fw.layers for w in (L.w, L.wx)
+        wide, narrow = split_group(fw.width), split_group(SPLIT_NX)
+        parts = [pack_split(w.t(), fw.width, wide) for L in fw.layers for w in (L.w, L.wx)
                  if w is not None]
         for l in reversed(range(len(fw.layers))):
             L = fw.layers[l]
-            parts.append(pack_split(L.w, fw.width, 1) if l else pack_split(L.w, SPLIT_NX, narrow))
+            parts.append(pack_split(L.w, fw.width, wide) if l
+                         else pack_split(L.w, SPLIT_NX, narrow))
             if L.wx is not None:
                 parts.append(pack_split(L.wx, SPLIT_NX, narrow))
         fw.split = torch.cat(parts).contiguous()
@@ -269,12 +305,17 @@ def split_weights(fw: FusedWeights) -> torch.Tensor:
 
 def split_records(fw: FusedWeights) -> int:
     """Records of pack_split that K2 streams a tile, in the kernel's count
-    (split_records in csrc/sdf_mlp_split.cuh): forward, one slice of N =
-    width a record; backward, width / 16 slices of N = width, or of N =
-    SPLIT_NX at width // SPLIT_NX slices a record."""
-    narrow = 2 * (fw.width // SPLIT_K) // (fw.width // SPLIT_NX)
-    return sum(2 * (L.k_h + L.k_x) // SPLIT_K + (2 * fw.width // SPLIT_K if l else narrow)
-               + (narrow if L.k_x else 0) for l, L in enumerate(fw.layers))
+    (split_records in csrc/sdf_mlp_split.cuh): a K-deep block at g slices a
+    record is 2 ceil(k / 16 / g) records; forward, g = split_group(width);
+    backward, K = width, at N = width or at N = SPLIT_NX (layer 0 and the
+    skip layer's x part)."""
+    def recs(k: int, g: int) -> int:
+        return 2 * -(-(k // SPLIT_K) // g)
+
+    wide, narrow = split_group(fw.width), split_group(SPLIT_NX)
+    return sum(recs(L.k_h, wide) + recs(L.k_x, wide)
+               + recs(fw.width, wide if l else narrow) + (recs(fw.width, narrow) if L.k_x else 0)
+               for l, L in enumerate(fw.layers))
 
 
 def embed_padded(pts: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
@@ -373,22 +414,26 @@ def _lib() -> ctypes.CDLL:
         vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         pll = ctypes.POINTER(ctypes.c_longlong)
         lib.nefii_sdf_hidden.argtypes = [vp, vp, pll, i, i, vp, ll, i, vp]
-        lib.nefii_sdf_hidden_tc.argtypes = [vp, vp, vp, pll, i, i, vp, ll, i, vp]
-        lib.nefii_sdf_value.argtypes = [vp, vp, vp, pll, i, i, vp, f, vp, ll, i, vp]
-        lib.nefii_sdf_fwd_bwd.argtypes = [vp, vp, vp, pll, i, i, vp, vp, vp, vp, i, ll, i, vp]
+        lib.nefii_sdf_hidden_tc.argtypes = [vp, vp, vp, pll, i, i, i, vp, ll, i, vp]
+        lib.nefii_sdf_value.argtypes = [vp, vp, vp, pll, i, i, i, vp, f, vp, ll, i, vp]
+        lib.nefii_sdf_fwd_bwd.argtypes = [vp, vp, vp, pll, i, i, i, vp, vp, vp, vp, i, ll, i,
+                                          vp]
         for fn in (lib.nefii_sdf_hidden, lib.nefii_sdf_hidden_tc, lib.nefii_sdf_value,
                    lib.nefii_sdf_fwd_bwd):
             fn.restype = i
         lib.nefii_error_string.argtypes = [i]
         lib.nefii_error_string.restype = ctypes.c_char_p
-        lib.nefii_fused_mlp_config.argtypes = [ctypes.POINTER(i)] * 5
+        lib.nefii_fused_mlp_config.argtypes = [ctypes.POINTER(i)] * 6
         cfg = [i() for _ in range(5)]
-        lib.nefii_fused_mlp_config(*(ctypes.byref(c) for c in cfg))
+        tc_widths = (i * 2)()
+        lib.nefii_fused_mlp_config(*(ctypes.byref(c) for c in cfg), tc_widths)
         width, rows, _, tc_rows, _ = (c.value for c in cfg)
-        if (width, rows, tc_rows) != (KERNEL_WIDTH, FMA_BLOCK_ROWS, TC_BLOCK_ROWS):
-            raise RuntimeError(f"fused_mlp library takes width {width}, rows {rows} (FMA) and "
-                               f"{tc_rows} (tensor cores); the wrapper expects {KERNEL_WIDTH}, "
-                               f"{FMA_BLOCK_ROWS}, {TC_BLOCK_ROWS}")
+        got = (width, rows, tc_rows, tuple(tc_widths))
+        if got != (FMA_WIDTH, FMA_BLOCK_ROWS, TC_BLOCK_ROWS, TC_WIDTHS):
+            raise RuntimeError(f"fused_mlp library takes width {width}, rows {rows} (FMA), "
+                               f"{tc_rows} and widths {tuple(tc_widths)} (tensor cores); the "
+                               f"wrapper expects {FMA_WIDTH}, {FMA_BLOCK_ROWS}, {TC_BLOCK_ROWS}, "
+                               f"{TC_WIDTHS}")
         lib._nefii_typed = True
     return lib
 
@@ -400,14 +445,21 @@ def _grid(n_rows: int, device: torch.device, rows: int, per_sm: int) -> int:
     return max(1, min(-(-n_rows // rows), _SM_COUNT[idx] * per_sm))
 
 
-def _check_cuda(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
+def tc_block_rows(width: int) -> int:
+    """Rows a block step of the tensor-core K1 holds: one 64-row tile at 512,
+    two (one a consumer warpgroup, in ping-pong) at 256 (csrc/sdf_mlp_tc.cuh)."""
+    return TC_BLOCK_ROWS * FMA_WIDTH // width
+
+
+def _check_cuda(x: torch.Tensor, fw: FusedWeights, name: str,
+                widths=(FMA_WIDTH,)) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {x.device} are not supported")
     if fw.buf.device != x.device:
         raise ValueError(f"{name}: weights on {fw.buf.device}, input on {x.device}")
-    if fw.width != KERNEL_WIDTH:
-        raise ValueError(f"{name}: the CUDA kernel takes hidden width {KERNEL_WIDTH}, "
-                         f"this network has {fw.width}")
+    if fw.width not in widths:
+        raise ValueError(f"{name}: the CUDA kernel takes hidden widths {widths}, "
+                         f"this packing has {fw.width}")
     if x.dim() != 2 or x.shape[1] != fw.x_cols:
         raise ValueError(f"{name}: input must be [N, {fw.x_cols}], got {tuple(x.shape)}")
     if x.dtype != fw.dtype:
@@ -422,7 +474,7 @@ def _check_tc(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
     """What the tensor-core kernel takes beyond _check_cuda: bf16, an
     embedding of at most one chunk, and its packed chunks on the device,
     whole, contiguous and 16-byte aligned (the bulk copies' alignment)."""
-    _check_cuda(x, fw, name)
+    _check_cuda(x, fw, name, TC_WIDTHS)
     if fw.dtype != torch.bfloat16:
         raise ValueError(f"{name}: the tensor-core kernel is bf16 only, weights are {fw.dtype}")
     if fw.x_cols > TC_K:
@@ -442,9 +494,15 @@ def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
+def _count(name: str, width: int) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}@{width}"] += 1
+
+
 def fused_hidden(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     """K1: embedded points [N, x_cols] -> last hidden state [N, width], both in
-    the working dtype: fp32 on the FMA pipe, bf16 on the tensor cores."""
+    the working dtype: fp32 on the FMA pipe (width 512), bf16 on the tensor
+    cores (TC_WIDTHS)."""
     if x.device.type == "cpu":
         return fused_hidden_plain(x, fw)
     if fw.dtype == torch.bfloat16:
@@ -463,9 +521,10 @@ def fused_hidden(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     if fw.dtype == torch.bfloat16:
         err = lib.nefii_sdf_hidden_tc(
             x.data_ptr(), fw.tc.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols,
-            out.data_ptr(), n, _grid(n, x.device, TC_BLOCK_ROWS, TC_BLOCKS_PER_SM), stream)
+            fw.width, out.data_ptr(), n,
+            _grid(n, x.device, tc_block_rows(fw.width), TC_BLOCKS_PER_SM), stream)
         _raise_on(err, "fused_hidden", lib)
-        LAUNCHES["fused_sdf_hidden_tc"] += 1
+        _count("fused_sdf_hidden_tc", fw.width)
     else:
         err = lib.nefii_sdf_hidden(
             x.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, out.data_ptr(),
@@ -490,11 +549,11 @@ def fused_sdf_value(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
     err = lib.nefii_sdf_value(
         x.data_ptr(), fw.tc.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols,
-        wlast.data_ptr(), fw.b_sdf, out.data_ptr(), n,
-        _grid(n, x.device, TC_BLOCK_ROWS, TC_BLOCKS_PER_SM),
+        fw.width, wlast.data_ptr(), fw.b_sdf, out.data_ptr(), n,
+        _grid(n, x.device, tc_block_rows(fw.width), TC_BLOCKS_PER_SM),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "fused_sdf_value", lib)
-    LAUNCHES["fused_sdf_value"] += 1
+    _count("fused_sdf_value", fw.width)
     return out
 
 
@@ -503,7 +562,7 @@ def _check_split(x: torch.Tensor, fw: FusedWeights, name: str) -> torch.Tensor:
     embedding of at most SPLIT_NX columns, and its split records (packed
     here at the first launch) on the device, whole, contiguous and 16-byte
     aligned (the bulk copies'). -> the records."""
-    _check_cuda(x, fw, name)
+    _check_cuda(x, fw, name, TC_WIDTHS)
     if fw.dtype != torch.float32:
         raise ValueError(f"{name}: the forward+backward kernel is fp32 only")
     if fw.x_cols > SPLIT_NX:
@@ -520,7 +579,8 @@ def _check_split(x: torch.Tensor, fw: FusedWeights, name: str) -> torch.Tensor:
 
 def fused_fwd_bwd(x: torch.Tensor, fw: FusedWeights):
     """K2: embedded points [N, x_cols] fp32 -> (last hidden [N, width],
-    d sdf / d x [N, x_cols]), fp32, on the tensor cores in split bf16."""
+    d sdf / d x [N, x_cols]), fp32, on the tensor cores in split bf16
+    (TC_WIDTHS)."""
     if x.device.type == "cpu":
         return fused_fwd_bwd_plain(x, fw)
     rec = _check_split(x, fw, "fused_fwd_bwd")
@@ -539,10 +599,10 @@ def fused_fwd_bwd(x: torch.Tensor, fw: FusedWeights):
     desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
     err = lib.nefii_sdf_fwd_bwd(
         x.data_ptr(), rec.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols,
-        wlast.data_ptr(), h.data_ptr(), dx.data_ptr(), sbuf.data_ptr(), rec.numel() // SPLIT_REC,
-        n, grid, torch.cuda.current_stream(x.device).cuda_stream)
+        fw.width, wlast.data_ptr(), h.data_ptr(), dx.data_ptr(), sbuf.data_ptr(),
+        rec.numel() // SPLIT_REC, n, grid, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "fused_fwd_bwd", lib)
-    LAUNCHES["fused_sdf_fwd_bwd"] += 1
+    _count("fused_sdf_fwd_bwd", fw.width)
     return h, dx
 
 
@@ -550,16 +610,19 @@ def fused_fwd_bwd(x: torch.Tensor, fw: FusedWeights):
 # network-level closures (counterparts of build_fused_sdf / _feature_grad)
 # ---------------------------------------------------------------------------
 
-def network_weights(network, dtype: torch.dtype = torch.float32) -> FusedWeights:
-    """prepare_weights(network, dtype), kept on the network and reused while
-    its parameters are the same tensors with no in-place write since (their
-    version counters). The model builds its closures at every forward; on a
-    frozen geometry they so share one packing, K2's records included."""
+def network_weights(network, dtype: torch.dtype, widths) -> FusedWeights:
+    """prepare_weights(network, dtype) at packing_width(network, widths), the
+    width of the kernel compiled for `widths`; kept on the network by (dtype,
+    width) and reused while its parameters are the same tensors with no
+    in-place write since (their version counters). The model builds its
+    closures at every forward; on a frozen geometry they so share one
+    packing a dtype and width, K2's and K3's records included."""
+    width = packing_width(network, widths)
     key = tuple((p.device, p.data_ptr(), p._version) for p in network.parameters())
     cache = network.__dict__.setdefault("_fused_weights", {})
-    if dtype not in cache or cache[dtype][0] != key:
-        cache[dtype] = (key, prepare_weights(network, dtype))
-    return cache[dtype][1]
+    if (dtype, width) not in cache or cache[dtype, width][0] != key:
+        cache[dtype, width] = (key, prepare_weights(network, dtype, width))
+    return cache[dtype, width][1]
 
 
 def pe_backward(dx_emb: torch.Tensor, pts: torch.Tensor, multires: int) -> torch.Tensor:
@@ -610,14 +673,16 @@ def sdf_closure(fw: FusedWeights):
 
 def build_fused_sdf(network, dtype: torch.dtype = torch.float32):
     """fn(pts [N,3]) -> sdf [N] through K1 (sdf_closure) on the network's
-    packed weights."""
-    return sdf_closure(network_weights(network, dtype))
+    packed weights: in bf16 at the tensor-core kernel's width, in fp32 at
+    the FMA kernel's."""
+    widths = TC_WIDTHS if dtype == torch.bfloat16 else (FMA_WIDTH,)
+    return sdf_closure(network_weights(network, dtype, widths))
 
 
 def build_fused_sdf_feature_grad(network):
     """fn(pts [N,3]) -> (sdf [N], feature [N,F], grad [N,3]), value-only (K2)."""
     assert network.d_out == 1, "the gradient kernel assumes a single sdf output"
-    fw = network_weights(network, torch.float32)
+    fw = network_weights(network, torch.float32, TC_WIDTHS)
 
     def fn(pts: torch.Tensor):
         pts = pts.detach()

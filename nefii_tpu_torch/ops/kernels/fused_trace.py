@@ -51,7 +51,7 @@ from typing import Dict, List, Optional
 import torch
 
 from nefii_tpu_torch.ops.kernels.fused_mlp import (
-    KERNEL_WIDTH, SPLIT_K, SPLIT_NX, SPLIT_REC, TC_BLOCK_ROWS, FusedWeights, _grid,
+    FMA_WIDTH, SPLIT_K, SPLIT_NX, SPLIT_REC, TC_BLOCK_ROWS, FusedWeights, _grid,
     _softplus100, _split_mm, embed_padded, fused_hidden_plain, network_weights, pack_split,
     sdf_closure,
 )
@@ -282,9 +282,9 @@ def _lib() -> ctypes.CDLL:
         cfg = [i() for _ in range(4)]
         lib.nefii_fused_trace_config(*(ctypes.byref(c) for c in cfg))
         width, slots, rows, _SLOT_BYTES = (c.value for c in cfg)
-        if (width, slots, rows) != (KERNEL_WIDTH, POOL_SLOTS, TC_BLOCK_ROWS):
+        if (width, slots, rows) != (FMA_WIDTH, POOL_SLOTS, TC_BLOCK_ROWS):
             raise RuntimeError(f"fused_trace library takes width {width}, {slots} rays a pool, "
-                               f"{rows}-row tiles; the wrapper expects {KERNEL_WIDTH}, "
+                               f"{rows}-row tiles; the wrapper expects {FMA_WIDTH}, "
                                f"{POOL_SLOTS}, {TC_BLOCK_ROWS}")
         lib._nefii_typed = True
     return lib
@@ -318,9 +318,9 @@ def _trace_kernel(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer
         raise ValueError(f"fused_sphere_trace: tensors on {cam.device} are not supported")
     if fw.dtype != torch.float32:
         raise ValueError("fused_sphere_trace: the whole-trace kernel is fp32 only")
-    if fw.width != KERNEL_WIDTH:
-        raise ValueError(f"fused_sphere_trace: the CUDA kernel takes hidden width {KERNEL_WIDTH}, "
-                         f"this network has {fw.width}")
+    if fw.width != FMA_WIDTH:
+        raise ValueError(f"fused_sphere_trace: the CUDA kernel takes hidden width {FMA_WIDTH}, "
+                         f"this packing has {fw.width}")
     if fw.buf.device != cam.device:
         raise ValueError(f"fused_sphere_trace: weights on {fw.buf.device}, rays on {cam.device}")
     n = cam.shape[0]
@@ -399,8 +399,10 @@ def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, t
 
 def build_fused_sphere_trace(network, tracer):
     """fn(cam, dirs, mask_intersect, near, far) -> (acc_start, acc_end,
-    unfinished_start, min_dis, max_dis, n_evals), through K3."""
-    fw = network_weights(network, torch.float32)
+    unfinished_start, min_dis, max_dis, n_evals), through K3 on the
+    network's fp32 packing at K3's width (which its near rays' re-trace
+    through the FMA K1 shares)."""
+    fw = network_weights(network, torch.float32, (FMA_WIDTH,))
 
     def fn(cam, dirs, mask_intersect, near, far):
         acc_s, acc_e, unf, n_evals = fused_sphere_trace(

@@ -10,6 +10,9 @@ tensors: fp32 within 1e-4 absolute (FMA chain vs cuBLAS summation order over
 fp32 chain); bf16 (the tensor-core K1 and its sdf entry) within 1e-2 of the
 largest value (one bf16 rounding of h flipped by the order propagates); the
 input gradient within 1e-3 of its largest value.
+
+The tensor-core kernels (K1 bf16, K2) are compiled for widths 256 and 512
+and launch at the packing's width; the FMA K1 and K3 take 512 only.
 """
 
 import dataclasses
@@ -45,7 +48,7 @@ def test_k1_kernel_matches_plain(dtype):
     h = fm.fused_hidden(x, fw).float()
     torch.cuda.synchronize()
     assert fm.LAUNCHES["fused_sdf_hidden" if dtype == torch.float32 else "fused_sdf_hidden_tc"] == 1
-    assert sum(fm.LAUNCHES.values()) == 1
+    assert sum(v for k, v in fm.LAUNCHES.items() if "@" not in k) == 1
     ref = fm.fused_hidden_plain(x, fw).float()
     bound = 1e-4 if dtype == torch.float32 else 1e-2 * ref.abs().max().item()
     assert (h - ref).abs().max().item() <= bound
@@ -64,7 +67,8 @@ def test_k2_kernel_matches_plain(n):
     fm.reset_launch_counts()
     h, dx = fm.fused_fwd_bwd(x, fw)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES["fused_sdf_fwd_bwd"] == 1 and sum(fm.LAUNCHES.values()) == 1
+    assert fm.LAUNCHES["fused_sdf_fwd_bwd"] == fm.LAUNCHES["fused_sdf_fwd_bwd@512"] == 1
+    assert sum(v for k, v in fm.LAUNCHES.items() if "@" not in k) == 1
     h_r, dx_r = fm.fused_fwd_bwd_plain(x, fw)
     assert h.shape == (n, 512) and dx.shape == (n, fw.x_cols)
     assert (h - h_r).abs().max().item() <= 1e-4
@@ -121,22 +125,37 @@ def test_tensor_core_k1_and_sdf_value_match_plain(n):
 
 @torch.no_grad()
 def test_tensor_core_wrappers_refuse_what_the_kernel_does_not_take():
+    """The tensor-core kernels take widths 256 and 512: a 256-wide packing
+    launches their width-256 instantiation, a wider one than 512 (or one
+    between) is refused, as are the misaligned, the strided and the fp32
+    input; the FMA K1 and K3 refuse a 256 packing."""
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.ops.ray_tracing import RayTracer
+
     net, pts = _flagship()
     fw = fm.prepare_weights(net, torch.bfloat16)
     x = fm.embed_padded(pts, fw)
-    narrow = ImplicitNetwork(feature_vector_size=256, dims=(256,) * 4, skip_in=(2,), multires=6,
-                             use_last_as_f=True, bias=0.6, device="cuda")
-    narrow.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
-    # a packing at the net's own width (the default on the card pads it to 512)
+
+    def net_of(width):
+        n = ImplicitNetwork(feature_vector_size=width, dims=(width,) * 4, skip_in=(2,),
+                            multires=6, use_last_as_f=True, bias=0.6, device="cuda")
+        n.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+        return n
+
+    narrow, wide = net_of(256), net_of(640)
     fw_narrow = fm.prepare_weights(narrow, torch.bfloat16, width=256)
+    fw_wide = fm.prepare_weights(wide, torch.bfloat16, fm.packing_width(wide, fm.TC_WIDTHS))
+    fw_between = fm.prepare_weights(narrow, torch.bfloat16, width=384)
+    assert (fw_narrow.width, fw_wide.width, fw_between.width) == (256, 640, 384)
     flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
     misaligned = flat[1:].view(x.shape)  # 2 bytes past a 16-byte boundary
     misaligned.copy_(x)
     fm.reset_launch_counts()
     for fn in (fm.fused_hidden, fm.fused_sdf_value):
         assert fn(x[:0], fw).shape[0] == 0  # N = 0: no launch
-        with pytest.raises(ValueError):
-            fn(fm.embed_padded(pts, fw_narrow), fw_narrow)  # width 256, not 512
+        for bad in (fw_wide, fw_between):
+            with pytest.raises(ValueError):
+                fn(fm.embed_padded(pts, bad), bad)  # no instantiation takes it
         with pytest.raises(ValueError):
             fn(misaligned, fw)
         with pytest.raises(ValueError):
@@ -144,6 +163,20 @@ def test_tensor_core_wrappers_refuse_what_the_kernel_does_not_take():
         with pytest.raises(ValueError):
             fn(x.float(), fw)  # an fp32 input to the bf16 kernel
     assert all(n == 0 for n in fm.LAUNCHES.values())
+    for fn in (fm.fused_hidden, fm.fused_sdf_value):
+        assert fn(fm.embed_padded(pts, fw_narrow), fw_narrow).shape[0] == pts.shape[0]
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_sdf_hidden_tc@256"] == fm.LAUNCHES["fused_sdf_value@256"] == 1
+    f32_narrow = fm.prepare_weights(narrow, torch.float32, width=256)
+    x32 = fm.embed_padded(pts, f32_narrow)
+    with pytest.raises(ValueError):
+        fm.fused_hidden(x32, f32_narrow)  # the FMA K1 takes 512 only
+    rays = _k3_rays(100)
+    with pytest.raises(ValueError):
+        ft.fused_sphere_trace(*rays, f32_narrow, RayTracer())  # K3 takes 512 only
+    fm.fused_fwd_bwd(x32, f32_narrow)  # K2 takes it
+    assert fm.LAUNCHES["fused_sdf_fwd_bwd@256"] == 1 and fm.LAUNCHES["fused_sdf_hidden"] == 0
+    assert ft.LAUNCHES["fused_sphere_trace"] == 0
 
 
 # the primary tracer's conf and the secondary tracer's (confs/conf.conf:121-127)
@@ -243,10 +276,10 @@ def test_k3_wrapper_refuses_what_the_kernel_does_not_take():
 
 @torch.no_grad()
 def test_kernels_take_a_256_wide_network():
-    """NeuS's 8x256 SDF net (confs/conf_neus.conf) on the card: prepare_weights
-    pads it to the kernels' one width, and K1 (fp32, bf16 and its sdf entry),
-    K2 and K3 on that packing agree with their plain versions as on the
-    flagship."""
+    """NeuS's 8x256 SDF net (confs/conf_neus.conf) on the card: the closures
+    pack it at 256 for the tensor-core K1 and K2, at 512 for the FMA K1 and
+    K3, and each kernel on its packing agrees with its plain version as on
+    the flagship."""
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
     from nefii_tpu_torch.ops.ray_tracing import RayTracer
 
@@ -258,15 +291,20 @@ def test_kernels_take_a_256_wide_network():
                       device="cuda") * 0.5
     fm.reset_launch_counts()
     ft.reset_launch_counts()
-    fw = fm.prepare_weights(net)
-    assert (fw.width, fw.real_width) == (fm.KERNEL_WIDTH, 256)
+    fw = fm.network_weights(net, torch.float32, (fm.FMA_WIDTH,))
+    assert (fw.width, fw.real_width) == (fm.FMA_WIDTH, 256)
     x = fm.embed_padded(pts, fw)
     assert (fm.fused_hidden(x, fw) - fm.fused_hidden_plain(x, fw)).abs().max().item() <= 1e-4
-    h, dx = fm.fused_fwd_bwd(x, fw)
-    h_r, dx_r = fm.fused_fwd_bwd_plain(x, fw)
+    fw2 = fm.network_weights(net, torch.float32, fm.TC_WIDTHS)
+    assert (fw2.width, fw2.real_width) == (256, 256)
+    x2 = fm.embed_padded(pts, fw2)
+    h, dx = fm.fused_fwd_bwd(x2, fw2)
+    h_r, dx_r = fm.fused_fwd_bwd_plain(x2, fw2)
+    assert h.shape == (5000, 256)
     assert (h - h_r).abs().max().item() <= 1e-4
     assert (dx - dx_r).abs().max().item() <= 1e-3 * dx_r.abs().max().item()
-    fw16 = fm.prepare_weights(net, torch.bfloat16)
+    fw16 = fm.network_weights(net, torch.bfloat16, fm.TC_WIDTHS)
+    assert fw16.width == 256
     x16 = fm.embed_padded(pts, fw16)
     for got, ref in ((fm.fused_hidden(x16, fw16), fm.fused_hidden_plain(x16, fw16)),
                      (fm.fused_sdf_value(x16, fw16), fm.fused_sdf_value_plain(x16, fw16))):
@@ -286,7 +324,8 @@ def test_kernels_take_a_256_wide_network():
     assert (out[0] - ref[0])[same].abs().max().item() <= 1e-4
     assert (out[1] - ref[1])[same].abs().max().item() <= 1e-4
     torch.cuda.synchronize()
-    assert k1_fp32 == fm.LAUNCHES["fused_sdf_fwd_bwd"] == 1
+    assert k1_fp32 == fm.LAUNCHES["fused_sdf_fwd_bwd@256"] == fm.LAUNCHES["fused_sdf_fwd_bwd"] == 1
+    assert fm.LAUNCHES["fused_sdf_hidden_tc@256"] == fm.LAUNCHES["fused_sdf_value@256"] == 1
     assert fm.LAUNCHES["fused_sdf_hidden_tc"] == fm.LAUNCHES["fused_sdf_value"] == 1
     assert ft.LAUNCHES["fused_sphere_trace"] == 1
 

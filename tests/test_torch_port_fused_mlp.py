@@ -44,6 +44,9 @@ NETS = {
                             use_last_as_f=False, bias=0.5),
     "tiny-no-pe": dict(feature_vector_size=64, dims=(64,) * 3, skip_in=(1,), multires=0,
                        use_last_as_f=True, bias=0.5),
+    # confs/conf_neus.conf's implicit net: NeuS's 8x256 SDF net
+    "neus-8x256": dict(feature_vector_size=256, dims=(256,) * 8, skip_in=(4,), multires=6,
+                       use_last_as_f=False, bias=0.5),
 }
 
 
@@ -251,22 +254,23 @@ def test_k2_split_arithmetic_matches_pallas(name, monkeypatch):
 
 
 def test_network_weights_pack_once_until_the_parameters_change():
-    """The closures' weights (network_weights): one FusedWeights a network and
-    dtype, reused while the parameters are unchanged, so K2's records are
-    packed once on a frozen geometry; an in-place write to a parameter (a
-    checkpoint load, an optimizer step) packs them anew."""
+    """The closures' weights (network_weights): one FusedWeights a network,
+    dtype and width, reused while the parameters are unchanged, so K2's
+    records are packed once on a frozen geometry; an in-place write to a
+    parameter (a checkpoint load, an optimizer step) packs them anew."""
     _, _, net = _nets("small-4x64")
-    fw = fm.network_weights(net)
-    assert fm.network_weights(net) is fw
-    assert fm.network_weights(net, torch.bfloat16) is not fw
-    assert fm.network_weights(net, torch.bfloat16) is fm.network_weights(net, torch.bfloat16)
+    f32, bf16, tc = torch.float32, torch.bfloat16, fm.TC_WIDTHS
+    fw = fm.network_weights(net, f32, tc)
+    assert fm.network_weights(net, f32, tc) is fw
+    assert fm.network_weights(net, bf16, tc) is not fw
+    assert fm.network_weights(net, bf16, tc) is fm.network_weights(net, bf16, tc)
     fm.split_weights(fw)
-    assert fm.network_weights(net).split is fw.split
+    assert fm.network_weights(net, f32, tc).split is fw.split
     pts = torch.from_numpy(_pts(50))
     before = fm.build_fused_sdf_feature_grad(net)(pts)[0]
     with torch.no_grad():
         net.layers[0].b.add_(0.25)
-    fresh = fm.network_weights(net)
+    fresh = fm.network_weights(net, f32, tc)
     assert fresh is not fw and fresh.split is None
     assert torch.allclose(fresh.layers[0].b, fw.layers[0].b + 0.25)
     after = fm.build_fused_sdf_feature_grad(net)(pts)[0]
@@ -275,32 +279,214 @@ def test_network_weights_pack_once_until_the_parameters_change():
 
 @pytest.mark.parametrize("name", ["small-4x64", "narrow-no-lastf"])
 def test_padding_to_the_kernel_width_changes_no_value(name):
-    """A network narrower than the CUDA kernels' one width (NeuS's 8x256)
-    runs in them padded to KERNEL_WIDTH, prepare_weights' default on the
-    card: the plain versions of K1 (fp32 and bf16), its sdf entry and K2 (fp32
-    and split bf16) give on that packing the unpadded packing's values, and
-    K2's records are as many as the kernel counts for it."""
+    """A network narrower than a CUDA kernel's width runs in it padded to
+    that width (packing_width on the card: 64 -> 256 in the tensor-core
+    kernels, 64 and 256 -> 512 in the FMA K1 and K3, and 256 -> 512 beside
+    it): the plain versions of K1 (fp32 and bf16), its sdf entry and K2 (fp32
+    and split bf16) give on each padded packing the unpadded packing's
+    values, and K2's records are as many as the kernel counts for it."""
     _, _, net = _nets(name)
     pts = torch.from_numpy(_pts(200))
+    own = fm.network_width(net)
+    wider = [w for w in fm.TC_WIDTHS if w > own]
+    assert fm.fit_width(own, fm.TC_WIDTHS) == {64: 256, 256: 256}[own]
+    assert fm.fit_width(own, (fm.FMA_WIDTH,)) == fm.FMA_WIDTH == wider[-1]
     for dtype in (torch.float32, torch.bfloat16):
         fw = fm.prepare_weights(net, dtype)
-        fp = fm.prepare_weights(net, dtype, width=fm.KERNEL_WIDTH)
-        assert fp.width == fm.KERNEL_WIDTH > fw.width and fp.real_width == fw.real_width
+        assert fw.width == own
         x = fm.embed_padded(pts, fw)
-        h = fm.fused_hidden_plain(x, fp)
-        # the padding units: softplus(0) / 100, which meet zero weights only
-        assert torch.equal(h[:, fw.width:], fm._softplus100(torch.zeros(1)).to(dtype).expand(
-            h.shape[0], fm.KERNEL_WIDTH - fw.width))
-        torch.testing.assert_close(h[:, :fw.width], fm.fused_hidden_plain(x, fw),
-                                   atol=1e-6, rtol=0)
-        torch.testing.assert_close(fm.fused_sdf_value_plain(x, fp),
-                                   fm.fused_sdf_value_plain(x, fw), atol=1e-6, rtol=0)
-    fw, fp = fm.prepare_weights(net), fm.prepare_weights(net, width=fm.KERNEL_WIDTH)
-    for fn in (fm.fused_fwd_bwd_plain, fm.fused_fwd_bwd_split_plain):
-        (h, dx), (hp, dxp) = fn(x.float(), fw), fn(x.float(), fp)
-        torch.testing.assert_close(hp[:, :fw.width], h, atol=1e-6, rtol=0)
-        torch.testing.assert_close(dxp, dx, atol=1e-6, rtol=0)
-    assert fm.split_weights(fp).numel() == fm.split_records(fp) * fm.SPLIT_REC
+        for width in wider:
+            fp = fm.prepare_weights(net, dtype, width=width)
+            assert fp.width == width > fw.width and fp.real_width == fw.real_width
+            h = fm.fused_hidden_plain(x, fp)
+            # the padding units: softplus(0) / 100, which meet zero weights only
+            assert torch.equal(h[:, fw.width:], fm._softplus100(torch.zeros(1)).to(dtype).expand(
+                h.shape[0], width - fw.width))
+            torch.testing.assert_close(h[:, :fw.width], fm.fused_hidden_plain(x, fw),
+                                       atol=1e-6, rtol=0)
+            torch.testing.assert_close(fm.fused_sdf_value_plain(x, fp),
+                                       fm.fused_sdf_value_plain(x, fw), atol=1e-6, rtol=0)
+    fw = fm.prepare_weights(net)
+    for width in wider:
+        fp = fm.prepare_weights(net, width=width)
+        for fn in (fm.fused_fwd_bwd_plain, fm.fused_fwd_bwd_split_plain):
+            (h, dx), (hp, dxp) = fn(x.float(), fw), fn(x.float(), fp)
+            torch.testing.assert_close(hp[:, :fw.width], h, atol=1e-6, rtol=0)
+            torch.testing.assert_close(dxp, dx, atol=1e-6, rtol=0)
+        assert fm.split_weights(fp).numel() == fm.split_records(fp) * fm.SPLIT_REC
+
+
+def _neus_at(dtype, width=256):
+    """NeuS's 8x256 net, its JAX twin and its packing at `width` (256: the
+    width the tensor-core kernels take it at on the card)."""
+    jnet, params, net = _nets("neus-8x256")
+    fw = fm.prepare_weights(net, dtype, width=width)
+    assert (fw.width, fw.real_width, fw.x_cols) == (width, 256, 48)
+    return jnet, params, net, fw
+
+
+@pytest.mark.parametrize("kernel", ["k1_fp32", "k1_bf16", "k2"])
+def test_neus_net_at_width_256_matches_pallas(kernel):
+    """NeuS's 8x256 net (confs/conf_neus.conf) on its width-256 packing, the
+    one the tensor-core K1 and K2 launch on the card: the plain K1 (fp32, and
+    bf16 with its sdf entry) against the Pallas build_fused_hidden and
+    build_fused_sdf, the plain K2 and its split-bf16 arithmetic against
+    build_fused_sdf_feature_grad, all in interpret mode, at the file's
+    tolerances."""
+    dtype = torch.bfloat16 if kernel == "k1_bf16" else torch.float32
+    jnet, params, net, fw = _neus_at(dtype)
+    pts = _pts(256, seed=5)
+    pt = torch.from_numpy(pts)
+    x = fm.embed_padded(pt, fw)
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        if kernel == "k2":
+            sdf_j, feat_j, grad_j = (np.asarray(a) for a in jfm.build_fused_sdf_feature_grad(
+                jnet, params, tile=128, interpret=True)(pts))
+            (h, dx), (hs, dxs) = fm.fused_fwd_bwd(x, fw), fm.fused_fwd_bwd_split_plain(x, fw)
+            for hh, dd in ((h, dx), (hs, dxs)):
+                fin = hh[:, :256] @ fw.w_last + fw.b_last
+                grad = fm.pe_backward(dd[:, :fw.emb_dim], pt, fw.multires)
+                np.testing.assert_allclose(fin[:, 0].numpy(), sdf_j, atol=FP32_TOL)
+                np.testing.assert_allclose(fin[:, 1:].numpy(), feat_j, atol=FP32_TOL)
+                np.testing.assert_allclose(grad.numpy(), grad_j, atol=GRAD_TOL)
+        else:
+            jd = jnp.bfloat16 if kernel == "k1_bf16" else jnp.float32
+            h_j = np.asarray(jfm.build_fused_hidden(jnet, params, tile=128, interpret=True,
+                                                    dtype=jd)(pts)).astype(np.float32)
+            sdf_j = np.asarray(jfm.build_fused_sdf(jnet, params, tile=128, interpret=True,
+                                                   dtype=jd)(pts))
+            h = fm.fused_hidden(x, fw).float().numpy()
+            sdf = fm.sdf_closure(fw)(pt).numpy()
+            if kernel == "k1_bf16":
+                tol_h, tol_s = BF16_REL * np.abs(h_j).max(), BF16_REL * np.abs(sdf_j).max()
+                np.testing.assert_allclose(fm.fused_sdf_value(x, fw).numpy(), sdf_j, atol=tol_s)
+            else:
+                tol_h = tol_s = FP32_TOL
+            np.testing.assert_allclose(h[:, :256], h_j[:, :256], atol=tol_h)
+            np.testing.assert_allclose(sdf, sdf_j, atol=tol_s)
+    assert all(n == 0 for n in fm.LAUNCHES.values())
+
+
+def test_tensor_core_chunks_at_width_256():
+    """K1's tensor-core chunks of NeuS's net at width 256: 30 [256][64]
+    chunks (layer 0 and the skip layer's x part one each, every other
+    256-deep part four), each the transposed, zero-padded, 128-byte swizzled
+    slice of the layer's weights; read back through the swizzle they give
+    the packed bf16 weights exactly."""
+    _, _, _, fw = _neus_at(torch.bfloat16)
+    off, n_chunks = 0, 0
+    for L in fw.layers:
+        for w, k in ((L.w, L.k_h), (L.wx, L.k_x)):
+            if w is None:
+                continue
+            n = -(-k // fm.TC_K)
+            chunks = fw.tc[off:off + n * 256 * fm.TC_K].view(n, 256, fm.TC_K)
+            logical = torch.nn.functional.pad(w.t(), (0, n * fm.TC_K - k))
+            for c in range(n):
+                for r in (0, 9, 130, 255):
+                    for g in range(8):
+                        gs = g ^ (r % 8)
+                        assert torch.equal(chunks[c, r, 8 * gs:8 * gs + 8],
+                                           logical[r, c * 64 + 8 * g:c * 64 + 8 * g + 8])
+            whole = fm._swizzle128(chunks).permute(1, 0, 2).reshape(256, n * fm.TC_K)
+            assert torch.equal(whole[:, :k].t(), w)
+            assert not whole[:, k:].any()
+            off += n * 256 * fm.TC_K
+            n_chunks += n
+    assert n_chunks == 30 and off == fw.tc.numel() == 30 * 256 * 64
+
+
+def _kernel_split_records(fw):
+    """split_records<W> of csrc/sdf_mlp_split.cuh, line for line: G = SP_REC
+    / (W * 32) slices a record at N = W, SP_GX = SP_REC / (SP_NX * 32) at N =
+    SP_NX, 2 ceil(k / 16 / g) records a K-deep block."""
+    sp_rec, sp_nx = 16384, 64
+    g, gx, w = sp_rec // (fw.width * 32), sp_rec // (sp_nx * 32), fw.width
+
+    def recs(k, grp):
+        return 2 * ((k // 16 + grp - 1) // grp)
+
+    r = 0
+    for l, L in enumerate(fw.layers):
+        r += (recs(L.k_h, g) + recs(L.k_x, g) + (recs(w, g) if l > 0 else recs(w, gx))
+              + (recs(w, gx) if L.k_x > 0 else 0))
+    return r
+
+
+@pytest.mark.parametrize("width", [256, 512])
+def test_split_records_at_width_256_follow_the_kernel_count(width):
+    """K2's records of NeuS's net at widths 256 (two k16 slices a record,
+    N = 256) and 512: their count is the kernel's formula (238 and 696), and
+    at 256 they read back as W^T (forward, layer 0's 3 slices padded to 4
+    with zero slices), W (backward) and the N = 64 blocks, hi and lo, with
+    hi + lo within 2^-16 of the weight."""
+    _, _, _, fw = _neus_at(torch.float32, width)
+    records = fm.split_weights(fw)
+    assert fm.split_records(fw) == _kernel_split_records(fw) == {256: 238, 512: 696}[width]
+    assert records.numel() == fm.split_records(fw) * fm.SPLIT_REC
+    if width != 256:
+        return
+    assert fm.split_group(256) == 2 and fm.split_group(fm.SPLIT_NX) == 8
+    off = 0
+
+    def check(n_pad, group, ref):
+        nonlocal off
+        n, k = ref.shape
+        n_rec = 2 * -(-(-(-k // 16)) // group)
+        hi, lo = _unpack_split(records[off:off + n_rec * fm.SPLIT_REC], n_pad, group)
+        off += n_rec * fm.SPLIT_REC
+        assert hi.shape == (n_pad, n_rec // 2 * group * 16)
+        assert torch.equal(hi[:n, :k], ref.to(torch.bfloat16))
+        err = (hi[:n, :k].float() + lo[:n, :k].float() - ref).abs()
+        assert bool((err <= 2.0 ** -16 * ref.abs()).all())
+        assert not hi[n:].any() and not hi[:, k:].any() and not lo[:, k:].any()
+
+    for L in fw.layers:
+        for w in (L.w, L.wx):
+            if w is not None:
+                check(256, 2, w.t())
+    for l in reversed(range(len(fw.layers))):
+        L = fw.layers[l]
+        check(256, 2, L.w) if l else check(64, 8, L.w)
+        if L.wx is not None:
+            check(64, 8, L.wx)
+    assert off == records.numel()
+
+
+def test_k2_and_k3_packings_of_one_net_coexist(monkeypatch):
+    """On the card NeuS's net is packed twice in fp32: at 256 for K2 (and at
+    256 in bf16 for K1's trace), at 512 for K3 and the FMA K1 of its near
+    re-trace. With the card's width rule (packing_width), the closures that
+    the model builds at every forward each find their own packing, K2's
+    split records and K3's trace records stay on their own, and no call
+    packs anew; the values are the unpadded packing's."""
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+
+    _, _, net = _nets("neus-8x256")
+    pts = torch.from_numpy(_pts(120, seed=9))
+    ref = fm.build_fused_sdf_feature_grad(net)(pts)
+    own = {k: v[1] for k, v in net.__dict__["_fused_weights"].items()}
+    assert list(own) == [(torch.float32, 256)]
+    net.__dict__.pop("_fused_weights")
+    monkeypatch.setattr(fm, "packing_width",
+                        lambda network, widths: fm.fit_width(fm.network_width(network), widths))
+    f32, bf16 = torch.float32, torch.bfloat16
+    for _ in range(2):
+        got = fm.build_fused_sdf_feature_grad(net)(pts)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+        fm.build_fused_sdf(net, bf16)(pts)
+        fm.build_fused_sdf(net, f32)(pts)
+        ft.build_fused_sphere_trace(net, None)
+        cache = net.__dict__["_fused_weights"]
+        assert sorted(cache, key=str) == sorted([(f32, 256), (bf16, 256), (f32, 512)], key=str)
+        k2, k3 = cache[f32, 256][1], cache[f32, 512][1]
+        if _ == 0:
+            first = (k2, k3, fm.split_weights(k2), ft.trace_weights(k3))
+    assert (k2, k3) == first[:2] and k2.width == 256 and k3.width == 512
+    assert k2.split is first[2] and k3.trace is first[3] and k2.trace is None and k3.split is None
+    assert fm.network_weights(net, bf16, fm.TC_WIDTHS).tc.numel() == 30 * 256 * fm.TC_K
 
 
 @pytest.mark.parametrize("k", [1, 3, 256, 257, 512])

@@ -221,13 +221,13 @@ def test_split_trace_matches_the_pallas_kernel(nets, split, monkeypatch):
 @pytest.mark.parametrize("split", [False, True], ids=["fp32", "split_fp16"])
 def test_padding_to_the_kernel_width_changes_no_trace(nets, split):
     """K3 on a network narrower than its one width runs on the packing padded
-    to KERNEL_WIDTH (prepare_weights' default on the card): the plain
-    version, in fp32 and in the kernel's split fp16, traces on it as on the
-    unpadded packing, and the records are as many as the kernel counts."""
+    to FMA_WIDTH (packing_width on the card): the plain version, in fp32 and
+    in the kernel's split fp16, traces on it as on the unpadded packing, and
+    the records are as many as the kernel counts."""
     _, _, net = nets
     args = [torch.from_numpy(np.array(a)) for a in _flat(*_rays())]
-    fw, fp = fm.prepare_weights(net), fm.prepare_weights(net, width=fm.KERNEL_WIDTH)
-    assert fp.width == fm.KERNEL_WIDTH > fw.width
+    fw, fp = fm.prepare_weights(net), fm.prepare_weights(net, width=fm.FMA_WIDTH)
+    assert fp.width == fm.FMA_WIDTH == fm.fit_width(fw.width, (fm.FMA_WIDTH,)) > fw.width
     with torch.no_grad():
         ref = ft.fused_sphere_trace_plain(*args, fw, RayTracer(**TRACER), split=split)
         got = ft.fused_sphere_trace_plain(*args, fp, RayTracer(**TRACER), split=split)
