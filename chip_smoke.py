@@ -30,9 +30,10 @@ Phases, each of which raises on failure (exit code != 0):
    split-fp16 plain version's. Prints the near share, K3's time with and
    without the re-trace, and the worst split-fp16 sdf error at the rays'
    points, which NEAR_DELTA must cover twice over (also on the nets of
-   phases 12 and 13). The gathered tracer through K1 fp32 is timed beside
-   them, and its count of the evaluations the rays need gives K3's bounds
-   and must match the kernel's count. Prints the tiles' fill.
+   phases 12 and 13, NeuS's on its 256 packing). The gathered tracer through
+   K1 fp32 is timed beside them, and its count of the evaluations the rays
+   need gives K3's bounds and must match the kernel's count. Prints the
+   tiles' fill.
 5. reference: a 16x16-ray render of confs/conf.conf (trace switched to fp32)
    through the kernels on the card against the same render through the plain
    versions on the CPU, on what no Monte-Carlo sample touches (hit mask,
@@ -78,16 +79,22 @@ Phases, each of which raises on failure (exit code != 0):
    launched and that K2 launched 0 times in the shading that keeps a graph
    (it serves the value-only secondary-hit pool); prints s/step and
    max_memory_allocated of each run.
-12. neus: confs/conf_neus.conf (NeuS's 8x256 SDF net): K1 bf16 (both
-   entries) and K2 at width 256, as the card's closures pack the net, against
-   their plain versions at 1, 63, 64, 65, 5000 and 262,144 points under phase
-   3's gates; the same on the net padded to 512, timed beside them, each with
-   its bound at the real width; K1 fp32 on its 512 packing. Then a NeuS .pth
-   imported with --geometry_neus and 2 frozen steps with the workflow's flags
-   through exp_runner.main. Checks the imported weights, finite losses and
-   launches of K1 bf16 and K2 at width 256 and none at 512 (the per-width
-   counts of fused_mlp.LAUNCHES); prints s/step and peak memory. K3 on the
-   NeuS net (at 512) as on the fitted net of phase 13 (_k3_on_net).
+12. neus: confs/conf_neus.conf (NeuS's 8x256 SDF net), which the card's
+   closures pack at width 256 for every kernel: K1 fp32, K1 bf16 (both
+   entries) and K2 at 256 against their plain versions at 1, 63, 64, 65,
+   5000 and 262,144 points under phase 3's gates, and K3 at 256 on phase
+   4's camera and random rays under its gates (no flag differing from the
+   K1-fp32 trace at 256, NEAR_DELTA NEAR_MARGIN times the split-fp16 sdf
+   error on the 256 packing); each timed beside the net padded to 512, with
+   its bound at the real width. Then a NeuS .pth imported with
+   --geometry_neus and 2 frozen steps with the workflow's flags through
+   exp_runner.main, as shipped and with use_fused_trace, and a 128x128 view
+   at 16 rays of the checkpoint through render.main with fused_sdf_dtype =
+   float32. Checks the imported weights, finite losses and EXRs, and
+   launches at width 256 and none at 512 (the per-width counts of
+   fused_mlp.LAUNCHES and fused_trace.LAUNCHES): K1 bf16 and K2 in both
+   runs, K3 in the second, K1 fp32 in the view; prints s/step, s/view and
+   peak memory.
 13. geometry: Step 1, mesh export and LPIPS, which reach no kernel (plain
    fp32 cuBLAS). Builds the port's native runtime (g++, printed seconds);
    meshes the radius-0.5 sphere with get_surface_trace at resolution 256;
@@ -128,8 +135,10 @@ Phases, each of which raises on failure (exit code != 0):
    Checks finite outputs, one primary-trace ray a pixel (2048 a step, not
    2048 x 64) and launches of K1 bf16 and K2; prints s/step and s/view.
 18. multi-gpu: processes started with spawn, each joined within a time
-   limit. An NCCL world of 1 on cuda:0: a full-width frozen conf.conf step
-   (2048 px x 64 rays, K1 bf16 trace, K2 shading) and its distillation step
+   limit, and the resource tracker that spawn starts stopped after each
+   world (the run fails at its end if a process it started still runs).
+   An NCCL world of 1 on cuda:0: a full-width frozen conf.conf step (2048
+   px x 64 rays, K1 bf16 trace, K2 shading) and its distillation step
    through IDRTrainRunner equal the same step without a process group bit
    for bit (loss, gradients, updated parameters). 2 gloo ranks sharing
    cuda:0 (NCCL refuses two ranks on one device), CUDA tensors in every
@@ -177,9 +186,9 @@ Phases, each of which raises on failure (exit code != 0):
 
 The line before the last is the kernels' JSON record (launches from the
 frozen training run, and beside them those of the render, the references,
-the live-geometry paths, the NeuS run and phases 14-20; the tensor-core
-kernels' width-256 instantiations as records of their own, "<name>@256",
-their launches from the NeuS run); the last line is
+the live-geometry paths, the NeuS runs and phases 14-20; every kernel's
+width-256 instantiation as a record of its own, "<name>@256", its launches
+from the NeuS runs, its time beside the 512 packing's); the last line is
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
@@ -555,18 +564,146 @@ def _split_sdf_error(fw, rays, ref):
     return worst
 
 
-def phase_trace_kernel(card):
-    """K3 at full width on N_POINTS rays: camera and random rays under the
-    primary tracer, random rays under the secondary tracer; against the
-    K1-fp32 trace and its fp32 plain version, and its split-fp16 plain
+def _k3_case(tag, name, fw, tr, rays, sdf_k1, flops, card, fp32_pair=False):
+    """K3 on the packing `fw` on `rays` under the tracer `tr`: against the
+    K1-fp32 trace `sdf_k1` (on the same packing, whose arithmetic the
+    re-trace shares) and its fp32 plain version, and its split-fp16 plain
     version (the scheme's own error beside the kernel's), with and without
     the fp32 re-trace of its near rays (their share, the flags against the
-    split plain version's, the time of both), within TRACE_TOL. The worst
-    split-fp16 sdf error at the rays' points must lie NEAR_MARGIN times
-    inside NEAR_DELTA. The
-    gathered tracer through K1 fp32 is timed beside them; its count is the
-    evaluations the rays need, which gives K3's bounds and which the kernel's
-    count must match."""
+    split plain version's, the time of both), within TRACE_TOL (raises).
+    The gathered tracer through K1 fp32 is timed beside them; its count is
+    the evaluations the rays need, which gives K3's bounds (`flops`
+    multiply-add operations a point) and which the kernel's count must
+    match. -> the figures, the worst split-fp16 sdf error at the rays'
+    points among them.
+
+    The rays on which the two fp32 traces (the K1-fp32 trace and the plain
+    version, two orders of summation) disagree, on a flag or by more than
+    TRACE_TOL["abs"] on an end, are counted. With `fp32_pair` (phase 12's
+    NeuS net, where the two fp32 orders move the exit end of a few hit rays
+    by a line-search back-step, ~4e-4, at either width) at most
+    (1 - TRACE_TOL["agree"]) of the rays may be such, and the ends are held
+    against the plain version on the others, the kernel alone's also only
+    off its near rays (which it does not decide as fp32 does, by design);
+    K3 stays held to the K1-fp32 trace within TRACE_TOL["abs"] on every
+    ray."""
+    import torch
+
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from nefii_tpu_torch.ops.kernels import fused_trace as ft
+
+    stats, raw_stats = {}, {}
+    out = ft.fused_sphere_trace(*rays, fw, tr, stats=stats)
+    *raw, raw_near, _ = ft._trace_kernel(*rays, fw, tr, stats=raw_stats)
+    torch.cuda.synchronize()
+    ref = ft.fused_sphere_trace_plain(*rays, fw, tr)
+    *split_raw, split_near = ft._trace_plain(*rays, fw, tr, split=True)
+    sdf_err = _split_sdf_error(fw, rays, ref)
+    k1 = tr._sphere_trace(sdf_k1, *rays)
+    needed = int(k1[3])
+    k1_unf, k1_hit, k1_err = ft.agreement(out, k1)
+    unf_d, hit_d, err = ft.agreement(out, ref)
+    base_unf, base_hit, base_err = ft.agreement(k1, ref)
+    raw_unf, raw_hit, raw_err = ft.agreement(raw, ref)
+    sp_unf, sp_hit, sp_err = ft.agreement(raw, split_raw)
+    sc_unf, sc_hit, sc_err = ft.agreement(split_raw, ref)
+    n_near, n = stats["n_near"], rays[0].shape[0]
+    pair = ((k1[2] == ref[2]) & ((k1[0] < k1[1]) == (ref[0] < ref[1]))
+            & (torch.maximum((k1[0] - ref[0]).abs(), (k1[1] - ref[1]).abs())
+               <= TRACE_TOL["abs"]))
+    fp32_split = int((~pair).sum())
+    if fp32_pair:
+        def ends_err(a, keep):
+            return ft.agreement(*(tuple(t[keep] for t in x[:3]) for x in (a, ref)))[2]
+
+        err, raw_err = ends_err(out, pair), ends_err(raw, pair & ~raw_near)
+    near_differ = int((stats["near"] != split_near).sum())
+    near_allowed = TRACE_TOL["near_differ"][0] + TRACE_TOL["near_differ"][1] * int(
+        split_near.sum())
+    evals_rel = abs(raw[3] - ref[3]) / ref[3]
+    needed_rel = abs(raw[3] - needed) / needed
+    hits = float((out[0] < out[1]).float().mean())
+    ms = _time(lambda: ft.fused_sphere_trace(*rays, fw, tr), reps=3)
+    raw_ms = _time(lambda: ft._trace_kernel(*rays, fw, tr), reps=3)
+    plain_ms = _time(lambda: ft.fused_sphere_trace_plain(*rays, fw, tr), reps=1)
+    gathered_ms = _time(lambda: tr._sphere_trace(sdf_k1, *rays), reps=1)
+    rows = raw_stats["tiles"] * fm.TC_BLOCK_ROWS
+    fill, waste = raw[3] / rows, raw_stats["empty_rows"] / rows
+    # the work the rays need, three fp16 products a multiply-add on
+    # the tensor cores (bf16's rate); the FP32 pipe's bound beside it
+    rec_bytes = ft.forward_records(fw) * fm.SPLIT_REC * 2
+    nbytes = n * (8 * 4 + 1) + n * (2 * 4 + 1) + rec_bytes
+    bound = _bound(needed * flops * 3, nbytes, "bf16")
+    fp32 = _bound(needed * flops, nbytes, "fp32")
+    # computed from the design, not measured: every tile requests every
+    # forward record from L2
+    l2_bytes = raw_stats["tiles"] * rec_bytes
+    print(f"[{tag}] K3 {name} rays (sphere_tracing_iters {tr.sphere_tracing_iters}, "
+          f"line_step_iters {tr.line_step_iters}): N={n} hit fraction {hits:.3f}; near rays "
+          f"{n_near} ({n_near / n:.4%}; flags differing from the split plain version's "
+          f"{near_differ}, at most {near_allowed:.0f}), re-traced in fp32 with "
+          f"{stats['retrace_evals']} evaluations; "
+          f"rays whose unfinished / hit flag differs and max_abs_err: K3 against the "
+          f"K1-fp32 trace {k1_unf} / {k1_hit} / {k1_err:.3e}; against the fp32 plain "
+          f"version: K3 {unf_d} / {hit_d} / {err:.3e}, the K1-fp32 trace {base_unf} / "
+          f"{base_hit} / {base_err:.3e}, the kernel alone (no re-trace) {raw_unf} / "
+          f"{raw_hit} / {raw_err:.3e}{' (ends off its near rays)' if fp32_pair else ''}; the "
+          f"two fp32 traces disagree on {fp32_split} rays"
+          f"{', left out of the ends against the plain version' if fp32_pair else ''}; the "
+          f"kernel alone against the split-fp16 "
+          f"plain version: {sp_unf} / {sp_hit} / {sp_err:.3e}; the split-fp16 scheme itself "
+          f"against fp32: {sc_unf} / {sc_hit} / {sc_err:.3e}; worst |split fp16 sdf - fp32 "
+          f"sdf| at the rays' points {sdf_err:.3e}; evals kernel {raw[3]} "
+          f"({raw[3] / n:.2f}/ray) plain {ref[3]} ({evals_rel:.2e} rel) needed {needed} "
+          f"({needed / n:.2f}/ray, {needed_rel:.2e} rel); tiles {raw_stats['tiles']}, fill "
+          f"{fill:.4f}, empty rows {raw_stats['empty_rows']} ({waste:.2%}); K3 with the "
+          f"re-trace {ms:.3f} ms, the kernel alone {raw_ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, gathered K1-fp32 tracer {gathered_ms:.3f} ms; bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, split fp16), FP32-pipe bound "
+          f"{fp32['bound_ms']:.3f} ms; L2 weight bytes requested, computed from the "
+          f"design: {l2_bytes / 1e9:.3f} GB ({l2_bytes / raw_ms / 1e9:.3f} TB/s) [{card}]",
+          flush=True)
+    bad = ((out[2] != ref[2]) | ((out[0] < out[1]) != (ref[0] < ref[1])) |
+           (out[2] != k1[2]) | ((out[0] < out[1]) != (k1[0] < k1[1]))).nonzero()
+    for i in bad[:8, 0].tolist():
+        print(f"[{tag}] {name} ray {i} differs: near {bool(stats['near'][i])}; "
+              + "; ".join(f"{what} {float(t[0][i]):.7f} {float(t[1][i]):.7f} "
+                          f"{bool(t[2][i])}" for what, t in (
+                              ("kernel alone", raw), ("K3", out), ("K1-fp32 trace", k1),
+                              ("fp32 plain", ref))), flush=True)
+    if (k1_unf + k1_hit > TRACE_TOL["flags_differ"] or not err <= TRACE_TOL["abs"]
+            or not k1_err <= TRACE_TOL["abs"]
+            or evals_rel > TRACE_TOL["evals_rel"] or needed_rel > TRACE_TOL["evals_rel"]):
+        raise RuntimeError(f"[{tag}] K3 disagrees with its plain version on the {name} rays")
+    if (max(raw_unf, raw_hit) > (1 - TRACE_TOL["agree"]) * n
+            or not raw_err <= TRACE_TOL["abs"]):
+        raise RuntimeError(f"[{tag}] K3's kernel alone disagrees with the fp32 plain version on "
+                           f"the {name} rays")
+    if fp32_pair and fp32_split > (1 - TRACE_TOL["agree"]) * n:
+        raise RuntimeError(f"[{tag}] the two fp32 traces disagree on {fp32_split} of the {name} "
+                           f"rays")
+    if near_differ > near_allowed or n_near > TRACE_TOL["near_share"] * n:
+        raise RuntimeError(f"[{tag}] K3 flags {n_near} of the {name} rays near, {near_differ} "
+                           f"otherwise than the split plain version")
+    return dict(max_abs_err=err, ms=ms, kernel_alone_ms=raw_ms, plain_ms=plain_ms,
+                gathered_ms=gathered_ms, evals_executed=raw[3], evals_needed=needed,
+                     evals_plain=ref[3], retrace_evals=stats["retrace_evals"],
+                     near_rays=n_near, near_share=n_near / n,
+                     near_flags_vs_split_plain=near_differ, tiles=raw_stats["tiles"],
+                     fill=fill, waste=waste, hit_fraction=hits,
+                     flags_differ_k1_fp32=k1_unf + k1_hit, flags_differ=unf_d + hit_d,
+                     k1_fp32_flags_differ=base_unf + base_hit,
+                     kernel_alone_flags_differ=raw_unf + raw_hit,
+                     kernel_alone_max_abs_err=raw_err, split_scheme_err=sc_err,
+                fp32_traces_disagree=fp32_split,
+                     err_vs_split_plain=sp_err, split_sdf_err=sdf_err, **bound)
+
+
+def phase_trace_kernel(card):
+    """K3 at full width on N_POINTS rays (_k3_case): camera and random rays
+    under the primary tracer, random rays under the secondary tracer. The
+    worst split-fp16 sdf error at the rays' points must lie NEAR_MARGIN
+    times inside NEAR_DELTA."""
     import torch
 
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
@@ -585,95 +722,9 @@ def phase_trace_kernel(card):
     worst_sdf = 0.0
     with torch.no_grad():
         for name, tr, rays in cases:
-            stats, raw_stats = {}, {}
-            out = ft.fused_sphere_trace(*rays, fw, tr, stats=stats)
-            raw = ft._trace_kernel(*rays, fw, tr, stats=raw_stats)[:4]
-            torch.cuda.synchronize()
-            ref = ft.fused_sphere_trace_plain(*rays, fw, tr)
-            *split_raw, split_near = ft._trace_plain(*rays, fw, tr, split=True)
-            sdf_err = _split_sdf_error(fw, rays, ref)
-            worst_sdf = max(worst_sdf, sdf_err)
-            k1 = tr._sphere_trace(sdf_k1, *rays)
-            needed = int(k1[3])
-            k1_unf, k1_hit, k1_err = ft.agreement(out, k1)
-            unf_d, hit_d, err = ft.agreement(out, ref)
-            base_unf, base_hit, base_err = ft.agreement(k1, ref)
-            raw_unf, raw_hit, raw_err = ft.agreement(raw, ref)
-            sp_unf, sp_hit, sp_err = ft.agreement(raw, split_raw)
-            sc_unf, sc_hit, sc_err = ft.agreement(split_raw, ref)
-            n_near, n = stats["n_near"], rays[0].shape[0]
-            near_differ = int((stats["near"] != split_near).sum())
-            near_allowed = TRACE_TOL["near_differ"][0] + TRACE_TOL["near_differ"][1] * int(
-                split_near.sum())
-            evals_rel = abs(raw[3] - ref[3]) / ref[3]
-            needed_rel = abs(raw[3] - needed) / needed
-            hits = float((out[0] < out[1]).float().mean())
-            ms = _time(lambda: ft.fused_sphere_trace(*rays, fw, tr), reps=3)
-            raw_ms = _time(lambda: ft._trace_kernel(*rays, fw, tr), reps=3)
-            plain_ms = _time(lambda: ft.fused_sphere_trace_plain(*rays, fw, tr), reps=1)
-            gathered_ms = _time(lambda: tr._sphere_trace(sdf_k1, *rays), reps=1)
-            rows = raw_stats["tiles"] * fm.TC_BLOCK_ROWS
-            fill, waste = raw[3] / rows, raw_stats["empty_rows"] / rows
-            # the work the rays need, three fp16 products a multiply-add on
-            # the tensor cores (bf16's rate); the FP32 pipe's bound beside it
-            rec_bytes = ft.forward_records(fw) * fm.SPLIT_REC * 2
-            nbytes = n * (8 * 4 + 1) + n * (2 * 4 + 1) + rec_bytes
-            bound = _bound(needed * (hidden_flops + col_flops) * 3, nbytes, "bf16")
-            fp32 = _bound(needed * (hidden_flops + col_flops), nbytes, "fp32")
-            # computed from the design, not measured: every tile requests every
-            # forward record from L2
-            l2_bytes = raw_stats["tiles"] * rec_bytes
-            print(f"[trace-kernel] K3 {name} rays (sphere_tracing_iters {tr.sphere_tracing_iters}, "
-                  f"line_step_iters {tr.line_step_iters}): N={n} hit fraction {hits:.3f}; near rays "
-                  f"{n_near} ({n_near / n:.4%}; flags differing from the split plain version's "
-                  f"{near_differ}, at most {near_allowed:.0f}), re-traced in fp32 with {stats['retrace_evals']} evaluations; "
-                  f"rays whose unfinished / hit flag differs and max_abs_err: K3 against the "
-                  f"K1-fp32 trace {k1_unf} / {k1_hit} / {k1_err:.3e}; against the fp32 plain "
-                  f"version: K3 {unf_d} / {hit_d} / {err:.3e}, the K1-fp32 trace {base_unf} / "
-                  f"{base_hit} / {base_err:.3e}, the kernel alone (no re-trace) {raw_unf} / "
-                  f"{raw_hit} / {raw_err:.3e}; the kernel alone against the split-fp16 "
-                  f"plain version: {sp_unf} / {sp_hit} / {sp_err:.3e}; the split-fp16 scheme itself "
-                  f"against fp32: {sc_unf} / {sc_hit} / {sc_err:.3e}; worst |split fp16 sdf - fp32 "
-                  f"sdf| at the rays' points {sdf_err:.3e}; evals kernel {raw[3]} "
-                  f"({raw[3] / n:.2f}/ray) plain {ref[3]} ({evals_rel:.2e} rel) needed {needed} "
-                  f"({needed / n:.2f}/ray, {needed_rel:.2e} rel); tiles {raw_stats['tiles']}, fill "
-                  f"{fill:.4f}, empty rows {raw_stats['empty_rows']} ({waste:.2%}); K3 with the "
-                  f"re-trace {ms:.3f} ms, the kernel alone {raw_ms:.3f} ms, plain {plain_ms:.3f} "
-                  f"ms, gathered K1-fp32 tracer {gathered_ms:.3f} ms; bound "
-                  f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, split fp16), FP32-pipe bound "
-                  f"{fp32['bound_ms']:.3f} ms; L2 weight bytes requested, computed from the "
-                  f"design: {l2_bytes / 1e9:.3f} GB ({l2_bytes / raw_ms / 1e9:.3f} TB/s) [{card}]",
-                  flush=True)
-            bad = ((out[2] != ref[2]) | ((out[0] < out[1]) != (ref[0] < ref[1])) |
-                   (out[2] != k1[2]) | ((out[0] < out[1]) != (k1[0] < k1[1]))).nonzero()
-            for i in bad[:8, 0].tolist():
-                print(f"[trace-kernel] {name} ray {i} differs: near {bool(stats['near'][i])}; "
-                      + "; ".join(f"{what} {float(t[0][i]):.7f} {float(t[1][i]):.7f} "
-                                  f"{bool(t[2][i])}" for what, t in (
-                                      ("kernel alone", raw), ("K3", out), ("K1-fp32 trace", k1),
-                                      ("fp32 plain", ref))), flush=True)
-            if (k1_unf + k1_hit > TRACE_TOL["flags_differ"] or not err <= TRACE_TOL["abs"]
-                    or not k1_err <= TRACE_TOL["abs"]
-                    or evals_rel > TRACE_TOL["evals_rel"] or needed_rel > TRACE_TOL["evals_rel"]):
-                raise RuntimeError(f"K3 disagrees with its plain version on the {name} rays")
-            if (max(raw_unf, raw_hit) > (1 - TRACE_TOL["agree"]) * n
-                    or not raw_err <= TRACE_TOL["abs"]):
-                raise RuntimeError(f"K3's kernel alone disagrees with the fp32 plain version on "
-                                   f"the {name} rays")
-            if near_differ > near_allowed or n_near > TRACE_TOL["near_share"] * n:
-                raise RuntimeError(f"K3 flags {n_near} of the {name} rays near, {near_differ} "
-                                   f"otherwise than the split plain version")
-            res[name] = dict(max_abs_err=err, ms=ms, kernel_alone_ms=raw_ms, plain_ms=plain_ms,
-                             gathered_ms=gathered_ms, evals_executed=raw[3], evals_needed=needed,
-                             evals_plain=ref[3], retrace_evals=stats["retrace_evals"],
-                             near_rays=n_near, near_share=n_near / n,
-                             near_flags_vs_split_plain=near_differ, tiles=raw_stats["tiles"],
-                             fill=fill, waste=waste, hit_fraction=hits,
-                             flags_differ_k1_fp32=k1_unf + k1_hit, flags_differ=unf_d + hit_d,
-                             k1_fp32_flags_differ=base_unf + base_hit,
-                             kernel_alone_flags_differ=raw_unf + raw_hit,
-                             kernel_alone_max_abs_err=raw_err, split_scheme_err=sc_err,
-                             err_vs_split_plain=sp_err, split_sdf_err=sdf_err, **bound)
+            res[name] = _k3_case("trace-kernel", name, fw, tr, rays, sdf_k1,
+                                 hidden_flops + col_flops, card)
+            worst_sdf = max(worst_sdf, res[name]["split_sdf_err"])
     print(f"[trace-kernel] worst |split fp16 sdf - fp32 sdf| over the three ray sets "
           f"{worst_sdf:.3e}; NEAR_DELTA {ft.NEAR_DELTA:.3e} ({ft.NEAR_DELTA / worst_sdf:.2f} times "
           f"it; at least {NEAR_MARGIN} required)", flush=True)
@@ -686,17 +737,18 @@ def phase_trace_kernel(card):
 def _k3_on_net(tag, net, card):
     """K3 with its re-trace on a trained or other net than the trace phase's
     seeded init: the camera and random rays of _trace_rays under the
-    primary tracer. No ray's flags may differ from the K1-fp32 trace's, at
-    most TRACE_TOL["near_share"] of the rays may be near, and the worst
-    split-fp16 sdf error at the rays' points must lie NEAR_MARGIN times
-    inside NEAR_DELTA. -> the figures."""
+    primary tracer, on the packing the model's closures use on the card
+    (packing_width). No ray's flags may differ from the K1-fp32 trace's on
+    it, at most TRACE_TOL["near_share"] of the rays may be near, and the
+    worst split-fp16 sdf error at the rays' points must lie NEAR_MARGIN
+    times inside NEAR_DELTA. -> the figures."""
     import torch
 
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
 
     tracer = _conf_tracer()
-    fw = fm.prepare_weights(net, torch.float32, fm.FMA_WIDTH)
+    fw = fm.network_weights(net, torch.float32, fm.FMA_WIDTHS)
     sdf_k1 = fm.build_fused_sdf(net, torch.float32)
     res = {}
     with torch.no_grad():
@@ -1774,22 +1826,54 @@ def _neus_state(imp):
     return {"sdf_network_fine": state}
 
 
+def _check_k1_fp32(tag, fw, pts):
+    """K1 fp32 on the FMA pipe on the packing `fw` at RAGGED sizes and
+    N_POINTS against its plain version (TOL, raises). -> the errors by size."""
+    import torch
+
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+
+    errs = []
+    for n in RAGGED + (N_POINTS,):
+        x = fm.embed_padded(pts[:n], fw)
+        h = fm.fused_hidden(x, fw)
+        torch.cuda.synchronize()
+        err = (h - fm.fused_hidden_plain(x, fw)).abs().max().item()
+        print(f"[{tag}] K1 fp32 (FMA, width {fw.width}) N={n}: max_abs_err={err:.3e}",
+              flush=True)
+        if not err <= TOL["fp32_abs"] or not bool(torch.isfinite(h).all()):
+            raise RuntimeError(f"[{tag}] K1 fp32 at width {fw.width} disagrees with its plain "
+                               f"version at N={n}: {err:.3e}")
+        errs.append(err)
+    return errs
+
+
+NEUS_RENDER_RAYS = 16
+
+
 def phase_neus(card):
     """The workflow without masks (workflows/run_s2_womask.sh):
     confs/conf_neus.conf, whose SDF net is NeuS's 8x256 (skip at 4, multires
     6, 256 features) with use_fused_sdf, bf16 trace. On the card the model's
-    closures pack it at 256 for the tensor-core kernels (K1 bf16, K2) and at
-    512 for the FMA K1 and K3 (fused_mlp.packing_width). K1 bf16 (both
-    entries) and K2 on the 256 packing against their plain versions at
-    RAGGED sizes and N_POINTS points under phase 3's gates, and the same on
-    the net's 512 packing (the padded run of earlier versions), timed beside
-    them with the bounds at the real width; K1 fp32 on its 512 packing; K3
-    on the net (_k3_on_net). Then a NeuS `.pth` (the seeded net's
-    `sdf_network_fine`) imported through exp_runner.main --geometry_neus
-    with the workflow's flags (frozen geometry, --wo_mask, --gamma 2.2, a
-    distillation step after each of 2 steps of 2048 px x 64 rays). Checks
-    the imported weights bit for bit, finite losses, a frozen geometry, and
-    launches of K1 bf16 and K2 at width 256 and at no other."""
+    closures pack it at 256 for every kernel (fused_mlp.packing_width): K1
+    fp32 and bf16, K2, K3. Each kernel on the 256 packing against its plain
+    version under phase 3's gates (K1 fp32 and bf16, both entries, and K2 at
+    RAGGED sizes and N_POINTS points) and phase 4's (K3 on the camera and
+    random rays of _trace_rays under the primary tracer, TRACE_TOL, no flag
+    differing from the K1-fp32 trace on the same packing, the worst
+    split-fp16 sdf error NEAR_MARGIN times inside NEAR_DELTA); each timed
+    beside the net padded to 512 (the padded run of earlier versions), with
+    its bound at the real width. Then a NeuS `.pth` (the seeded net's
+    `sdf_network_fine`) imported through exp_runner.main --geometry_neus with
+    the workflow's flags (frozen geometry, --wo_mask, --gamma 2.2, a
+    distillation step after each of 2 steps of 2048 px x 64 rays), as
+    shipped and with use_fused_trace (K3 in the traces), and one 128x128
+    view at 16 rays of its checkpoint through render.main with
+    fused_sdf_dtype = float32 (K1 fp32 in the traces). Checks the imported
+    weights bit for bit, finite losses and EXRs, a frozen geometry, and
+    launches at width 256 and at no other (the per-width counts of
+    fused_mlp.LAUNCHES and fused_trace.LAUNCHES): K1 bf16 and K2 in every
+    run, K3 in the use_fused_trace run, K1 fp32 in the fp32 render."""
     import numpy as np
     import torch
 
@@ -1798,34 +1882,31 @@ def phase_neus(card):
     from nefii_tpu_torch.models.idr import IDRNetwork
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from nefii_tpu_torch.scripts import render
     from nefii_tpu_torch.training import exp_runner
 
     text = _conf_text(NO_VIS, name="conf_neus.conf")
     mconf = parse_string(text).get_config("model")
     src = IDRNetwork.from_conf(mconf, device="cuda", seed=7)
     imp = src.implicit_network
+    dev = torch.device("cuda", 0)
     gen = torch.Generator(device="cuda").manual_seed(2)
     pts = torch.randn(N_POINTS, 3, generator=gen, device="cuda") * 0.5
-    tc_width = fm.packing_width(imp, fm.TC_WIDTHS)
-    if (tc_width, fm.packing_width(imp, (fm.FMA_WIDTH,))) != (256, 512):
-        raise RuntimeError(f"NeuS packing widths: {tc_width} (tensor cores)")
+    width = fm.packing_width(imp, fm.TC_WIDTHS)
+    if (width, fm.packing_width(imp, fm.FMA_WIDTHS)) != (256, 256):
+        raise RuntimeError(f"NeuS packing widths: {width} (tensor cores), "
+                           f"{fm.packing_width(imp, fm.FMA_WIDTHS)} (FMA K1, K3)")
     hidden_flops, col_flops = _chain_flops(imp)
     res = {}
     with torch.no_grad():
-        fw = fm.prepare_weights(imp, torch.float32, fm.FMA_WIDTH)
-        if fw.width != 512 or fw.real_width != 256:
-            raise RuntimeError(f"NeuS packing: width {fw.width}, real {fw.real_width}")
-        x = fm.embed_padded(pts, fw)
-        h, ref = fm.fused_hidden(x, fw), fm.fused_hidden_plain(x, fw)
-        err = (h - ref).abs().max().item()
-        if not err <= TOL["fp32_abs"] or not bool(torch.isfinite(h).all()):
-            raise RuntimeError(f"K1 fp32 on the NeuS net disagrees: {err:.3e}")
-        res["k1_fp32"] = dict(max_abs_err=err, ms=_time(lambda: fm.fused_hidden(x, fw)))
-        for width in fm.TC_WIDTHS:
-            f16 = fm.prepare_weights(imp, torch.bfloat16, width)
-            f32 = fm.prepare_weights(imp, torch.float32, width)
+        for w in fm.TC_WIDTHS:
+            f16 = fm.prepare_weights(imp, torch.bfloat16, w)
+            f32 = fm.prepare_weights(imp, torch.float32, w)
+            if (f32.width, f32.real_width) != (w, 256):
+                raise RuntimeError(f"NeuS packing: width {f32.width}, real {f32.real_width}")
             errs_h, errs_s = _check_k1_tc("neus", f16, pts)
             errs_k2 = _check_k2("neus", f32, pts)
+            errs_k1 = _check_k1_fp32("neus", f32, pts)
             x16, x32 = fm.embed_padded(pts, f16), fm.embed_padded(pts, f32)
             weights, records = f16.tc.numel() * 2, fm.split_weights(f32).numel() * 2
             # bounds at the real width: the net's own products, each input
@@ -1844,68 +1925,145 @@ def phase_neus(card):
                     **_bound(N_POINTS * 2 * hidden_flops * 3,
                              N_POINTS * (2 * f32.emb_dim + f32.real_width) * 4 + records,
                              "bf16")),
+                "fused_sdf_hidden": dict(
+                    max_abs_err=max(errs_k1), ms=_time(lambda: fm.fused_hidden(x32, f32)),
+                    **_bound(N_POINTS * hidden_flops,
+                             N_POINTS * (f32.emb_dim + f32.real_width) * 4
+                             + f32.buf.numel() * 4, "fp32")),
             }
-            if width == tc_width:
+            if w == width:
                 run["fused_sdf_value"]["plain_ms"] = _time(
                     lambda: fm.fused_sdf_value_plain(x16, f16))
                 run["fused_sdf_hidden_tc"]["plain_ms"] = _time(
                     lambda: fm.fused_hidden_plain(x16, f16))
                 run["fused_sdf_fwd_bwd"]["plain_ms"] = _time(
                     lambda: fm.fused_fwd_bwd_plain(x32, f32))
-            res[f"w{width}"] = run
-            print(f"[neus] width {width}{' (padded)' if width > tc_width else ''}, N={N_POINTS}: "
+                run["fused_sdf_hidden"]["plain_ms"] = _time(
+                    lambda: fm.fused_hidden_plain(x32, f32))
+            res[f"w{w}"] = run
+            print(f"[neus] width {w}{' (padded)' if w > width else ''}, N={N_POINTS}: "
                   + "; ".join(f"{k} {v['ms']:.3f} ms (bound at the real width {v['bound_ms']:.3f} "
                               f"ms, {v['bound_ms'] / v['ms']:.1%})" for k, v in run.items())
                   + f"; K2 streams {records // 2 // fm.SPLIT_REC} records a tile, K1 "
-                  f"{weights // 2 // (fm.TC_K * width)} chunks a step [{card}]", flush=True)
+                  f"{weights // 2 // (fm.TC_K * w)} chunks a step [{card}]", flush=True)
+        # K3 on the packing the model's closures use (256), held to the
+        # K1-fp32 trace on it; the 512 packing timed beside it
+        tracer = _conf_tracer()
+        fw = fm.network_weights(imp, torch.float32, fm.FMA_WIDTHS)
+        fw512 = fm.prepare_weights(imp, torch.float32, 512)
+        sdf_k1 = fm.build_fused_sdf(imp, torch.float32)
+        k3 = {}
+        for name, rays in _trace_rays(tracer, dev).items():
+            r = _k3_case("neus", name, fw, tracer, rays, sdf_k1, hidden_flops + col_flops, card,
+                         fp32_pair=True)
+            r["padded_512_ms"] = _time(lambda: ft.fused_sphere_trace(*rays, fw512, tracer),
+                                       reps=3)
+            r["padded_512_kernel_alone_ms"] = _time(
+                lambda: ft._trace_kernel(*rays, fw512, tracer), reps=3)
+            print(f"[neus] K3 {name} rays at width {fw.width}: {r['ms']:.3f} ms, the kernel alone "
+                  f"{r['kernel_alone_ms']:.3f} ms; on the 512 packing {r['padded_512_ms']:.3f} "
+                  f"ms, the kernel alone {r['padded_512_kernel_alone_ms']:.3f} ms [{card}]",
+                  flush=True)
+            k3[name] = r
+    worst = max(r["split_sdf_err"] for r in k3.values())
+    print(f"[neus] worst |split fp16 sdf - fp32 sdf| on the width-{fw.width} packing "
+          f"{worst:.3e}; NEAR_DELTA {ft.NEAR_DELTA:.3e} ({ft.NEAR_DELTA / worst:.2f} times it; "
+          f"at least {NEAR_MARGIN} required)", flush=True)
+    if ft.NEAR_DELTA < NEAR_MARGIN * worst:
+        raise RuntimeError("[neus] NEAR_DELTA does not cover the split fp16 sdf error")
+    res["k3"] = k3
     print(f"[neus] 8x256 SDF net: {res} [{card}]", flush=True)
-    res["k3"] = _k3_on_net("neus", imp, card)
 
+    runs = {}
     with tempfile.TemporaryDirectory() as d:
-        conf_path = os.path.join(d, "conf_neus.conf")
-        with open(conf_path, "w") as f:
-            f.write(text)
         pth = os.path.join(d, "neus.pth")
         torch.save(_neus_state(imp), pth)
         scene = write_sphere_scene(os.path.join(d, "scene"), NEUS_VIEWS, TRAIN_RES)
-        argv = ["--conf", conf_path, "--data_split_dir", scene, "--exps_folder_name",
-                os.path.join(d, "exps"), "--gamma", "2.2", "--wo_mask", "--roughness_warmup",
-                "2", "--secondary_batch_size", "1024", "--secondary_train_interval", "1",
-                "--freeze_geometry", "--geometry_neus", pth, "--max_niter",
-                str(NEUS_VIEWS - 1), "--device", "cuda"]
-        print("[neus] python -m nefii_tpu_torch.training.exp_runner " + " ".join(argv),
+
+        def counted(tag, fn):
+            """fn() with the launch counts set to 0 just before and read just
+            after. -> (its result, the launches, peak memory)"""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fm.reset_launch_counts()
+            ft.reset_launch_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            launches = {**fm.LAUNCHES, **ft.LAUNCHES}
+            wide = {k: v for k, v in launches.items() if "@" in k and not k.endswith(f"@{width}")
+                    and v}
+            print(f"[{tag}] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+                  f"GiB; launches {launches} [{card}]", flush=True)
+            if wide:
+                raise RuntimeError(f"[{tag}] launched a kernel at another width than {width}: "
+                                   f"{wide}")
+            return out, launches, torch.cuda.max_memory_allocated()
+
+        for tag, replace in (("neus", ()), ("neus-k3", (K3_ON,))):
+            conf_path = os.path.join(d, tag + ".conf")
+            with open(conf_path, "w") as f:
+                f.write(_conf_text(NO_VIS + replace, name="conf_neus.conf"))
+            argv = ["--conf", conf_path, "--data_split_dir", scene, "--exps_folder_name",
+                    os.path.join(d, "exps_" + tag), "--gamma", "2.2", "--wo_mask",
+                    "--roughness_warmup", "2", "--secondary_batch_size", "1024",
+                    "--secondary_train_interval", "1", "--freeze_geometry", "--geometry_neus",
+                    pth, "--max_niter", str(NEUS_VIEWS - 1), "--device", "cuda"]
+            print(f"[{tag}] python -m nefii_tpu_torch.training.exp_runner " + " ".join(argv),
+                  flush=True)
+            runner, launches, peak = counted(tag, lambda: exp_runner.main(argv))
+            stats = runner.step_stats
+            for st in stats:
+                print(f"[{tag}] step {st['iter']}: {st['seconds']:.3f} s/step ({st['rays']} "
+                      f"rays), loss {st['loss']:.6f}, secondary step "
+                      f"{st['secondary_seconds']:.3f} s [{card}]", flush=True)
+            got = runner.model.implicit_network
+            same = all(torch.equal(a.detach(), b.detach())
+                       for a, b in zip(got.parameters(), imp.parameters()))
+            print(f"[{tag}] imported weights equal the .pth's: {same} [{card}]", flush=True)
+            if not same or not runner.freeze_geo:
+                raise RuntimeError(f"[{tag}] the NeuS geometry was not imported as saved, or it "
+                                   f"trained")
+            if len(stats) != NEUS_VIEWS or not all(
+                    np.isfinite(st["loss"]) and st["secondary_points"] > 0 for st in stats):
+                raise RuntimeError(f"[{tag}] expected {NEUS_VIEWS} finite steps with "
+                                   f"distillation: {stats}")
+            need = ["fused_sdf_value", "fused_sdf_fwd_bwd"] + (
+                ["fused_sphere_trace"] if replace else [])
+            if any(launches[f"{k}@{width}"] <= 0 for k in need):
+                raise RuntimeError(f"[{tag}] the run must launch {need} at width {width}: "
+                                   f"{launches}")
+            runs[tag] = dict(s_per_step=[st["seconds"] for st in stats],
+                             max_memory_allocated=peak, launches=launches, runner=runner)
+
+        # one view of the use_fused_trace run's checkpoint with the fp32 trace
+        k3_runner = runs["neus-k3"].pop("runner")
+        runs["neus"].pop("runner")
+        conf_path = os.path.join(d, "neus-fp32.conf")
+        with open(conf_path, "w") as f:
+            f.write(_conf_text(NO_VIS + (FP32_TRACE,), name="conf_neus.conf"))
+        out_dir = os.path.join(d, "renders")
+        argv = ["--conf", conf_path, "--data_split_dir", scene, "--old_expdir",
+                k3_runner.expdir, "--timestamp", k3_runner.timestamp, "--num_rays",
+                str(NEUS_RENDER_RAYS), "--max_views", "1", "--out_dir", out_dir,
+                "--device", "cuda"]
+        print("[neus-fp32] python -m nefii_tpu_torch.scripts.render " + " ".join(argv),
               flush=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fm.reset_launch_counts()
-        ft.reset_launch_counts()
-        runner = exp_runner.main(argv)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        launches = {**fm.LAUNCHES, **ft.LAUNCHES}
-    stats = runner.step_stats
-    for st in stats:
-        print(f"[neus] step {st['iter']}: {st['seconds']:.3f} s/step ({st['rays']} rays), loss "
-              f"{st['loss']:.6f}, secondary step {st['secondary_seconds']:.3f} s [{card}]",
+        rr, launches, peak = counted("neus-fp32", lambda: render.main(argv))
+        _read_views(out_dir, 1, TRAIN_RES)
+    for st in rr.stats:
+        print(f"[neus-fp32] view {st['view']}: {st['seconds']:.3f} s/view ({TRAIN_RES}x{TRAIN_RES},"
+              f" {NEUS_RENDER_RAYS} rays/px), hit fraction {st['hit_fraction']:.3f} [{card}]",
               flush=True)
-    got = runner.model.implicit_network
-    same = all(torch.equal(a.detach(), b.detach())
-               for a, b in zip(got.parameters(), imp.parameters()))
-    print(f"[neus] imported weights equal the .pth's: {same}; max_memory_allocated "
-          f"{peak / 2**30:.3f} GiB; launches {launches} [{card}]", flush=True)
-    if not same or not runner.freeze_geo:
-        raise RuntimeError("the NeuS geometry was not imported as saved, or it trained")
-    if len(stats) != NEUS_VIEWS or not all(np.isfinite(st["loss"]) and st["secondary_points"] > 0
-                                           for st in stats):
-        raise RuntimeError(f"expected {NEUS_VIEWS} finite steps with distillation: {stats}")
-    padded = {k: launches[f"{k}@{w}"] for k in fm.TC_KERNELS for w in fm.TC_WIDTHS
-              if w != tc_width and launches[f"{k}@{w}"]}
-    if launches[f"fused_sdf_value@{tc_width}"] <= 0 or \
-            launches[f"fused_sdf_fwd_bwd@{tc_width}"] <= 0 or padded:
-        raise RuntimeError(f"the NeuS run must launch K1 bf16 and K2 at width {tc_width} only: "
-                           f"{launches}")
-    return dict(kernels=res, s_per_step=[st["seconds"] for st in stats],
-                max_memory_allocated=peak, launches=launches)
+    if not all(st["hit_fraction"] > 0 for st in rr.stats) or any(
+            launches[f"{k}@{width}"] <= 0 for k in ("fused_sdf_hidden", "fused_sdf_fwd_bwd")):
+        raise RuntimeError(f"[neus-fp32] no hit, or K1 fp32 or K2 did not launch at width "
+                           f"{width}: {launches}")
+    runs["neus-fp32"] = dict(s_per_view=[st["seconds"] for st in rr.stats],
+                             max_memory_allocated=peak, launches=launches)
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in launches}
+    return dict(kernels=res, runs={k: {n: v for n, v in r.items() if n != "launches"}
+                                   for k, r in runs.items()},
+                run_launches={k: r["launches"] for k, r in runs.items()}, launches=total)
 
 
 STEP1_ITERS = 300
@@ -2307,6 +2465,35 @@ def _mgpu_worker(rank, world, store, spec, out_path):
     torch.save(res, out_path)
 
 
+def _stop_resource_tracker():
+    """Stop the resource tracker that starting a spawn process starts. It
+    otherwise outlives this script: it exits only once it reads the end of
+    its pipe, after this process has gone. The next spawn starts another."""
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+
+
+def _live_children():
+    """-> [(pid, command line)] of this process's children that still run
+    (zombies, which have exited, are left out)."""
+    me = str(os.getpid())
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        if ppid == me and state != "Z":
+            out.append((int(pid), cmd))
+    return out
+
+
 def _mgpu_run(world, spec, d):
     """Spawn the `world` ranks of _mgpu_worker, join them within
     MGPU_TIMEOUT seconds (or kill them), fail unless each exited 0; -> each
@@ -2320,15 +2507,18 @@ def _mgpu_run(world, spec, d):
     outs = [os.path.join(d, f"world{tag}_rank{r}.pt") for r in range(world)]
     procs = [ctx.Process(target=_mgpu_worker, args=(r, world, store, spec, outs[r]))
              for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + MGPU_TIMEOUT
-    for p in procs:
-        p.join(max(deadline - time.monotonic(), 0.0))
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MGPU_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        _stop_resource_tracker()
     codes = [p.exitcode for p in procs]
     if codes != [0] * world:
         raise RuntimeError(f"[multi-gpu] the ranks of world {world} exited with {codes}")
@@ -3023,6 +3213,7 @@ def main():
                       "card": card}), flush=True)
     src = "nefii_tpu_torch/ops/kernels/csrc/fused_mlp.cu"
     tc_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_tc.cuh"
+    trace_src = "nefii_tpu_torch/ops/kernels/csrc/fused_trace.cu"
     k1 = "nefii_tpu/ops/pallas/fused_mlp.py:136"
     ref_launches = train_ref.pop("launches")
     # launches: the frozen training run's (the first slice's main path); the
@@ -3070,8 +3261,7 @@ def main():
              design="split bf16 (hi.hi + lo.hi + hi.lo) on wgmma m64n256k16, bulk-copy "
                     "weight ring", library_ms=None, **kern["k2"]),
         dict(name="fused_sphere_trace", route="cuda",
-             source="nefii_tpu_torch/ops/kernels/csrc/fused_trace.cu",
-             replaces="nefii_tpu/ops/pallas/fused_trace.py:81",
+             source=trace_src, replaces="nefii_tpu/ops/pallas/fused_trace.py:81",
              launches=launches["fused_sphere_trace"], **paths("fused_sphere_trace"),
              dtype="float32",
              design="split fp16 (hi.hi + lo.hi + hi.lo, weights scaled by 2^s per layer) on "
@@ -3084,26 +3274,46 @@ def main():
              random_rays=trace["random"], random_rays_secondary_conf=trace["random_secondary"]),
     ]
     # the width-256 instantiations (phase 12's path): launches from the NeuS
-    # run (those of the other paths beside them), times, plain times and
+    # runs (those of the other paths beside them), times, plain times and
     # bounds on NeuS's net at 256, the padded 512 packing's time beside them
     for rec in records:
         rec["width"] = 512
     neus_k = neus["kernels"]
     split_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_split.cuh"
+
+    def at_256(name, source, replaces, dtype, design, figures, padded_ms):
+        key = f"{name}@256"
+        return dict(
+            name=key, route="cuda", source=source, replaces=replaces,
+            launches=live["neus_launches"][key],
+            **{k: v.get(key, 0) for k, v in live.items() if k != "neus_launches"},
+            dtype=dtype, design=design, width=256, net="confs/conf_neus.conf 8x256",
+            padded_512_ms=padded_ms, library_ms=None, **figures)
+
     for name, source, replaces, dtype, design in (
             ("fused_sdf_hidden_tc", tc_src, k1, "bfloat16",
              "wgmma m64n256k16 on two tiles in ping-pong, bulk-copy weight ring"),
             ("fused_sdf_value", tc_src, k1, "bfloat16",
              "the tensor-core K1 with the sdf column in its epilogue, two tiles in ping-pong"),
             ("fused_sdf_fwd_bwd", split_src, "nefii_tpu/ops/pallas/fused_mlp.py:240", "float32",
-             "split bf16 (hi.hi + lo.hi + hi.lo) on wgmma m64n128k16, bulk-copy weight ring")):
-        key = f"{name}@256"
-        records.append(dict(
-            name=key, route="cuda", source=source, replaces=replaces,
-            launches=live["neus_launches"][key],
-            **{k: v.get(key, 0) for k, v in live.items() if k != "neus_launches"},
-            dtype=dtype, design=design, width=256, net="confs/conf_neus.conf 8x256",
-            padded_512_ms=neus_k["w512"][name]["ms"], library_ms=None, **neus_k["w256"][name]))
+             "split bf16 (hi.hi + lo.hi + hi.lo) on wgmma m64n128k16, bulk-copy weight ring"),
+            ("fused_sdf_hidden", src, k1, "float32",
+             "FMA pipe, 64-row block tiles of 256 threads")):
+        records.append(at_256(name, source, replaces, dtype, design, neus_k["w256"][name],
+                              neus_k["w512"][name]["ms"]))
+    k3_neus = neus_k["k3"]
+    records.append(at_256(
+        "fused_sphere_trace", trace_src, "nefii_tpu/ops/pallas/fused_trace.py:81", "float32",
+        "split fp16 on wgmma m64n128k16, two k16 slices a record, over a refilled pool of 32 "
+        "live rays a block, bulk-copy weight ring",
+        dict({k: k3_neus["camera"][k] for k in (
+            "max_abs_err", "ms", "kernel_alone_ms", "plain_ms", "bound_ms", "bound_by", "fill",
+            "waste", "evals_needed", "evals_executed", "near_share", "retrace_evals",
+            "padded_512_kernel_alone_ms")}, random_rays=k3_neus["random"]),
+        k3_neus["camera"]["padded_512_ms"]))
+    left = _live_children()
+    if left:
+        raise RuntimeError(f"processes started by this run still run at its end: {left}")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@
 //   z = h W + b (the skip layer adds x Wx, the concat(h, x)/sqrt(2) folded
 //   into split weights), h = softplus(100 z)/100. Three entries:
 //     nefii_sdf_hidden     fp32, on the FMA pipe (the layer loop of
-//                          sdf_mlp.cuh);
+//                          sdf_mlp.cuh), at width 256 or 512;
 //     nefii_sdf_hidden_tc  bf16 operands, fp32 accumulation, h rounded to
 //                          bf16 after every layer, on the tensor cores
 //                          (sdf_mlp_tc.cuh: wgmma, bulk-copy weight ring);
@@ -23,18 +23,19 @@
 //   split bf16 (three bf16 products per multiply-add); its design and bound
 //   are in sdf_mlp_split.cuh.
 //
-// Widths. The FMA kernel takes width WIDTH = 512 only. The tensor-core
-// kernels (K1 bf16, K2) are compiled for TC_WIDTHS, 256 and 512; their
-// entries take the packing's width and launch that instantiation, and refuse
-// any other. A net runs at the smallest compiled width that holds it
-// (fused_mlp.py), so NeuS's 8x256 runs unpadded.
+// Widths. Every kernel here is compiled for hidden widths 256 and 512: the
+// FMA kernel (FmaCfg, 32-row tiles at 512, 64-row at 256), the tensor-core
+// kernels K1 bf16 and K2 (TcCfg, SplitCfg). Each entry takes the packing's
+// width, launches that instantiation and refuses any other. A net runs at the
+// smallest compiled width that holds it (fused_mlp.py), so NeuS's 8x256 runs
+// unpadded in every kernel.
 //
 // What bounds the fp32 FMA kernels on this card. The 8x512 chain is ~3.7
 // MFLOP per point against ~160 B of input and 1-2 KB of output, so it is
 // compute-bound; the TPU kernel kept all ~7.5 MB of fp32 weights in VMEM,
 // which an SM (227 KB of shared memory) cannot. The design therefore keeps
-// only the block's activation tile on chip -- 32 rows x 512 features in fp32,
-// 64 KB of shared memory -- and streams each layer's weights through L2
+// only the block's activation tile on chip -- 32 rows x 512 features in fp32
+// (64 x 256 at width 256), 64 KB of shared memory -- and streams each layer's weights through L2
 // (they fit in its 50 MB many times over) and L1, where the four row groups
 // of a block share them. Every thread owns an 8x8 output tile and runs the
 // matmul as fp32 FMAs (64 FMAs per 16 bytes of weights and 32 bytes of
@@ -53,45 +54,62 @@
 
 namespace {
 
-// xs[c][r] = x[base + r][c] (zero past the last row)
+// xs[c][r] = x[base + r][c] (zero past the last row), BM rows
+template <int BM>
 __device__ __forceinline__ void load_rows(float* xs, const float* __restrict__ x, int xc,
                                           long long base, long long n_rows) {
-  for (int i = threadIdx.x; i < BM * xc; i += THREADS) {
+  for (int i = threadIdx.x; i < BM * xc; i += FMA_THREADS) {
     const int r = i / xc, c = i - r * xc;
     const long long row = base + r;
     xs[c * BM + r] = row < n_rows ? x[row * xc + c] : 0.0f;
   }
 }
 
-// out[base + r][c] = act[c][r]
+// out[base + r][c] = act[c][r], BM rows of W
+template <int W, int BM>
 __device__ __forceinline__ void store_rows(float* __restrict__ out, const float* act, long long base,
                                            long long n_rows) {
-  for (int i = threadIdx.x; i < BM * WIDTH; i += THREADS) {
-    const int r = i / WIDTH, c = i - r * WIDTH;
+  for (int i = threadIdx.x; i < BM * W; i += FMA_THREADS) {
+    const int r = i / W, c = i - r * W;
     const long long row = base + r;
-    if (row < n_rows) out[row * WIDTH + c] = act[c * BM + r];
+    if (row < n_rows) out[row * W + c] = act[c * BM + r];
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+template <int W>
+__global__ void __launch_bounds__(FMA_THREADS, 2)
 sdf_hidden_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
                   const __grid_constant__ Plan plan,
                   float* __restrict__ out, long long n_rows) {
+  constexpr int BM = FmaCfg<W>::BM;
   extern __shared__ __align__(16) float smem[];
-  float* act = smem;                // [WIDTH][BM]
-  float* xs = smem + WIDTH * BM;    // [x_cols][BM]
-  const int tx = threadIdx.x % (WIDTH / TN), ty = threadIdx.x / (WIDTH / TN);
+  float* act = smem;            // [W][BM]
+  float* xs = smem + W * BM;    // [x_cols][BM]
+  const int tx = threadIdx.x % (W / TN), ty = threadIdx.x / (W / TN);
   const int col0 = tx * TN, row0 = ty * TM;
   const long long n_tiles = (n_rows + BM - 1) / BM;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long base = tile * BM;
-    load_rows(xs, x, plan.x_cols, base, n_rows);
+    load_rows<BM>(xs, x, plan.x_cols, base, n_rows);
     __syncthreads();
     for (int l = 0; l < plan.n; ++l)
-      forward_layer(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, col0, row0);
-    store_rows(out, act, base, n_rows);
+      forward_layer<W>(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, col0, row0);
+    store_rows<W, BM>(out, act, base, n_rows);
     __syncthreads();
   }
+}
+
+template <int W>
+int launch_fma(const void* x, const void* wbuf, const Plan& plan, void* out, long long n_rows,
+               int grid, void* stream) {
+  const int smem = (W + plan.x_cols) * FmaCfg<W>::BM * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(sdf_hidden_kernel<W>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  sdf_hidden_kernel<W><<<grid, FMA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wbuf), plan,
+      static_cast<float*>(out), n_rows);
+  return (int)cudaGetLastError();
 }
 
 template <int W, bool SDF>
@@ -151,13 +169,16 @@ const char* nefii_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// the FMA kernel's width, rows and threads a block; the tensor-core kernels'
-// rows a tile, threads a block and compiled widths (tc_widths[2])
-int nefii_fused_mlp_config(int* width, int* block_rows, int* threads, int* tc_block_rows,
+// the FMA kernel's compiled widths (widths[2]), its rows a block at each
+// (block_rows[2]) and threads a block; the tensor-core kernels' rows a tile,
+// threads a block and compiled widths (tc_widths[2])
+int nefii_fused_mlp_config(int* widths, int* block_rows, int* threads, int* tc_block_rows,
                            int* tc_threads, int* tc_widths) {
-  *width = WIDTH;
-  *block_rows = BM;
-  *threads = THREADS;
+  widths[0] = 256;
+  widths[1] = 512;
+  block_rows[0] = FmaCfg<256>::BM;
+  block_rows[1] = FmaCfg<512>::BM;
+  *threads = FMA_THREADS;
   *tc_block_rows = TC_BM;
   *tc_threads = TC_THREADS;
   tc_widths[0] = 256;
@@ -165,20 +186,17 @@ int nefii_fused_mlp_config(int* width, int* block_rows, int* threads, int* tc_bl
   return 0;
 }
 
-// out[n_rows][WIDTH] = hidden chain of x[n_rows][x_cols], fp32 (FMA pipe).
+// out[n_rows][width] = hidden chain of x[n_rows][x_cols], fp32 (FMA pipe),
+// at `width` (256 or 512).
 int nefii_sdf_hidden(const void* x, const void* wbuf, const long long* desc, int n_layers,
-                     int x_cols, void* out, long long n_rows, int grid, void* stream) {
+                     int x_cols, int width, void* out, long long n_rows, int grid,
+                     void* stream) {
   Plan plan;
-  if (!make_plan(desc, n_layers, x_cols, &plan) || grid <= 0 || n_rows <= 0)
+  if (!make_plan(desc, n_layers, x_cols, &plan, width) || grid <= 0 || n_rows <= 0)
     return (int)cudaErrorInvalidValue;
-  const int smem = (WIDTH + x_cols) * BM * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(sdf_hidden_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  sdf_hidden_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wbuf), plan,
-      static_cast<float*>(out), n_rows);
-  return (int)cudaGetLastError();
+  if (width == 512) return launch_fma<512>(x, wbuf, plan, out, n_rows, grid, stream);
+  if (width == 256) return launch_fma<256>(x, wbuf, plan, out, n_rows, grid, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // out[n_rows][width] bf16 = hidden chain of x[n_rows][x_cols] bf16 on the

@@ -10,8 +10,8 @@
 // SDF-MLP hidden chain and the sdf column of the final linear. fp32 in, fp32
 // accurate, as the TPU kernel.
 //
-// What bounds it on this card. Every evaluation is the 8x512 chain, 3.7
-// MFLOP a point. On the FP32 pipe (the first port's design) that pipe was
+// What bounds it on this card. Every evaluation is the flagship's 8x512
+// chain, 3.7 MFLOP a point (NeuS's 8x256, 0.9). On the FP32 pipe (the first port's design) that pipe was
 // the ceiling. Here the chain runs on the tensor cores in split fp16: every
 // operand v is hi = fp16(v) and lo = fp16(v - hi), every product hi.hi +
 // lo.hi + hi.lo, K2's scheme (sdf_mlp_split.cuh) with fp16's 11 significand
@@ -37,7 +37,7 @@
 // incoherent rays lived as long as its slowest ray. Here a row of a tile is
 // a point query, not a ray:
 //   * a persistent block (K2's skeleton: two consumer warpgroups, one
-//     producer warpgroup streaming records through a 5-stage ring) keeps a
+//     producer warpgroup streaming records through the ring) keeps a
 //     pool of TR_SLOTS = 32 rays. Each ray is a state machine (initial
 //     evaluation, trace step, line-search step) that asks for its start
 //     point while unf_s, its end point while unf_e, or its back-stepped
@@ -53,12 +53,21 @@
 //     the ray logic holds no register of the consumers' hot loop.
 //   * the tile: the embedding of each row's point into the X tile (hi, lo),
 //     the forward chain (trace_gemm on K2's forward record layout, in fp16:
-//     trace_weights in fused_trace.py; a warpgroup's 64x256 sums in fp32
-//     registers beside one 64x128 tensor-core partial), and the last layer's epilogue
-//     reduces h . w_last[:, 0] per row in a fixed order (as K1's sdf entry):
-//     the 64x512 h never leaves the chip. A wgmma row's sums do not depend on
-//     the other rows, so a ray's results do not depend on which rays share
-//     its tiles.
+//     trace_weights in fused_trace.py; a warpgroup's 64 x W/2 sums in fp32
+//     registers beside one 64x128 tensor-core partial), and the last layer's
+//     epilogue reduces h . w_last[:, 0] per row in a fixed order (as K1's sdf
+//     entry): the 64 x W h never leaves the chip. A wgmma row's sums do not
+//     depend on the other rows, so a ray's results do not depend on which
+//     rays share its tiles.
+//   * widths: compiled for W = 512 and W = 256, on K2's layout at W
+//     (SplitCfg). At 512 a record holds one k16 slice of N = 512, each
+//     consumer warpgroup owns 256 columns (two m64n128k16 partials a slice,
+//     sum[128]) and the ring has 5 stages. At 256, K2@256's design: a record
+//     holds two slices of N = 256 (a layer's odd last slice padded with
+//     zeros), each warpgroup owns 128 columns (one m64n128k16 partial a
+//     slice, sum[64]: half the sums' registers) and the ring has 8 stages.
+//     The pool, its one 64-row tile, the near flags and the 2^s scaling are
+//     the same at both.
 //   * the weight sequence is the same for every tile, so the producer cycles
 //     the ring without waiting on the ray logic and runs into the next tile's
 //     layer 0. The consumers do not know a tile ahead whether there is one:
@@ -85,14 +94,22 @@
 
 namespace {
 
-constexpr int TR_SLOTS = 32;                        // rays in a block's pool
-constexpr int TR_PTS_OFF = SP_BAR_OFF + 2 * SP_STAGES * 8;  // float4 point of each row
-constexpr int TR_RED_OFF = TR_PTS_OFF + TC_BM * 16;        // [2][TC_BM] sdf partial sums
-constexpr int TR_CTL_OFF = TR_RED_OFF + 2 * TC_BM * 4;     // queries this tile, stop flag
-constexpr int TR_SMEM = TR_CTL_OFF + 16 + 1024;            // + alignment slack
-static_assert(TR_SMEM <= 232448, "K3 needs more shared memory than a block may use");
+constexpr int TR_SLOTS = 32;  // rays in a block's pool
 static_assert(2 * TR_SLOTS <= TC_BM, "the pool's queries must fit one tile");
-static_assert(TR_PTS_OFF % 16 == 0, "the points are float4");
+
+// K3's shared memory at width W: K2's layout (SplitCfg<W>: the ring, the
+// activation and X tiles, the ring's barriers), then the rows' points, the
+// sdf partial sums and the control words
+template <int W>
+struct TraceLayout {
+  using C = SplitCfg<W>;
+  static constexpr int PTS_OFF = C::BAR_OFF + 2 * C::STAGES * 8;  // float4 point of each row
+  static constexpr int RED_OFF = PTS_OFF + TC_BM * 16;            // [2][TC_BM] sdf partial sums
+  static constexpr int CTL_OFF = RED_OFF + 2 * TC_BM * 4;         // queries this tile, stop flag
+  static constexpr int SMEM = CTL_OFF + 16 + 1024;                // + alignment slack
+  static_assert(SMEM <= 232448, "K3 needs more shared memory than a block may use");
+  static_assert(PTS_OFF % 16 == 0, "the points are float4");
+};
 
 constexpr int SLOT_EMPTY = -1;  // a slot waiting for a ray
 constexpr int SLOT_DRY = -2;    // no ray is left to take
@@ -271,41 +288,50 @@ __device__ __forceinline__ float embed_value(const float4& p, int c) {
   return use_cos ? cosf(a) : sinf(a);
 }
 
-// sum += A . B over n_slices k16 slices, fp32-accurate. B comes from the
-// ring: per slice a hi record and a lo record of N = 512, of which this
-// warpgroup reads its 256 rows. Each slice and each half of the warpgroup's
-// columns is a fresh tensor-core sum, A_lo.B_hi + A_hi.B_lo + A_hi.B_hi (the
-// small products first), added to `sum` with fp32 adds that round to
-// nearest. The tensor cores add in fp32 with truncation: one accumulator
+// sum += A . B over n_slices k16 slices (rounded up to whole records, whose
+// padding is zero), fp32-accurate. B comes from the ring: per record pair a
+// hi record and a lo record of G slices of N = W, of which this warpgroup
+// reads its W/2 rows. Each slice and each 128 of the warpgroup's columns is a
+// fresh tensor-core sum, A_lo.B_hi + A_hi.B_lo + A_hi.B_hi (the small
+// products first), added to `sum` with fp32 adds that round to nearest. The tensor cores add in fp32 with truncation: one accumulator
 // running over a 512-deep layer's 96 products gathers that bias (~5e-6 of z
 // on the flagship net); a fresh sum a slice leaves one truncation of a
 // slice's partial sum, of either sign, so the chain stays as close to fp32
 // as fp32 sums in another order.
-__device__ __forceinline__ void trace_gemm(float (&sum)[128], float (&tmp)[64], uint32_t a_hi,
+template <int W, int STAGES>
+__device__ __forceinline__ void trace_gemm(float (&sum)[W / 4], float (&tmp)[64], uint32_t a_hi,
                                            uint32_t a_lo, int n_slices, uint32_t ring,
-                                           Ring<SP_STAGES>& rg, int wg, bool leader) {
-  for (int j = 0; j < n_slices; ++j) {
+                                           Ring<STAGES>& rg, int wg, bool leader) {
+  constexpr int NW = W / 2;             // columns a warpgroup owns
+  constexpr int G = SplitCfg<W>::G;     // slices a record
+  constexpr uint32_t SLICE = W * 32;    // bytes of one slice of all the B rows
+  for (int j0 = 0; j0 < n_slices; j0 += G) {
     const int st_hi = rg.stage;
     rg.wait_full();
     rg.next();
     const int st_lo = rg.stage;
     rg.wait_full();
     rg.next();
-    const uint32_t b_hi = ring + st_hi * SP_REC + wg * 256 * 32;
-    const uint32_t b_lo = ring + st_lo * SP_REC + wg * 256 * 32;
-    const uint32_t ak = (j / 4) * TC_TILE_BYTES + 32 * (j % 4);
-    const uint64_t d_hi = wgmma_desc(a_hi + ak), d_lo = wgmma_desc(a_lo + ak);
+    const uint32_t b_hi = ring + st_hi * SP_REC + wg * NW * 32;
+    const uint32_t b_lo = ring + st_lo * SP_REC + wg * NW * 32;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      wgmma_fence();
-      wgmma_m64n128k16_f16(tmp, d_lo, wgmma_desc32(b_hi + h * 128 * 32), 0);
-      wgmma_m64n128k16_f16(tmp, d_hi, wgmma_desc32(b_lo + h * 128 * 32), 1);
-      wgmma_m64n128k16_f16(tmp, d_hi, wgmma_desc32(b_hi + h * 128 * 32), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(tmp);
+    for (int s = 0; s < G; ++s) {
+      const int j = j0 + s;
+      const uint32_t ak = (j / 4) * TC_TILE_BYTES + 32 * (j % 4);
+      const uint64_t d_hi = wgmma_desc(a_hi + ak), d_lo = wgmma_desc(a_lo + ak);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sum[64 * h + i] += tmp[i];
+      for (int h = 0; h < NW / 128; ++h) {
+        const uint32_t bo = s * SLICE + h * 128 * 32;
+        wgmma_fence();
+        wgmma_m64n128k16_f16(tmp, d_lo, wgmma_desc32(b_hi + bo), 0);
+        wgmma_m64n128k16_f16(tmp, d_hi, wgmma_desc32(b_lo + bo), 1);
+        wgmma_m64n128k16_f16(tmp, d_hi, wgmma_desc32(b_hi + bo), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(tmp);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sum[64 * h + i] += tmp[i];
+      }
     }
     if (leader) {
       mbar_arrive(rg.empty(st_hi));
@@ -317,9 +343,10 @@ __device__ __forceinline__ void trace_gemm(float (&sum)[128], float (&tmp)[64], 
 // The producer's one thread: the n_rec forward records, once a tile, until
 // the consumers raise `stop`; then it waits for the copies still in flight,
 // so none lands in the shared memory of an exited block.
+template <int STAGES>
 __device__ void trace_produce(uint32_t ring, uint32_t bars, const uint8_t* src, int n_rec,
                               const volatile int* stop) {
-  Ring<SP_STAGES> rg(bars);
+  Ring<STAGES> rg(bars);
   long long issued = 0;
   for (;;) {
     for (int c = 0; c < n_rec; ++c) {
@@ -333,9 +360,9 @@ __device__ void trace_produce(uint32_t ring, uint32_t bars, const uint8_t* src, 
   }
 drain:
   // the last copy into each stage, newest first
-  for (long long k = 0; k < issued && k < SP_STAGES; ++k) {
+  for (long long k = 0; k < issued && k < STAGES; ++k) {
     if (rg.stage == 0) {
-      rg.stage = SP_STAGES - 1;
+      rg.stage = STAGES - 1;
       rg.phase ^= 1u;
     } else {
       --rg.stage;
@@ -344,30 +371,34 @@ drain:
   }
 }
 
-// rec: the n_rec split-fp16 records of the forward chain; wbuf:
-// the fp32 buffer the biases are read from; wlast [WIDTH]: the sdf column of
+// rec: the n_rec split-fp16 records of the forward chain at width W; wbuf:
+// the fp32 buffer the biases are read from; wlast [W]: the sdf column of
 // the final linear; pool: gridDim.x x TR_SLOTS slots; counters: the next ray
 // to take, the evaluations executed, the empty rows, the near rays (zeroed by
 // the caller; R.n_near points at the last).
+template <int W>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 sphere_trace_split_kernel(const __grid_constant__ Rays R, const __half* __restrict__ rec, int n_rec,
                           const float* __restrict__ wbuf, const __grid_constant__ Plan plan,
                           const float* __restrict__ wlast, const __grid_constant__ TraceCfg cfg,
                           Slot* __restrict__ pool, unsigned long long* __restrict__ counters) {
+  using C = SplitCfg<W>;
+  using T = TraceLayout<W>;
+  constexpr int NW = W / 2, J = NW / 8;  // columns, and 8-column groups, a warpgroup
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sbase = (raw + 1023u) & ~1023u;
   uint8_t* sm = smem_raw + (sbase - raw);
-  const uint32_t ring = sbase + SP_RING_OFF, bars = sbase + SP_BAR_OFF;
-  const uint32_t a_hi = sbase + SP_AHI_OFF, a_lo = sbase + SP_ALO_OFF;
-  const uint32_t x_hi = sbase + SP_XHI_OFF, x_lo = sbase + SP_XLO_OFF;
-  float4* pts = reinterpret_cast<float4*>(sm + TR_PTS_OFF);
-  float* red = reinterpret_cast<float*>(sm + TR_RED_OFF);
-  volatile int* ctl = reinterpret_cast<volatile int*>(sm + TR_CTL_OFF);  // [0] queries, [1] stop
+  const uint32_t ring = sbase + C::RING_OFF, bars = sbase + C::BAR_OFF;
+  const uint32_t a_hi = sbase + C::AHI_OFF, a_lo = sbase + C::ALO_OFF;
+  const uint32_t x_hi = sbase + C::XHI_OFF, x_lo = sbase + C::XLO_OFF;
+  float4* pts = reinterpret_cast<float4*>(sm + T::PTS_OFF);
+  float* red = reinterpret_cast<float*>(sm + T::RED_OFF);
+  volatile int* ctl = reinterpret_cast<volatile int*>(sm + T::CTL_OFF);  // [0] queries, [1] stop
   const int tid = threadIdx.x;
 
   if (tid == 0) {
-    ring_init<SP_STAGES>(bars);
+    ring_init<C::STAGES>(bars);
     ctl[1] = 0;
   }
   __syncthreads();
@@ -376,22 +407,22 @@ sphere_trace_split_kernel(const __grid_constant__ Rays R, const __half* __restri
     // ---- producer warpgroup: one thread streams the forward records
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == TC_CONSUMERS)
-      trace_produce(ring, bars, reinterpret_cast<const uint8_t*>(rec), n_rec, ctl + 1);
+      trace_produce<C::STAGES>(ring, bars, reinterpret_cast<const uint8_t*>(rec), n_rec, ctl + 1);
     return;
   }
 
   // ---- consumers ----------------------------------------------------------
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-  const int wg = tid / 128;                           // output columns [256 wg, 256 wg + 256)
+  const int wg = tid / 128;                           // output columns [NW wg, NW wg + NW)
   const int lane = tid % 32;
   const bool leader = tid % 128 == 0;
   const int r0 = 16 * ((tid % 128) / 32) + lane / 4;  // this thread's rows r0, r0 + 8
   const int cq = 2 * (lane % 4);
-  const int c0 = 256 * wg + cq;                       // its columns c0 + 8 j, c0 + 8 j + 1
-  uint8_t* arow = sm + SP_AHI_OFF + 4 * wg * TC_TILE_BYTES + r0 * 128 + cq * 2;
+  const int c0 = NW * wg + cq;                        // its columns c0 + 8 j, c0 + 8 j + 1
+  uint8_t* arow = sm + C::AHI_OFF + (NW / 64) * wg * TC_TILE_BYTES + r0 * 128 + cq * 2;
   Slot* slot = pool + (long long)blockIdx.x * TR_SLOTS + tid;
-  float sum[128], tmp[64];  // this warpgroup's 64 x 256 sums; one fresh half-slice partial
-  Ring<SP_STAGES> rg(bars);
+  float sum[NW / 2], tmp[64];  // this warpgroup's 64 x NW sums; one fresh 64 x 128 partial
+  Ring<C::STAGES> rg(bars);
   unsigned long long executed = 0, tiles = 0;
 
   for (bool first = true;; first = false) {
@@ -449,8 +480,8 @@ sphere_trace_split_kernel(const __grid_constant__ Rays R, const __half* __restri
       split2u<true>(v[2], v[3], hi.y, lo.y);
       split2u<true>(v[4], v[5], hi.z, lo.z);
       split2u<true>(v[6], v[7], hi.w, lo.w);
-      *reinterpret_cast<uint4*>(sm + SP_XHI_OFF + sw128(r, g * 8)) = hi;
-      *reinterpret_cast<uint4*>(sm + SP_XLO_OFF + sw128(r, g * 8)) = lo;
+      *reinterpret_cast<uint4*>(sm + C::XHI_OFF + sw128(r, g * 8)) = hi;
+      *reinterpret_cast<uint4*>(sm + C::XLO_OFF + sw128(r, g * 8)) = lo;
     }
     fence_proxy_async();
     consumers_sync();
@@ -459,31 +490,31 @@ sphere_trace_split_kernel(const __grid_constant__ Rays R, const __half* __restri
     for (int l = 0; l < plan.n; ++l) {
       const Layer& L = plan.l[l];
 #pragma unroll
-      for (int i = 0; i < 128; ++i) sum[i] = 0.0f;
-      trace_gemm(sum, tmp, l == 0 ? x_hi : a_hi, l == 0 ? x_lo : a_lo, L.k_h / 16, ring, rg,
-                 wg, leader);
-      if (L.k_x > 0) trace_gemm(sum, tmp, x_hi, x_lo, L.k_x / 16, ring, rg, wg, leader);
+      for (int i = 0; i < NW / 2; ++i) sum[i] = 0.0f;
+      trace_gemm<W>(sum, tmp, l == 0 ? x_hi : a_hi, l == 0 ? x_lo : a_lo, L.k_h / 16, ring, rg,
+                    wg, leader);
+      if (L.k_x > 0) trace_gemm<W>(sum, tmp, x_hi, x_lo, L.k_x / 16, ring, rg, wg, leader);
       consumers_sync();  // every product of both warpgroups has read the A tile
       const float* bias = wbuf + L.b + c0;
       const float sc = cfg.unscale[l];
       float h0, h1, h2, h3, s;
       if (l < plan.n - 1) {
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
+        for (int j = 0; j < J; ++j) {
           const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j));
           softplus_sigmoid100(sum[4 * j] * sc + b.x, h0, s);
           softplus_sigmoid100(sum[4 * j + 1] * sc + b.y, h1, s);
           softplus_sigmoid100(sum[4 * j + 2] * sc + b.x, h2, s);
           softplus_sigmoid100(sum[4 * j + 3] * sc + b.y, h3, s);
-          put_split<true>(arow, j, r0, h0, h1, h2, h3);
+          put_split<true, C::ACT>(arow, j, r0, h0, h1, h2, h3);
         }
         fence_proxy_async();
       } else {
-        // the sdf column: this thread's 64 columns of rows r0 and r0 + 8,
+        // the sdf column: this thread's NW / 4 columns of rows r0 and r0 + 8,
         // then the 4 lanes of a row, then the two warpgroups, in that order
         float s0 = 0.0f, s1 = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
+        for (int j = 0; j < J; ++j) {
           const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j));
           const float2 w = __ldg(reinterpret_cast<const float2*>(wlast + c0 + 8 * j));
           softplus_sigmoid100(sum[4 * j] * sc + b.x, h0, s);
@@ -513,12 +544,31 @@ sphere_trace_split_kernel(const __grid_constant__ Rays R, const __half* __restri
   }
 }
 
-// records of the forward chain: per layer the h part then the x part, one
-// k16 slice of N = 512 a record, hi then lo (K2's forward records)
+// records of the forward chain at width W: per layer the h part then the x
+// part, G k16 slices of N = W a record (one at 512, two at 256), hi then lo
+// (K2's forward records)
+template <int W>
 inline int forward_records(const Plan& p) {
+  constexpr int G = SplitCfg<W>::G;
   int r = 0;
-  for (int l = 0; l < p.n; ++l) r += 2 * (p.l[l].k_h + p.l[l].k_x) / 16;
+  for (int l = 0; l < p.n; ++l) r += split_recs(p.l[l].k_h, G) + split_recs(p.l[l].k_x, G);
   return r;
+}
+
+template <int W>
+int launch_trace(const Rays& R, const void* rec, int n_rec, const void* wbuf, const Plan& plan,
+                 const void* wlast, const TraceCfg& cfg, void* pool, void* counters, int grid,
+                 void* stream) {
+  if (n_rec != forward_records<W>(plan)) return (int)cudaErrorInvalidValue;
+  constexpr int SMEM = TraceLayout<W>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(sphere_trace_split_kernel<W>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  sphere_trace_split_kernel<W><<<grid, TC_THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      R, static_cast<const __half*>(rec), n_rec, static_cast<const float*>(wbuf), plan,
+      static_cast<const float*>(wlast), cfg, static_cast<Slot*>(pool),
+      static_cast<unsigned long long*>(counters));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -529,8 +579,11 @@ const char* nefii_trace_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int nefii_fused_trace_config(int* width, int* slots, int* tile_rows, int* slot_bytes) {
-  *width = WIDTH;
+// the compiled widths (widths[2]), the rays a pool, the rows a tile and the
+// bytes of a pool slot
+int nefii_fused_trace_config(int* widths, int* slots, int* tile_rows, int* slot_bytes) {
+  widths[0] = 256;
+  widths[1] = 512;
   *slots = TR_SLOTS;
   *tile_rows = TC_BM;
   *slot_bytes = (int)sizeof(Slot);
@@ -541,27 +594,26 @@ int nefii_fused_trace_config(int* width, int* slots, int* tile_rows, int* slot_b
 // near, far [n_rays] fp32 in; acc_s, acc_e [n_rays] fp32, unf, near_ray
 // [n_rays] uint8 out (near_ray: a stop or sign decision of the ray's trace
 // took an sdf within delta of its threshold). rec: n_rec records of the
-// forward chain in split fp16, layer l's weights times 2^shift[l]
-// (trace_weights); pool: grid x TR_SLOTS slots of scratch; counters: 4 uint64
-// zeroed by the caller (the next ray, then out: the evaluations executed, the
-// empty rows of the tiles, the near rays).
+// forward chain in split fp16 at `width` (256 or 512), layer l's weights
+// times 2^shift[l] (trace_weights); pool: grid x TR_SLOTS slots of scratch;
+// counters: 4 uint64 zeroed by the caller (the next ray, then out: the
+// evaluations executed, the empty rows of the tiles, the near rays).
 int nefii_sphere_trace(const void* cam, const void* dirs, const void* isect, const void* near,
                        const void* far, const void* rec, int n_rec, const int* shift,
                        const void* wbuf, const long long* desc, int n_layers, int x_cols,
-                       const void* wlast,
+                       int width, const void* wlast,
                        float b_last, float thresh, float delta, float ls_factor, int ls_iters,
                        int trace_iters, int multires, void* acc_s, void* acc_e, void* unf,
                        void* near_ray, void* pool, void* counters, long long n_rays, int grid,
                        void* stream) {
   Plan plan;
   const int d_emb = 3 * (1 + 2 * multires);
-  if (!make_plan(desc, n_layers, x_cols, &plan) || x_cols > SP_NX || n_rays <= 0 ||
+  if (!make_plan(desc, n_layers, x_cols, &plan, width) || x_cols > SP_NX || n_rays <= 0 ||
       n_rays > 0x7fffffffLL || grid <= 0 || multires < 0 || d_emb > x_cols || ls_iters < 0 ||
       trace_iters < 0 || !(delta >= 0.0f))
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < plan.n; ++l)
     if (plan.l[l].k_h % 16 || plan.l[l].k_x % 16) return (int)cudaErrorInvalidValue;
-  if (n_rec != forward_records(plan)) return (int)cudaErrorInvalidValue;
   TraceCfg cfg{thresh, delta, ls_factor, ls_iters, trace_iters, d_emb, b_last, {}};
   for (int l = 0; l < plan.n; ++l) {
     if (shift[l] < -60 || shift[l] > 60) return (int)cudaErrorInvalidValue;
@@ -573,14 +625,11 @@ int nefii_sphere_trace(const void* cam, const void* dirs, const void* isect, con
                static_cast<float*>(acc_e), static_cast<uint8_t*>(unf),
                static_cast<uint8_t*>(near_ray), static_cast<unsigned long long*>(counters) + 3,
                n_rays};
-  cudaError_t e = cudaFuncSetAttribute(sphere_trace_split_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, TR_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  sphere_trace_split_kernel<<<grid, TC_THREADS, TR_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      R, static_cast<const __half*>(rec), n_rec, static_cast<const float*>(wbuf), plan,
-      static_cast<const float*>(wlast), cfg, static_cast<Slot*>(pool),
-      static_cast<unsigned long long*>(counters));
-  return (int)cudaGetLastError();
+  if (width == 512)
+    return launch_trace<512>(R, rec, n_rec, wbuf, plan, wlast, cfg, pool, counters, grid, stream);
+  if (width == 256)
+    return launch_trace<256>(R, rec, n_rec, wbuf, plan, wlast, cfg, pool, counters, grid, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -2,12 +2,13 @@
 // for the fp32 K1 of fused_mlp.cu; the plan of the layers (Plan, make_plan)
 // serves every kernel.
 //
-// A block owns a tile of BM = 32 rows. Activations live in shared memory,
-// feature-major ([feature][row]), so an 8-row slice of one feature is two
-// broadcast float4 loads. Weights stream from global memory (L2/L1). Every
-// thread owns an 8x8 output tile and runs the matmul as fp32 FMAs. Layers
-// are computed in place: each thread keeps its outputs in registers until
-// every thread has read the tile, then one barrier and the write-back.
+// The FMA K1 is compiled for hidden widths W = 256 and 512 (FmaCfg). A block
+// owns a tile of BM rows (32 at 512, 64 at 256). Activations live in shared
+// memory, feature-major ([feature][row]), so an 8-row slice of one feature is
+// two broadcast float4 loads. Weights stream from global memory (L2/L1).
+// Every thread owns an 8x8 output tile and runs the matmul as fp32 FMAs.
+// Layers are computed in place: each thread keeps its outputs in registers
+// until every thread has read the tile, then one barrier and the write-back.
 
 #pragma once
 
@@ -16,17 +17,29 @@
 
 namespace {
 
-constexpr int WIDTH = 512;  // hidden width of this kernel and K3: every fused layer's padded output
-constexpr int BM = 32;                           // rows per block tile
-constexpr int TM = 8;                            // rows per thread
-constexpr int TN = 8;                            // output features per thread
-constexpr int THREADS = (BM / TM) * (WIDTH / TN);  // 4 row groups x 64 column groups = 256
+constexpr int TM = 8;              // rows per thread
+constexpr int TN = 8;              // output features per thread
+constexpr int FMA_THREADS = 256;   // threads a block of the FMA K1, at every width
 constexpr int MAX_LAYERS = 16;
 
+// The FMA K1's tile at hidden width W: W / TN column groups of threads span
+// the width and the block's 256 threads make FMA_THREADS / (W / TN) row
+// groups of TM rows, so BM = 32 rows at 512 (4 x 64 groups) and 64 at 256
+// (8 x 32). At 256 the block doubles its rows rather than halving its
+// threads: it keeps 256 threads and two blocks an SM (16 warps, as at 512)
+// and the same 64 KB activation tile, and every weight value a block reads
+// from L1 serves 64 rows in place of 32; blocks of 128 threads would need
+// four an SM for the same warps, each streaming every layer's weights.
+template <int W>
+struct FmaCfg {
+  static_assert(W == 256 || W == 512, "the FMA K1 is compiled for W = 256, 512");
+  static constexpr int BM = FMA_THREADS / (W / TN) * TM;  // rows a block tile
+};
+
 struct Layer {
-  long long w;    // W_h   [k_h][WIDTH]  (input x output, row-major)
-  long long wx;   // W_x   [k_x][WIDTH]  skip layers only
-  long long b;    // bias  [WIDTH]
+  long long w;    // W_h   [k_h][width]  (input x output, row-major)
+  long long wx;   // W_x   [k_x][width]  skip layers only
+  long long b;    // bias  [width]
   int k_h;        // rows of W_h: the width the layer reads from the previous layer (layer 0: x)
   int k_x;        // rows of W_x: x_cols for a skip layer, 0 otherwise
 };
@@ -52,6 +65,7 @@ __device__ __forceinline__ float softplus100(float z) {
 
 // acc[i][j] += sum_k aT[k][row0 + i] * B[k][col0 + j]
 // aT: shared memory, feature-major [K][BM]; B: global, row-major [K][ldb].
+template <int BM>
 __device__ __forceinline__ void gemm_acc(float (&acc)[TM][TN], const float* __restrict__ aT,
                                          int K, const float* __restrict__ B, int ldb, int col0,
                                          int row0) {
@@ -76,15 +90,17 @@ __device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 }
 
-// One layer of the forward chain for the block's tile. Reads `in` (feature-
-// major, k_h rows) and xs, writes softplus(z) into act.
+// One layer of the forward chain for the block's tile at width W. Reads `in`
+// (feature-major, k_h rows) and xs, writes softplus(z) into act.
+template <int W>
 __device__ __forceinline__ void forward_layer(const Layer& L, const float* in, const float* xs,
                                               float* act, const float* __restrict__ wbuf,
                                               int col0, int row0) {
+  constexpr int BM = FmaCfg<W>::BM;
   float acc[TM][TN];
   zero(acc);
-  gemm_acc(acc, in, L.k_h, wbuf + L.w, WIDTH, col0, row0);
-  if (L.k_x > 0) gemm_acc(acc, xs, L.k_x, wbuf + L.wx, WIDTH, col0, row0);
+  gemm_acc<BM>(acc, in, L.k_h, wbuf + L.w, W, col0, row0);
+  if (L.k_x > 0) gemm_acc<BM>(acc, xs, L.k_x, wbuf + L.wx, W, col0, row0);
   float bias[TN];
   load8(wbuf + L.b + col0, bias);
   __syncthreads();  // every thread has finished reading `in` (it may be act)
@@ -97,7 +113,7 @@ __device__ __forceinline__ void forward_layer(const Layer& L, const float* in, c
 
 // desc: n_layers x 5 int64 (w, wx, b, k_h, k_x), offsets in elements; every
 // layer's output padded to `width`.
-bool make_plan(const long long* desc, int n_layers, int x_cols, Plan* plan, int width = WIDTH) {
+bool make_plan(const long long* desc, int n_layers, int x_cols, Plan* plan, int width) {
   if (n_layers < 1 || n_layers > MAX_LAYERS) return false;
   if (x_cols <= 0 || x_cols > width || x_cols % 8 != 0) return false;
   plan->n = n_layers;

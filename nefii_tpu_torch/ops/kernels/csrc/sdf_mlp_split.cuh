@@ -75,7 +75,7 @@ constexpr int SP_NX = 64;                          // backward N of the x_cols-w
 constexpr int SP_GX = SP_REC / (SP_NX * 32);       // k16 slices a record at N = SP_NX: 8
 
 // The layout of K2 at hidden width W: the ring and shared memory (offsets
-// from a 1024-aligned base).
+// from a 1024-aligned base). K3 (fused_trace.cu) builds on it.
 template <int W>
 struct SplitCfg {
   static_assert(W == 256 || W == 512, "K2 is compiled for W = 256, 512");
@@ -92,17 +92,6 @@ struct SplitCfg {
   static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
   static_assert(SMEM <= 232448, "K2 needs more shared memory than a block may use");
 };
-
-// the layout at WIDTH, which K3 (fused_trace.cu) shares
-constexpr int SP_STAGES = SplitCfg<WIDTH>::STAGES;
-constexpr int SP_ACT = SplitCfg<WIDTH>::ACT;
-constexpr int SP_RING_OFF = SplitCfg<WIDTH>::RING_OFF;
-constexpr int SP_AHI_OFF = SplitCfg<WIDTH>::AHI_OFF;
-constexpr int SP_ALO_OFF = SplitCfg<WIDTH>::ALO_OFF;
-constexpr int SP_XHI_OFF = SplitCfg<WIDTH>::XHI_OFF;
-constexpr int SP_XLO_OFF = SplitCfg<WIDTH>::XLO_OFF;
-constexpr int SP_BAR_OFF = SplitCfg<WIDTH>::BAR_OFF;
-constexpr int SP_SMEM = SplitCfg<WIDTH>::SMEM;
 
 // records of the k16 slices of a K-deep operand, g slices a record, in hi and lo
 __host__ __device__ constexpr int split_recs(int k, int g) { return 2 * ((k / 16 + g - 1) / g); }
@@ -160,7 +149,7 @@ __device__ __forceinline__ void split2u(float a, float b, uint32_t& hi, uint32_t
 // this thread's values (r0, c), (r0, c + 1), (r0 + 8, c), (r0 + 8, c + 1)
 // of column group j into the A tile, hi at `arow`, lo LO bytes beyond it
 // (arow: the thread's row r0 and columns in the warpgroup's first chunk)
-template <bool F16 = false, int LO = SP_ACT>
+template <bool F16, int LO>
 __device__ __forceinline__ void put_split(uint8_t* arow, int j, int r0, float v0, float v1,
                                           float v2, float v3) {
   const uint32_t off = (j / 8) * TC_TILE_BYTES + (((j & 7) ^ (r0 & 7)) << 4);

@@ -21,11 +21,11 @@ ctypes):
     hi.hi + lo.hi + hi.lo in fp32, which keeps the fp32 chain's accuracy
     (`fused_fwd_bwd_split_plain` is that arithmetic in plain PyTorch).
 
-Widths. The FMA K1 (and K3, fused_trace.py) takes hidden width FMA_WIDTH =
-512 only; the tensor-core K1 and K2 are compiled for TC_WIDTHS = (256, 512).
-A packing for a kernel on the card has the smallest of its widths that holds
-the network (`packing_width`): NeuS's 8x256 net runs at 256 in K1 bf16 and
-K2, at 512 in K1 fp32 and K3; on the CPU every packing keeps the network's
+Widths. Every kernel is compiled for hidden widths 256 and 512: the FMA K1
+(and K3, fused_trace.py) for FMA_WIDTHS, the tensor-core K1 and K2 for
+TC_WIDTHS. A packing for a kernel on the card has the smallest of its widths
+that holds the network (`packing_width`): NeuS's 8x256 net runs at 256 in
+K1 (fp32 and bf16), K2 and K3; on the CPU every packing keeps the network's
 own width. A width no kernel takes (above 512) is refused on the card.
 
 `prepare_weights` resolves weight norm, pads and folds the skip layer's
@@ -42,7 +42,7 @@ package.
 A wrapper given a CUDA tensor launches its kernel or raises; the plain
 version (`*_plain`) runs only for tensors on the CPU, and it is what the
 kernels are compared against. Each wrapper counts its launches in
-`LAUNCHES`, the tensor-core kernels also by width ("fused_sdf_value@256").
+`LAUNCHES`, and by width ("fused_sdf_value@256").
 Nothing here imports triton or needs nvcc at import time.
 """
 
@@ -56,17 +56,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-FMA_WIDTH = 512           # width of the FMA K1 and of K3 (WIDTH in csrc/sdf_mlp.cuh)
+FMA_WIDTHS = (256, 512)   # widths the FMA K1 and K3 are compiled for (FmaCfg in csrc)
 TC_WIDTHS = (256, 512)    # widths the tensor-core K1 and K2 are compiled for
 TC_KERNELS = ("fused_sdf_hidden_tc", "fused_sdf_value", "fused_sdf_fwd_bwd")
-# launches of each CUDA kernel, and of the tensor-core kernels at each width
+# launches of each CUDA kernel, and of each kernel at each width
 # ("<kernel>@<width>"); a wrapper adds one where it launches, nowhere else
 LAUNCHES: Dict[str, int] = {"fused_sdf_hidden": 0, **{k: 0 for k in TC_KERNELS},
+                            **{f"fused_sdf_hidden@{w}": 0 for w in FMA_WIDTHS},
                             **{f"{k}@{w}": 0 for k in TC_KERNELS for w in TC_WIDTHS}}
 
-# rows per block tile and resident blocks per SM of each design; the grids are
-# persistent (csrc: BM and THREADS' launch bounds, TC_BM and TC_THREADS')
-FMA_BLOCK_ROWS, FMA_BLOCKS_PER_SM = 32, 2
+# resident blocks per SM of each design, and the tensor-core kernels' rows a
+# tile; the grids are persistent (csrc: FMA_THREADS' and TC_THREADS' launch
+# bounds, TC_BM)
+FMA_BLOCKS_PER_SM = 2
 TC_BLOCK_ROWS, TC_BLOCKS_PER_SM = 64, 1
 TC_K = 64             # input rows of one tensor-core weight chunk (TC_BK)
 # K2's weight records (csrc/sdf_mlp_split.cuh): a record is SPLIT_REC bf16
@@ -406,6 +408,13 @@ def fused_fwd_bwd_split_plain(x: torch.Tensor, fw: FusedWeights):
 _SM_COUNT: Dict[int, int] = {}
 
 
+def fma_block_rows(width: int) -> int:
+    """Rows a block tile of the FMA K1 holds at `width`: its 256 threads own
+    8x8 outputs each, so 32 rows at 512 and 64 at 256 (FmaCfg in
+    csrc/sdf_mlp.cuh)."""
+    return 256 * 8 * 8 // width
+
+
 def _lib() -> ctypes.CDLL:
     from nefii_tpu_torch.ops.kernels import build
 
@@ -413,7 +422,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_nefii_typed", False):
         vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         pll = ctypes.POINTER(ctypes.c_longlong)
-        lib.nefii_sdf_hidden.argtypes = [vp, vp, pll, i, i, vp, ll, i, vp]
+        lib.nefii_sdf_hidden.argtypes = [vp, vp, pll, i, i, i, vp, ll, i, vp]
         lib.nefii_sdf_hidden_tc.argtypes = [vp, vp, vp, pll, i, i, i, vp, ll, i, vp]
         lib.nefii_sdf_value.argtypes = [vp, vp, vp, pll, i, i, i, vp, f, vp, ll, i, vp]
         lib.nefii_sdf_fwd_bwd.argtypes = [vp, vp, vp, pll, i, i, i, vp, vp, vp, vp, i, ll, i,
@@ -424,16 +433,17 @@ def _lib() -> ctypes.CDLL:
         lib.nefii_error_string.argtypes = [i]
         lib.nefii_error_string.restype = ctypes.c_char_p
         lib.nefii_fused_mlp_config.argtypes = [ctypes.POINTER(i)] * 6
-        cfg = [i() for _ in range(5)]
-        tc_widths = (i * 2)()
-        lib.nefii_fused_mlp_config(*(ctypes.byref(c) for c in cfg), tc_widths)
-        width, rows, _, tc_rows, _ = (c.value for c in cfg)
-        got = (width, rows, tc_rows, tuple(tc_widths))
-        if got != (FMA_WIDTH, FMA_BLOCK_ROWS, TC_BLOCK_ROWS, TC_WIDTHS):
-            raise RuntimeError(f"fused_mlp library takes width {width}, rows {rows} (FMA), "
-                               f"{tc_rows} and widths {tuple(tc_widths)} (tensor cores); the "
-                               f"wrapper expects {FMA_WIDTH}, {FMA_BLOCK_ROWS}, {TC_BLOCK_ROWS}, "
-                               f"{TC_WIDTHS}")
+        widths, rows, tc_widths = (i * 2)(), (i * 2)(), (i * 2)()
+        threads, tc_rows, tc_threads = i(), i(), i()
+        lib.nefii_fused_mlp_config(widths, rows, ctypes.byref(threads), ctypes.byref(tc_rows),
+                                   ctypes.byref(tc_threads), tc_widths)
+        got = (tuple(widths), tuple(rows), tc_rows.value, tuple(tc_widths))
+        want = (FMA_WIDTHS, tuple(fma_block_rows(w) for w in FMA_WIDTHS), TC_BLOCK_ROWS,
+                TC_WIDTHS)
+        if got != want:
+            raise RuntimeError(f"fused_mlp library takes widths {got[0]} at rows {got[1]} "
+                               f"(FMA), rows {got[2]} and widths {got[3]} (tensor cores); the "
+                               f"wrapper expects {want}")
         lib._nefii_typed = True
     return lib
 
@@ -448,11 +458,11 @@ def _grid(n_rows: int, device: torch.device, rows: int, per_sm: int) -> int:
 def tc_block_rows(width: int) -> int:
     """Rows a block step of the tensor-core K1 holds: one 64-row tile at 512,
     two (one a consumer warpgroup, in ping-pong) at 256 (csrc/sdf_mlp_tc.cuh)."""
-    return TC_BLOCK_ROWS * FMA_WIDTH // width
+    return TC_BLOCK_ROWS * 512 // width
 
 
 def _check_cuda(x: torch.Tensor, fw: FusedWeights, name: str,
-                widths=(FMA_WIDTH,)) -> None:
+                widths=FMA_WIDTHS) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {x.device} are not supported")
     if fw.buf.device != x.device:
@@ -501,7 +511,7 @@ def _count(name: str, width: int) -> None:
 
 def fused_hidden(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     """K1: embedded points [N, x_cols] -> last hidden state [N, width], both in
-    the working dtype: fp32 on the FMA pipe (width 512), bf16 on the tensor
+    the working dtype: fp32 on the FMA pipe (FMA_WIDTHS), bf16 on the tensor
     cores (TC_WIDTHS)."""
     if x.device.type == "cpu":
         return fused_hidden_plain(x, fw)
@@ -527,10 +537,11 @@ def fused_hidden(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
         _count("fused_sdf_hidden_tc", fw.width)
     else:
         err = lib.nefii_sdf_hidden(
-            x.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, out.data_ptr(),
-            n, _grid(n, x.device, FMA_BLOCK_ROWS, FMA_BLOCKS_PER_SM), stream)
+            x.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, fw.width,
+            out.data_ptr(), n, _grid(n, x.device, fma_block_rows(fw.width), FMA_BLOCKS_PER_SM),
+            stream)
         _raise_on(err, "fused_hidden", lib)
-        LAUNCHES["fused_sdf_hidden"] += 1
+        _count("fused_sdf_hidden", fw.width)
     return out
 
 
@@ -675,7 +686,7 @@ def build_fused_sdf(network, dtype: torch.dtype = torch.float32):
     """fn(pts [N,3]) -> sdf [N] through K1 (sdf_closure) on the network's
     packed weights: in bf16 at the tensor-core kernel's width, in fp32 at
     the FMA kernel's."""
-    widths = TC_WIDTHS if dtype == torch.bfloat16 else (FMA_WIDTH,)
+    widths = TC_WIDTHS if dtype == torch.bfloat16 else FMA_WIDTHS
     return sdf_closure(network_weights(network, dtype, widths))
 
 

@@ -8,6 +8,11 @@ contract of RayTracer._sphere_trace. For a CUDA tensor it launches
 `sphere_trace_split_kernel` (`csrc/fused_trace.cu`), one launch for the
 whole trace; for a CPU tensor it runs `fused_sphere_trace_plain`.
 
+The kernel is compiled for the FMA K1's widths, FMA_WIDTHS = (256, 512),
+since its near rays are traced again through K1 fp32 on K3's own packing:
+on the card the network is packed at the smallest that holds it
+(`packing_width`), so NeuS's 8x256 net runs at 256 in both.
+
 The kernel runs the SDF chain on the tensor cores in split fp16 over a pool
 of live rays. Split fp16 is K2's split-bf16 scheme (hi.hi + lo.hi + hi.lo)
 with fp16's 11 significand bits: ~22 bits kept where split bf16 keeps ~16.
@@ -51,13 +56,15 @@ from typing import Dict, List, Optional
 import torch
 
 from nefii_tpu_torch.ops.kernels.fused_mlp import (
-    FMA_WIDTH, SPLIT_K, SPLIT_NX, SPLIT_REC, TC_BLOCK_ROWS, FusedWeights, _grid,
+    FMA_WIDTHS, SPLIT_K, SPLIT_NX, SPLIT_REC, TC_BLOCK_ROWS, FusedWeights, _grid,
     _softplus100, _split_mm, embed_padded, fused_hidden_plain, network_weights, pack_split,
-    sdf_closure,
+    sdf_closure, split_group,
 )
 
-# launches of the CUDA kernel; the wrapper adds one where it launches, nowhere else
-LAUNCHES: Dict[str, int] = {"fused_sphere_trace": 0}
+# launches of the CUDA kernel, and at each width ("fused_sphere_trace@256");
+# the wrapper adds one where it launches, nowhere else
+LAUNCHES: Dict[str, int] = {"fused_sphere_trace": 0,
+                            **{f"fused_sphere_trace@{w}": 0 for w in FMA_WIDTHS}}
 
 POOL_SLOTS = 32   # rays in a block's pool (TR_SLOTS in csrc/fused_trace.cu)
 # A stop test (sdf <= sdf_threshold), line-search sign test (sdf < 0) or
@@ -69,8 +76,9 @@ POOL_SLOTS = 32   # rays in a block's pool (TR_SLOTS in csrc/fused_trace.cu)
 # their points near, far, the fp32 trace's ends and their midpoint), rounded
 # up; the phase fails unless NEAR_DELTA covers its measurement twice over.
 # chip_smoke.py holds it on two more nets, the Step-1 fit of its geometry
-# phase (8.345e-7 again) and NeuS's 8x256 net padded to 512 (1.073e-6), and
-# fails where a ray's flags differ from the K1-fp32 trace's on any of them.
+# phase (8.345e-7 again) and NeuS's 8x256 net (1.073e-6 on its 512 packing
+# and again on its 256 packing, the one it runs at), and fails where a ray's
+# flags differ from the K1-fp32 trace's on any of them.
 # It is a constant: a geometry with larger activations is not measured.
 NEAR_DELTA = 4.2e-6
 
@@ -82,8 +90,11 @@ def reset_launch_counts() -> None:
 
 def forward_records(fw: FusedWeights) -> int:
     """Records that K3 streams a tile: the forward chain's, in K2's forward
-    record layout (forward_records in csrc/fused_trace.cu)."""
-    return sum(2 * (L.k_h + L.k_x) // SPLIT_K for L in fw.layers)
+    record layout, a K-deep block 2 ceil(k / 16 / g) records at g =
+    split_group(fw.width) slices a record, one at 512 and two at 256
+    (forward_records in csrc/fused_trace.cu)."""
+    g = split_group(fw.width)
+    return sum(2 * -(-(k // SPLIT_K) // g) for L in fw.layers for k in (L.k_h, L.k_x))
 
 
 def _layer_shifts(fw: FusedWeights) -> List[int]:
@@ -100,10 +111,13 @@ def _layer_shifts(fw: FusedWeights) -> List[int]:
 @torch.no_grad()
 def trace_weights(fw: FusedWeights):
     """K3's records (packed once, kept in fw.trace): per layer the forward
-    B = (2^s_l W)^T in pack_split's layout, split in fp16; and the s_l."""
+    B = (2^s_l W)^T in pack_split's layout, split_group(fw.width) k16 slices
+    a record (a block's odd last slice padded with zeros at 256), split in
+    fp16; and the s_l."""
     if fw.trace is None:
         shifts = _layer_shifts(fw)
-        rec = torch.cat([pack_split(w.t() * 2.0 ** s, fw.width, 1, torch.float16)
+        g = split_group(fw.width)
+        rec = torch.cat([pack_split(w.t() * 2.0 ** s, fw.width, g, torch.float16)
                          for L, s in zip(fw.layers, shifts) for w in (L.w, L.wx)
                          if w is not None])
         fw.trace = (rec.contiguous(), shifts)
@@ -272,19 +286,21 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_nefii_typed", False):
         vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.nefii_sphere_trace.argtypes = [
-            vp, vp, vp, vp, vp, vp, i, ctypes.POINTER(i), vp, ctypes.POINTER(ll), i, i, vp, f, f,
-            f, f, i, i, i,
+            vp, vp, vp, vp, vp, vp, i, ctypes.POINTER(i), vp, ctypes.POINTER(ll), i, i, i, vp, f,
+            f, f, f, i, i, i,
             vp, vp, vp, vp, vp, vp, ll, i, vp]
         lib.nefii_sphere_trace.restype = i
         lib.nefii_trace_error_string.argtypes = [i]
         lib.nefii_trace_error_string.restype = ctypes.c_char_p
         lib.nefii_fused_trace_config.argtypes = [ctypes.POINTER(i)] * 4
-        cfg = [i() for _ in range(4)]
-        lib.nefii_fused_trace_config(*(ctypes.byref(c) for c in cfg))
-        width, slots, rows, _SLOT_BYTES = (c.value for c in cfg)
-        if (width, slots, rows) != (FMA_WIDTH, POOL_SLOTS, TC_BLOCK_ROWS):
-            raise RuntimeError(f"fused_trace library takes width {width}, {slots} rays a pool, "
-                               f"{rows}-row tiles; the wrapper expects {FMA_WIDTH}, "
+        widths, slots, rows, slot_bytes = (i * 2)(), i(), i(), i()
+        lib.nefii_fused_trace_config(widths, ctypes.byref(slots), ctypes.byref(rows),
+                                     ctypes.byref(slot_bytes))
+        _SLOT_BYTES = slot_bytes.value
+        got = (tuple(widths), slots.value, rows.value)
+        if got != (FMA_WIDTHS, POOL_SLOTS, TC_BLOCK_ROWS):
+            raise RuntimeError(f"fused_trace library takes widths {got[0]}, {got[1]} rays a "
+                               f"pool, {got[2]}-row tiles; the wrapper expects {FMA_WIDTHS}, "
                                f"{POOL_SLOTS}, {TC_BLOCK_ROWS}")
         lib._nefii_typed = True
     return lib
@@ -318,8 +334,8 @@ def _trace_kernel(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer
         raise ValueError(f"fused_sphere_trace: tensors on {cam.device} are not supported")
     if fw.dtype != torch.float32:
         raise ValueError("fused_sphere_trace: the whole-trace kernel is fp32 only")
-    if fw.width != FMA_WIDTH:
-        raise ValueError(f"fused_sphere_trace: the CUDA kernel takes hidden width {FMA_WIDTH}, "
+    if fw.width not in FMA_WIDTHS:
+        raise ValueError(f"fused_sphere_trace: the CUDA kernel takes hidden widths {FMA_WIDTHS}, "
                          f"this packing has {fw.width}")
     if fw.buf.device != cam.device:
         raise ValueError(f"fused_sphere_trace: weights on {fw.buf.device}, rays on {cam.device}")
@@ -354,7 +370,7 @@ def _trace_kernel(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer
         cam.data_ptr(), dirs.data_ptr(), mask_intersect.data_ptr(), near.data_ptr(),
         far.data_ptr(), rec.data_ptr(), n_rec, (ctypes.c_int * len(shifts))(*shifts),
         fw.buf.data_ptr(), desc, len(fw.layers),
-        fw.x_cols, wlast.data_ptr(), fw.b_sdf, float(tracer.sdf_threshold), NEAR_DELTA,
+        fw.x_cols, fw.width, wlast.data_ptr(), fw.b_sdf, float(tracer.sdf_threshold), NEAR_DELTA,
         1.0 - float(tracer.line_search_step), int(tracer.line_step_iters),
         int(tracer.sphere_tracing_iters), int(fw.multires), acc_s.data_ptr(), acc_e.data_ptr(),
         unf.data_ptr(), near_ray.data_ptr(), pool.data_ptr(), counters.data_ptr(), n, grid,
@@ -363,6 +379,7 @@ def _trace_kernel(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer
         raise RuntimeError(f"fused_sphere_trace: CUDA error {err} "
                            f"({lib.nefii_trace_error_string(err).decode()})")
     LAUNCHES["fused_sphere_trace"] += 1
+    LAUNCHES[f"fused_sphere_trace@{fw.width}"] += 1
     _, n_evals, empty, n_near = counters.tolist()
     if stats is not None:
         stats.update(evals=n_evals, empty_rows=empty, tiles=(n_evals + empty) // TC_BLOCK_ROWS)
@@ -400,9 +417,10 @@ def fused_sphere_trace(cam, dirs, mask_intersect, near, far, fw: FusedWeights, t
 def build_fused_sphere_trace(network, tracer):
     """fn(cam, dirs, mask_intersect, near, far) -> (acc_start, acc_end,
     unfinished_start, min_dis, max_dis, n_evals), through K3 on the
-    network's fp32 packing at K3's width (which its near rays' re-trace
-    through the FMA K1 shares)."""
-    fw = network_weights(network, torch.float32, (FMA_WIDTH,))
+    network's fp32 packing at the smallest of K3's widths that holds it
+    (256 for NeuS's 8x256 net, 512 for the flagship's 8x512), which its near
+    rays' re-trace through the FMA K1 shares."""
+    fw = network_weights(network, torch.float32, FMA_WIDTHS)
 
     def fn(cam, dirs, mask_intersect, near, far):
         acc_s, acc_e, unf, n_evals = fused_sphere_trace(

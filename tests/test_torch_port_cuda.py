@@ -11,8 +11,8 @@ fp32 chain); bf16 (the tensor-core K1 and its sdf entry) within 1e-2 of the
 largest value (one bf16 rounding of h flipped by the order propagates); the
 input gradient within 1e-3 of its largest value.
 
-The tensor-core kernels (K1 bf16, K2) are compiled for widths 256 and 512
-and launch at the packing's width; the FMA K1 and K3 take 512 only.
+Every kernel (the FMA K1, the tensor-core K1 bf16 and K2, K3) is compiled
+for widths 256 and 512 and launches at the packing's width.
 """
 
 import dataclasses
@@ -26,12 +26,28 @@ from nefii_tpu_torch.ops.kernels import fused_mlp as fm
 pytestmark = pytest.mark.cuda
 
 
-def _flagship():
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _flagship():
+    _card()
     net = ImplicitNetwork(feature_vector_size=512, dims=(512,) * 8, skip_in=(4,), multires=6,
                           use_last_as_f=True, bias=0.6, device="cuda")
+    net.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+    pts = torch.randn(5000, 3, generator=torch.Generator(device="cuda").manual_seed(1),
+                      device="cuda") * 0.5
+    return net, pts
+
+
+def _neus():
+    """NeuS's 8x256 SDF net (confs/conf_neus.conf) on the card, seeded, and
+    5000 points around its init sphere."""
+    _card()
+    net = ImplicitNetwork(feature_vector_size=256, dims=(256,) * 8, skip_in=(4,), multires=6,
+                          bias=0.5, device="cuda")
     net.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
     pts = torch.randn(5000, 3, generator=torch.Generator(device="cuda").manual_seed(1),
                       device="cuda") * 0.5
@@ -128,7 +144,7 @@ def test_tensor_core_wrappers_refuse_what_the_kernel_does_not_take():
     """The tensor-core kernels take widths 256 and 512: a 256-wide packing
     launches their width-256 instantiation, a wider one than 512 (or one
     between) is refused, as are the misaligned, the strided and the fp32
-    input; the FMA K1 and K3 refuse a 256 packing."""
+    input; the FMA K1, K2 and K3 take a 256 packing and refuse one of 384."""
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
     from nefii_tpu_torch.ops.ray_tracing import RayTracer
 
@@ -168,15 +184,22 @@ def test_tensor_core_wrappers_refuse_what_the_kernel_does_not_take():
     torch.cuda.synchronize()
     assert fm.LAUNCHES["fused_sdf_hidden_tc@256"] == fm.LAUNCHES["fused_sdf_value@256"] == 1
     f32_narrow = fm.prepare_weights(narrow, torch.float32, width=256)
+    f32_between = fm.prepare_weights(narrow, torch.float32, width=384)
     x32 = fm.embed_padded(pts, f32_narrow)
-    with pytest.raises(ValueError):
-        fm.fused_hidden(x32, f32_narrow)  # the FMA K1 takes 512 only
     rays = _k3_rays(100)
+    ft.reset_launch_counts()
     with pytest.raises(ValueError):
-        ft.fused_sphere_trace(*rays, f32_narrow, RayTracer())  # K3 takes 512 only
+        fm.fused_hidden(fm.embed_padded(pts, f32_between), f32_between)  # no FMA K1 at 384
+    with pytest.raises(ValueError):
+        ft.fused_sphere_trace(*rays, f32_between, RayTracer())  # no K3 at 384
+    assert fm.LAUNCHES["fused_sdf_hidden"] == 0 and ft.LAUNCHES["fused_sphere_trace"] == 0
     fm.fused_fwd_bwd(x32, f32_narrow)  # K2 takes it
-    assert fm.LAUNCHES["fused_sdf_fwd_bwd@256"] == 1 and fm.LAUNCHES["fused_sdf_hidden"] == 0
-    assert ft.LAUNCHES["fused_sphere_trace"] == 0
+    fm.fused_hidden(x32, f32_narrow)  # the FMA K1 takes it
+    ft._trace_kernel(*rays, f32_narrow, RayTracer())  # K3 takes it
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_sdf_fwd_bwd@256"] == fm.LAUNCHES["fused_sdf_hidden@256"] == 1
+    assert fm.LAUNCHES["fused_sdf_hidden"] == ft.LAUNCHES["fused_sphere_trace@256"] == 1
+    assert ft.LAUNCHES["fused_sphere_trace"] == 1
 
 
 # the primary tracer's conf and the secondary tracer's (confs/conf.conf:121-127)
@@ -210,31 +233,42 @@ def _k3_rays(n):
             si[0, :, 0].contiguous(), si[0, :, 1].contiguous())
 
 
+@pytest.mark.parametrize("width", [512, 256])
 @pytest.mark.parametrize("conf", sorted(K3_CONFS))
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 65, 5000])
 @torch.no_grad()
-def test_k3_kernel_matches_plain(n, conf):
+def test_k3_kernel_matches_plain(n, conf, width):
     """K3 (split fp16 on the tensor cores, a pool of 32 live rays a block, its
     near rays traced again in fp32) at ragged sizes around its pool and its
-    64-row tile, under both tracer confs: the same per-ray results as its
-    fp32 plain version (summation order aside, which the 5e-5 stop threshold
-    can turn into a flipped convergence), near flags as the split-fp16 plain
-    version's (up to 5% of them, at the edge of NEAR_DELTA, where the
-    kernel's and the plain version's sums may fall either side),
-    and the kernel's evaluation count within 1% of the plain version's live
-    queries, the re-trace's added."""
+    64-row tile, under both tracer confs, at both widths (the flagship's
+    8x512 net; NeuS's 8x256 at 256, one m64n128k16 partial a slice, two
+    slices a record): no ray's flags differ from the K1-fp32 trace on the
+    same packing, whose arithmetic the re-trace shares; the same per-ray
+    results as its fp32 plain version (summation order aside, which the
+    5e-5 stop threshold can turn into a flipped convergence), near flags as
+    the split-fp16 plain version's (up to 5% of them, at the edge of
+    NEAR_DELTA, where the kernel's and the plain version's sums may fall
+    either side), and the kernel's evaluation count within 1% of the plain
+    version's live queries, the re-trace's added. It launches at the
+    packing's width, its re-trace K1 fp32 too."""
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
     from nefii_tpu_torch.ops.ray_tracing import RayTracer
 
-    net, _ = _flagship()
+    net, _ = _flagship() if width == 512 else _neus()
     tracer = RayTracer(**K3_CONFS[conf])
     rays = _k3_rays(n)
-    fw = fm.prepare_weights(net)
+    fw = fm.network_weights(net, torch.float32, fm.FMA_WIDTHS)
+    assert fw.width == width
+    fm.reset_launch_counts()
     ft.reset_launch_counts()
     stats = {}
     out = ft.fused_sphere_trace(*rays, fw, tracer, stats=stats)
     torch.cuda.synchronize()
-    assert ft.LAUNCHES["fused_sphere_trace"] == 1
+    assert ft.LAUNCHES["fused_sphere_trace"] == ft.LAUNCHES[f"fused_sphere_trace@{width}"] == 1
+    assert fm.LAUNCHES["fused_sdf_hidden"] == fm.LAUNCHES[f"fused_sdf_hidden@{width}"]
+    assert (fm.LAUNCHES["fused_sdf_hidden"] > 0) == (stats["n_near"] > 0)
+    k1_unf, k1_hit, k1_err = ft.agreement(out, tracer._sphere_trace(fm.sdf_closure(fw), *rays))
+    assert k1_unf == k1_hit == 0 and k1_err <= 1e-4
     ref = ft.fused_sphere_trace_plain(*rays, fw, tracer)
     split_stats = {}
     ft.fused_sphere_trace_plain(*rays, fw, tracer, split=True, stats=split_stats)
@@ -277,26 +311,21 @@ def test_k3_wrapper_refuses_what_the_kernel_does_not_take():
 @torch.no_grad()
 def test_kernels_take_a_256_wide_network():
     """NeuS's 8x256 SDF net (confs/conf_neus.conf) on the card: the closures
-    pack it at 256 for the tensor-core K1 and K2, at 512 for the FMA K1 and
-    K3, and each kernel on its packing agrees with its plain version as on
-    the flagship."""
+    pack it at 256 for every kernel, the FMA K1 and K3 sharing K2's fp32
+    packing, and each kernel on it agrees with its plain version as on the
+    flagship; nothing launches at 512."""
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
     from nefii_tpu_torch.ops.ray_tracing import RayTracer
 
-    _flagship()  # skips without a card
-    net = ImplicitNetwork(feature_vector_size=256, dims=(256,) * 8, skip_in=(4,), multires=6,
-                          bias=0.5, device="cuda")
-    net.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
-    pts = torch.randn(5000, 3, generator=torch.Generator(device="cuda").manual_seed(1),
-                      device="cuda") * 0.5
+    net, pts = _neus()
     fm.reset_launch_counts()
     ft.reset_launch_counts()
-    fw = fm.network_weights(net, torch.float32, (fm.FMA_WIDTH,))
-    assert (fw.width, fw.real_width) == (fm.FMA_WIDTH, 256)
+    fw = fm.network_weights(net, torch.float32, fm.FMA_WIDTHS)
+    assert (fw.width, fw.real_width) == (256, 256)
     x = fm.embed_padded(pts, fw)
     assert (fm.fused_hidden(x, fw) - fm.fused_hidden_plain(x, fw)).abs().max().item() <= 1e-4
     fw2 = fm.network_weights(net, torch.float32, fm.TC_WIDTHS)
-    assert (fw2.width, fw2.real_width) == (256, 256)
+    assert fw2 is fw
     x2 = fm.embed_padded(pts, fw2)
     h, dx = fm.fused_fwd_bwd(x2, fw2)
     h_r, dx_r = fm.fused_fwd_bwd_plain(x2, fw2)
@@ -327,7 +356,35 @@ def test_kernels_take_a_256_wide_network():
     assert k1_fp32 == fm.LAUNCHES["fused_sdf_fwd_bwd@256"] == fm.LAUNCHES["fused_sdf_fwd_bwd"] == 1
     assert fm.LAUNCHES["fused_sdf_hidden_tc@256"] == fm.LAUNCHES["fused_sdf_value@256"] == 1
     assert fm.LAUNCHES["fused_sdf_hidden_tc"] == fm.LAUNCHES["fused_sdf_value"] == 1
-    assert ft.LAUNCHES["fused_sphere_trace"] == 1
+    assert fm.LAUNCHES["fused_sdf_hidden@256"] == fm.LAUNCHES["fused_sdf_hidden"]
+    assert ft.LAUNCHES["fused_sphere_trace"] == ft.LAUNCHES["fused_sphere_trace@256"] == 1
+    assert sum(v for k, v in {**fm.LAUNCHES, **ft.LAUNCHES}.items() if k.endswith("@512")) == 0
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 5000, 262_144])
+@torch.no_grad()
+def test_fma_k1_at_width_256_matches_plain(n):
+    """The FMA K1 on NeuS's net at width 256 (64-row block tiles), at ragged
+    sizes around its tile and at 262,144 points, against the fp32 plain
+    version within 1e-4; it launches its width-256 instantiation, and the
+    sdf closure the tracers use on the same packing agrees too."""
+    net, _ = _neus()
+    fw = fm.network_weights(net, torch.float32, fm.FMA_WIDTHS)
+    assert fw.width == 256 and fm.fma_block_rows(256) == 64
+    pts = torch.randn(n, 3, generator=torch.Generator(device="cuda").manual_seed(n),
+                      device="cuda") * 0.5
+    x = fm.embed_padded(pts, fw)
+    fm.reset_launch_counts()
+    h = fm.fused_hidden(x, fw)
+    sdf = fm.sdf_closure(fw)(pts)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_sdf_hidden@256"] == fm.LAUNCHES["fused_sdf_hidden"] == 2
+    assert fm.LAUNCHES["fused_sdf_hidden@512"] == 0
+    ref = fm.fused_hidden_plain(x, fw)
+    assert h.shape == (n, 256) and bool(torch.isfinite(h).all())
+    assert (h - ref).abs().max().item() <= 1e-4
+    sdf_ref = (ref @ fw.wlast_col + fw.b_last[0])
+    assert (sdf - sdf_ref).abs().max().item() <= 1e-4
 
 
 def test_two_gloo_ranks_on_one_card_step_as_one_process(tmp_path):

@@ -32,7 +32,7 @@ from nefii_tpu_torch.ops.kernels import fused_mlp as fm
 from nefii_tpu_torch.ops.kernels import fused_trace as ft
 from nefii_tpu_torch.ops.ray_tracing import RayTracer
 from nefii_tpu_torch.utils.checkpoints import params_from_jax
-from test_torch_port_fused_mlp import _unpack_split
+from test_torch_port_fused_mlp import _nets, _unpack_split
 
 ATOL = 1e-5
 IMPLICIT = dict(feature_vector_size=8, d_in=3, d_out=1, dims=(32,) * 4, geometric_init=True,
@@ -218,16 +218,20 @@ def test_split_trace_matches_the_pallas_kernel(nets, split, monkeypatch):
     assert 0 < n_evals < int(ref[5])
 
 
+@pytest.mark.parametrize("width", [256, 512])
 @pytest.mark.parametrize("split", [False, True], ids=["fp32", "split_fp16"])
-def test_padding_to_the_kernel_width_changes_no_trace(nets, split):
-    """K3 on a network narrower than its one width runs on the packing padded
-    to FMA_WIDTH (packing_width on the card): the plain version, in fp32 and
-    in the kernel's split fp16, traces on it as on the unpadded packing, and
-    the records are as many as the kernel counts."""
+def test_padding_to_the_kernel_width_changes_no_trace(nets, split, width):
+    """K3 on a network narrower than its widths runs on the packing padded to
+    the smallest that holds it (packing_width on the card), here 256, and a
+    wider net's packing may be padded to 512: the plain version, in fp32 and
+    in the kernel's split fp16, traces on the packing padded to either
+    compiled width as on the unpadded packing, and the records are as many
+    as the kernel counts."""
     _, _, net = nets
     args = [torch.from_numpy(np.array(a)) for a in _flat(*_rays())]
-    fw, fp = fm.prepare_weights(net), fm.prepare_weights(net, width=fm.FMA_WIDTH)
-    assert fp.width == fm.FMA_WIDTH == fm.fit_width(fw.width, (fm.FMA_WIDTH,)) > fw.width
+    fw, fp = fm.prepare_weights(net), fm.prepare_weights(net, width=width)
+    assert fp.width == width > fw.width and width in fm.FMA_WIDTHS
+    assert fm.fit_width(fw.width, fm.FMA_WIDTHS) == fm.FMA_WIDTHS[0] == 256
     with torch.no_grad():
         ref = ft.fused_sphere_trace_plain(*args, fw, RayTracer(**TRACER), split=split)
         got = ft.fused_sphere_trace_plain(*args, fp, RayTracer(**TRACER), split=split)
@@ -269,6 +273,77 @@ def test_k3_streams_the_forward_records_in_split_fp16():
         ft._trace_records(dataclasses.replace(fw, trace=(rec[:-8], shifts)),
                           torch.device("cpu"))
 
+
+def _kernel_forward_records(fw):
+    """forward_records<W> of csrc/fused_trace.cu, line for line: G = SP_REC /
+    (W * 32) k16 slices a record, 2 ceil(k / 16 / G) records a K-deep block."""
+    g = 16384 // (fw.width * 32)
+    return sum(2 * ((k // 16 + g - 1) // g) for L in fw.layers for k in (L.k_h, L.k_x))
+
+
+@pytest.mark.parametrize("width", [256, 512])
+def test_k3_records_at_width_256_follow_the_kernel_count(width):
+    """K3's records of NeuS's 8x256 net (confs/conf_neus.conf) at widths 256
+    (two k16 slices a record, N = 256) and 512: as many as the kernel counts
+    (118 and 232), and at 256 they read back, in the order the kernel reads
+    them, as each layer's 2^s_l W^T (layer 0's and the skip layer's x part's
+    3 slices padded to 4 with zero slices), hi then lo, hi + lo within 2^-22
+    of the scaled weight."""
+    _, _, net = _nets("neus-8x256")
+    fw = fm.prepare_weights(net, width=width)
+    rec, n_rec, shifts = ft._trace_records(fw, torch.device("cpu"))
+    assert n_rec == ft.forward_records(fw) == _kernel_forward_records(fw) == {256: 118,
+                                                                             512: 232}[width]
+    assert rec.dtype == torch.float16 and rec.numel() == n_rec * fm.SPLIT_REC
+    if width != 256:
+        return
+    assert fm.split_group(256) == 2
+    off = 0
+    for L, s in zip(fw.layers, shifts):
+        for w in (L.w, L.wx):
+            if w is None:
+                continue
+            scaled = w.t().float() * 2.0 ** s
+            k = w.shape[0]
+            n = 2 * -(-(k // 16) // 2)  # records of this block
+            hi, lo = _unpack_split(rec[off:off + n * fm.SPLIT_REC], 256, 2)
+            off += n * fm.SPLIT_REC
+            assert hi.shape == (256, n // 2 * 32)
+            assert torch.equal(hi[:, :k], scaled.to(torch.float16))
+            assert not hi[:, k:].any() and not lo[:, k:].any()
+            assert (hi[:, :k].float() + lo[:, :k].float() - scaled).abs().max() \
+                <= 2.0 ** -22 * scaled.abs().max()
+    assert off == rec.numel()
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["fp32", "split_fp16"])
+def test_k3_plain_at_width_256_matches_the_pallas_kernel(split):
+    """K3's plain version on NeuS's 8x256 net at width 256 (the packing K3
+    launches on the card), in fp32 and in the kernel's split fp16, against
+    the Pallas _trace_kernel in interpret mode on 32 rays: the same
+    unfinished masks and hits, distances within 1e-5; in fp32 at the Pallas
+    kernel's tile the same evaluation count, in split fp16 (live queries)
+    fewer."""
+    jnet, params, net = _nets("neus-8x256")
+    args = _flat(*_rays(n=32, seed=2))
+    ref = jbuild(jnet, params, JRayTracer(**TRACER), tile=16, interpret=True)(
+        *(jnp.asarray(a) for a in args))
+    fw = fm.prepare_weights(net, width=256)
+    assert fw.width == fm.fit_width(fm.network_width(net), fm.FMA_WIDTHS) == 256
+    with torch.no_grad():
+        acc_s, acc_e, unf, n_evals = ft.fused_sphere_trace_plain(
+            *(torch.from_numpy(np.array(a)) for a in args), fw, RayTracer(**TRACER),
+            tile=None if split else 16, split=split)
+    hit = np.asarray(ref[0]) < np.asarray(ref[1])
+    assert 0 < hit.sum() < args[2].sum()
+    np.testing.assert_array_equal(unf.numpy(), np.asarray(ref[2]))
+    np.testing.assert_array_equal(acc_s.numpy() < acc_e.numpy(), hit)
+    np.testing.assert_allclose(acc_s.numpy(), np.asarray(ref[0]), atol=ATOL)
+    np.testing.assert_allclose(acc_e.numpy(), np.asarray(ref[1]), atol=ATOL)
+    if split:
+        assert 0 < n_evals < int(ref[5])
+    else:
+        assert n_evals == int(ref[5]) > 0
 
 
 def _rays_that_differ(a, b):
