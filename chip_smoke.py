@@ -7,15 +7,19 @@ Phases, each of which raises on failure (exit code != 0):
 2. build: compile the kernel sources of csrc/ with nvcc, one process each,
    all started together.
 3. kernels: on the full-width confs/conf.conf SDF net (8x512, skip at 4,
-   multires 6), run K1 fp32 (FMA pipe), K1 bf16 on the tensor cores (both
-   entries: the hidden state, and the sdf of fused_sdf_value) and K2 (fp32
-   accuracy on the tensor cores in split bf16) at 262,144 points, the
-   tensor-core kernels also at 1, 63, 64, 65 and 5000 points, and hold each
-   against its plain PyTorch version on the same inputs, in the working type
-   (K2 also against its split-bf16 plain version, to tell the scheme's error
-   from the kernel's); time them with CUDA events, the fp32 FMA K1 beside
-   the tensor-core one, and print the tensor-core kernels' TFLOP/s and the
-   L2 weight bytes a call requests by their design (computed, not measured).
+   multires 6), run K1 fp32 on the FMA pipe and K1 bf16 on the tensor cores
+   (each with both entries: the hidden state, and the sdf of
+   fused_sdf_value) and K2 (fp32 accuracy on the tensor cores in split bf16)
+   at 262,144 points and at 1, 63, 64, 65 and 5000 points (K1 fp32 also at
+   12,500, the near re-trace's size), and hold each against its plain
+   PyTorch version on the same inputs, in the working type (K2 also against
+   its split-bf16 plain version, to tell the scheme's error from the
+   kernel's; K1 fp32's sdf entry also against sdf_column of its own hidden
+   entry's h, bit for bit); time them with CUDA events (K1 fp32's entries
+   at 262,144 and 12,500 points, beside the hidden entry plus sdf_column
+   that the sdf closure ran before), and print the tensor-core kernels'
+   TFLOP/s and the L2 weight bytes a call requests by their design
+   (computed, not measured).
 4. trace-kernel: K3, the whole sphere trace (split fp16 on the tensor cores
    over a pool of live rays, its near rays traced again in fp32 through K1
    fp32), on 262,144 rays of one 512x512 view of the seeded-init sphere
@@ -82,7 +86,8 @@ Phases, each of which raises on failure (exit code != 0):
 12. neus: confs/conf_neus.conf (NeuS's 8x256 SDF net), which the card's
    closures pack at width 256 for every kernel: K1 fp32, K1 bf16 (both
    entries) and K2 at 256 against their plain versions at 1, 63, 64, 65,
-   5000 and 262,144 points under phase 3's gates, and K3 at 256 on phase
+   5000 and 262,144 points (K1 fp32 also at 12,500) under phase 3's gates,
+   and K3 at 256 on phase
    4's camera and random rays under its gates (no flag differing from the
    K1-fp32 trace at 256, NEAR_DELTA NEAR_MARGIN times the split-fp16 sdf
    error on the 256 packing); each timed beside the net padded to 512, with
@@ -93,8 +98,8 @@ Phases, each of which raises on failure (exit code != 0):
    float32. Checks the imported weights, finite losses and EXRs, and
    launches at width 256 and none at 512 (the per-width counts of
    fused_mlp.LAUNCHES and fused_trace.LAUNCHES): K1 bf16 and K2 in both
-   runs, K3 in the second, K1 fp32 in the view; prints s/step, s/view and
-   peak memory.
+   runs, K3 in the second, K1 fp32's sdf entry in the view; prints s/step,
+   s/view and peak memory.
 13. geometry: Step 1, mesh export and LPIPS, which reach no kernel (plain
    fp32 cuBLAS). Builds the port's native runtime (g++, printed seconds);
    meshes the radius-0.5 sphere with get_surface_trace at resolution 256;
@@ -318,6 +323,9 @@ def _chain_flops(net):
 
 
 RAGGED = (1, 63, 64, 65, 5000)
+# rows of one call of K3's near re-trace: the ~4.77% of phase 12's N_POINTS
+# camera rays that K3 flags near on NeuS's net, fewer as rays finish
+NEAR_POINTS = 12_500
 
 
 def _check_bf16(name, got, ref):
@@ -405,24 +413,11 @@ def phase_kernels():
     hidden_flops, col_flops = _chain_flops(net)
     res = {}
     with torch.no_grad():
-        # K1 fp32, the FMA pipe
+        # K1 fp32, the FMA pipe: the hidden entry and the sdf entry
         fw = fm.prepare_weights(net, torch.float32)
-        x = fm.embed_padded(pts, fw)
-        h = fm.fused_hidden(x, fw)
-        torch.cuda.synchronize()
-        ref = fm.fused_hidden_plain(x, fw)
-        torch.cuda.synchronize()
-        err = (h - ref).abs().max().item()
-        ms = _time(lambda: fm.fused_hidden(x, fw))
-        plain_ms = _time(lambda: fm.fused_hidden_plain(x, fw))
-        bound = _bound(N_POINTS * hidden_flops,
-                       N_POINTS * (fw.emb_dim + fw.real_width) * 4 + fw.buf.numel() * 4, "fp32")
-        print(f"[kernels] K1 fp32 (FMA): N={N_POINTS} max_abs_err={err:.3e} kernel {ms:.3f} ms "
-              f"plain {plain_ms:.3f} ms bound {bound['bound_ms']:.3f} ms ({bound['bound_by']})",
-              flush=True)
-        if not err <= TOL["fp32_abs"] or not bool(torch.isfinite(h).all()):
-            raise RuntimeError(f"K1 fp32 disagrees with its plain version: {err:.3e}")
-        res["k1_fp32"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+        errs_h, errs_s = _check_k1_fp32("kernels", fw, pts)
+        res["k1_fp32"], res["k1_fp32_sdf"] = _time_k1_fp32("kernels", fw, pts, hidden_flops,
+                                                            col_flops, errs_h, errs_s)
 
         # K1 bf16 on the tensor cores: the hidden entry and the sdf entry
         fw = fm.prepare_weights(net, torch.bfloat16)
@@ -444,7 +439,8 @@ def phase_kernels():
               f"({flops / ms_h / 1e9:.1f} TFLOP/s), fused_sdf_value {ms_s:.3f} ms "
               f"({flops / ms_s / 1e9:.1f} TFLOP/s); plain {plain_h:.3f} / {plain_s:.3f} ms; "
               f"bound {bound_h['bound_ms']:.3f} / {bound_s['bound_ms']:.3f} ms "
-              f"({bound_h['bound_by']}); fp32 FMA K1 {res['k1_fp32']['ms']:.3f} ms; L2 weight "
+              f"({bound_h['bound_by']}); fp32 FMA K1 {res['k1_fp32']['ms']:.3f} ms, its sdf "
+              f"entry {res['k1_fp32_sdf']['ms']:.3f} ms; L2 weight "
               f"bytes requested a call, computed from the design: {l2_bytes / 1e9:.3f} GB "
               f"({l2_bytes / ms_s / 1e9:.3f} TB/s requested in the sdf entry)", flush=True)
         tc = dict(fma_fp32_ms=res["k1_fp32"]["ms"], ragged=list(RAGGED))
@@ -832,7 +828,7 @@ RENDER_RAYS = 16
 # FMA K1; K3 only where use_fused_trace is on
 RENDER_KERNELS = ("fused_sdf_value", "fused_sdf_fwd_bwd")
 TRAIN_KERNELS = ("fused_sdf_value", "fused_sdf_fwd_bwd", "fused_sphere_trace")
-TRAIN_REF_KERNELS = ("fused_sdf_hidden", "fused_sdf_fwd_bwd", "fused_sphere_trace")
+TRAIN_REF_KERNELS = ("fused_sdf_value_fp32", "fused_sdf_fwd_bwd", "fused_sphere_trace")
 EXR_NAMES = ("gt", "rerender_rgb", "diffuse_rgb", "specular_rgb", "diffuse_albedo", "roughness",
              "specular_reflection")
 
@@ -1107,7 +1103,7 @@ def _trace_divergence(calls):
 # and every group's gradient, the implicit net's included
 UNFROZEN_REF_TOL = {"term_rel": 1e-5, "grad_rel_l2": 2e-3}
 LIVE_GRAD_GROUPS = ("implicit_network",) + GRAD_GROUPS
-LIVE_REF_KERNELS = ("fused_sdf_hidden", "fused_sphere_trace")
+LIVE_REF_KERNELS = ("fused_sdf_value_fp32", "fused_sphere_trace")
 LOSS_TERMS = ("loss", "idr_rgb_loss", "sg_rgb_loss", "eikonal_loss", "mask_loss",
               "normalsmooth_loss", "background_rgb_loss")
 
@@ -1827,25 +1823,83 @@ def _neus_state(imp):
 
 
 def _check_k1_fp32(tag, fw, pts):
-    """K1 fp32 on the FMA pipe on the packing `fw` at RAGGED sizes and
-    N_POINTS against its plain version (TOL, raises). -> the errors by size."""
+    """K1 fp32 on the FMA pipe, both entries, on the packing `fw` at RAGGED
+    sizes, NEAR_POINTS and N_POINTS against their plain versions (TOL,
+    raises); the sdf entry must equal sdf_column of the hidden entry's h bit
+    for bit (the order its epilogue sums in). -> (hidden errors, sdf errors)
+    by size."""
     import torch
 
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
 
-    errs = []
-    for n in RAGGED + (N_POINTS,):
+    errs_h, errs_s = [], []
+    for n in RAGGED + (NEAR_POINTS, N_POINTS):
         x = fm.embed_padded(pts[:n], fw)
         h = fm.fused_hidden(x, fw)
+        sdf = fm.fused_sdf_value(x, fw)
         torch.cuda.synchronize()
-        err = (h - fm.fused_hidden_plain(x, fw)).abs().max().item()
-        print(f"[{tag}] K1 fp32 (FMA, width {fw.width}) N={n}: max_abs_err={err:.3e}",
-              flush=True)
-        if not err <= TOL["fp32_abs"] or not bool(torch.isfinite(h).all()):
+        err_h = (h - fm.fused_hidden_plain(x, fw)).abs().max().item()
+        err_s = (sdf - fm.fused_sdf_value_plain(x, fw)).abs().max().item()
+        same = torch.equal(sdf, fm.sdf_column(h[:, :fw.real_width], fw.w_last[:, 0],
+                                              fw.b_last[0]))
+        print(f"[{tag}] K1 fp32 (FMA, width {fw.width}) N={n}: hidden max_abs_err={err_h:.3e}, "
+              f"sdf entry max_abs_err={err_s:.3e}, sdf entry equal to sdf_column of the "
+              f"hidden entry's h bit for bit: {same}", flush=True)
+        if (not err_h <= TOL["fp32_abs"] or not err_s <= TOL["fp32_abs"] or not same
+                or not bool(torch.isfinite(h).all() and torch.isfinite(sdf).all())):
             raise RuntimeError(f"[{tag}] K1 fp32 at width {fw.width} disagrees with its plain "
-                               f"version at N={n}: {err:.3e}")
-        errs.append(err)
-    return errs
+                               f"version or its own h at N={n}: hidden {err_h:.3e}, sdf "
+                               f"{err_s:.3e}, sdf_column of h {same}")
+        errs_h.append(err_h)
+        errs_s.append(err_s)
+    return errs_h, errs_s
+
+
+def _time_k1_fp32(tag, fw, pts, hidden_flops, col_flops, errs_h, errs_s, plain=True):
+    """K1 fp32's two entries timed at N_POINTS and NEAR_POINTS beside their
+    bounds at the net's real width (each input read and each output written
+    once: the sdf entry writes no [N, W] h, and does the sdf column's
+    products), their plain versions' times (`plain`) and the two-step route
+    the sdf closure took before the sdf entry (the hidden entry, then
+    sdf_column in tensor ops). -> (hidden figures, sdf figures)"""
+    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+
+    weights = fw.buf.numel() * 4
+
+    def two_step(x):
+        h = fm.fused_hidden(x, fw)[:, :fw.real_width]
+        return fm.sdf_column(h, fw.w_last[:, 0], fw.b_last[0])
+
+    out = []
+    for name, fn, plain_fn, errs, out_bytes, flops in (
+            ("hidden", fm.fused_hidden, fm.fused_hidden_plain, errs_h, 4 * fw.real_width,
+             hidden_flops),
+            ("sdf", fm.fused_sdf_value, fm.fused_sdf_value_plain, errs_s, 4,
+             hidden_flops + col_flops)):
+        fig = dict(max_abs_err=max(errs), ragged=list(RAGGED))
+        for n, key in ((N_POINTS, ""), (NEAR_POINTS, "near_")):
+            x = fm.embed_padded(pts[:n], fw)
+            fig[key + "ms"] = _time(lambda: fn(x, fw), reps=5 if n == N_POINTS else 20)
+            if plain:
+                fig[key + "plain_ms"] = _time(lambda: plain_fn(x, fw))
+            b = _bound(n * flops, n * (fw.emb_dim * 4 + out_bytes) + weights, "fp32")
+            fig.update({key + k: v for k, v in b.items()})
+            if name == "sdf":
+                fig[key + "two_step_ms"] = _time(lambda: two_step(x),
+                                                 reps=5 if n == N_POINTS else 20)
+        fig["near_points"] = NEAR_POINTS
+        out.append(fig)
+        print(f"[{tag}] K1 fp32 (FMA, width {fw.width}) {name} entry: N={N_POINTS} "
+              f"{fig['ms']:.3f} ms (bound {fig['bound_ms']:.3f} ms, {fig['bound_by']}, "
+              f"{fig['bound_ms'] / fig['ms']:.1%}"
+              + (f"; plain {fig['plain_ms']:.3f} ms" if plain else "")
+              + (f"; hidden entry + sdf_column {fig['two_step_ms']:.3f} ms" if name == "sdf"
+                 else "")
+              + f"), N={NEAR_POINTS} {fig['near_ms']:.3f} ms (bound {fig['near_bound_ms']:.3f} "
+              f"ms" + (f"; plain {fig['near_plain_ms']:.3f} ms" if plain else "")
+              + (f"; hidden entry + sdf_column {fig['near_two_step_ms']:.3f} ms"
+                 if name == "sdf" else "") + ")", flush=True)
+    return out[0], out[1]
 
 
 NEUS_RENDER_RAYS = 16
@@ -1925,12 +1979,9 @@ def phase_neus(card):
                     **_bound(N_POINTS * 2 * hidden_flops * 3,
                              N_POINTS * (2 * f32.emb_dim + f32.real_width) * 4 + records,
                              "bf16")),
-                "fused_sdf_hidden": dict(
-                    max_abs_err=max(errs_k1), ms=_time(lambda: fm.fused_hidden(x32, f32)),
-                    **_bound(N_POINTS * hidden_flops,
-                             N_POINTS * (f32.emb_dim + f32.real_width) * 4
-                             + f32.buf.numel() * 4, "fp32")),
             }
+            run["fused_sdf_hidden"], run["fused_sdf_value_fp32"] = _time_k1_fp32(
+                f"neus width {w}", f32, pts, hidden_flops, col_flops, *errs_k1, plain=w == width)
             if w == width:
                 run["fused_sdf_value"]["plain_ms"] = _time(
                     lambda: fm.fused_sdf_value_plain(x16, f16))
@@ -1938,8 +1989,6 @@ def phase_neus(card):
                     lambda: fm.fused_hidden_plain(x16, f16))
                 run["fused_sdf_fwd_bwd"]["plain_ms"] = _time(
                     lambda: fm.fused_fwd_bwd_plain(x32, f32))
-                run["fused_sdf_hidden"]["plain_ms"] = _time(
-                    lambda: fm.fused_hidden_plain(x32, f32))
             res[f"w{w}"] = run
             print(f"[neus] width {w}{' (padded)' if w > width else ''}, N={N_POINTS}: "
                   + "; ".join(f"{k} {v['ms']:.3f} ms (bound at the real width {v['bound_ms']:.3f} "
@@ -2055,7 +2104,7 @@ def phase_neus(card):
               f" {NEUS_RENDER_RAYS} rays/px), hit fraction {st['hit_fraction']:.3f} [{card}]",
               flush=True)
     if not all(st["hit_fraction"] > 0 for st in rr.stats) or any(
-            launches[f"{k}@{width}"] <= 0 for k in ("fused_sdf_hidden", "fused_sdf_fwd_bwd")):
+            launches[f"{k}@{width}"] <= 0 for k in ("fused_sdf_value_fp32", "fused_sdf_fwd_bwd")):
         raise RuntimeError(f"[neus-fp32] no hit, or K1 fp32 or K2 did not launch at width "
                            f"{width}: {launches}")
     runs["neus-fp32"] = dict(s_per_view=[st["seconds"] for st in rr.stats],
@@ -2996,7 +3045,7 @@ SG_FIT_STEPS = 200
 SG_FIT_CHECKED = 3         # steps held against the CPU's from a shared init
 SG_FIT_REL = 1e-4
 TOOLS_KERNELS = ("fused_sdf_value", "fused_sdf_fwd_bwd")
-IDR_KERNELS = ("fused_sdf_hidden", "fused_sdf_fwd_bwd")
+IDR_KERNELS = ("fused_sdf_value_fp32", "fused_sdf_fwd_bwd")
 
 
 def _fit_steps(fit, gt, init, n, device):
@@ -3176,6 +3225,12 @@ def phase_tools(card):
     return res
 
 
+# K1 fp32's design, for the kernels line
+FMA_DESIGN = ("FMA pipe: 8x16 register tiles, both operands from shared memory, weights "
+              "through a bulk-copy ring of 16 KB slabs fed by a producer warpgroup, one "
+              "persistent block an SM")
+
+
 def main():
     import torch
 
@@ -3211,7 +3266,7 @@ def main():
                       "render_types": {k: v for k, v in rtypes.items() if k != "launches"},
                       "tools": {k: v for k, v in tools.items() if k != "launches"},
                       "card": card}), flush=True)
-    src = "nefii_tpu_torch/ops/kernels/csrc/fused_mlp.cu"
+    fma_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_fma.cuh"
     tc_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_tc.cuh"
     trace_src = "nefii_tpu_torch/ops/kernels/csrc/fused_trace.cu"
     k1 = "nefii_tpu/ops/pallas/fused_mlp.py:136"
@@ -3248,11 +3303,15 @@ def main():
              render_launches=render_launches["fused_sdf_value"], dtype="bfloat16",
              design="the tensor-core K1 with the sdf column in its epilogue", library_ms=None,
              **kern["sdf_value"]),
-        dict(name="fused_sdf_hidden", route="cuda", source=src, replaces=k1,
-             launches=launches["fused_sdf_hidden"], **paths("fused_sdf_hidden"),
-             render_launches=render_launches["fused_sdf_hidden"],
-             reference_launches=ref_launches["fused_sdf_hidden"], dtype="float32",
-             design="FMA pipe", library_ms=None, **kern["k1_fp32"]),
+        *(dict(name=name, route="cuda", source=fma_src, replaces=k1,
+               launches=launches[name], **paths(name), render_launches=render_launches[name],
+               reference_launches=ref_launches[name], dtype="float32", design=design,
+               library_ms=None, **kern[key])
+          for name, key, design in (
+              ("fused_sdf_hidden", "k1_fp32", FMA_DESIGN + ", 64-row tiles"),
+              ("fused_sdf_value_fp32", "k1_fp32_sdf",
+               FMA_DESIGN + ", 64-row tiles, the sdf column in its epilogue in sdf_column's "
+               "order"))),
         dict(name="fused_sdf_fwd_bwd", route="cuda",
              source="nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_split.cuh",
              replaces="nefii_tpu/ops/pallas/fused_mlp.py:240",
@@ -3297,8 +3356,10 @@ def main():
              "the tensor-core K1 with the sdf column in its epilogue, two tiles in ping-pong"),
             ("fused_sdf_fwd_bwd", split_src, "nefii_tpu/ops/pallas/fused_mlp.py:240", "float32",
              "split bf16 (hi.hi + lo.hi + hi.lo) on wgmma m64n128k16, bulk-copy weight ring"),
-            ("fused_sdf_hidden", src, k1, "float32",
-             "FMA pipe, 64-row block tiles of 256 threads")):
+            ("fused_sdf_hidden", fma_src, k1, "float32", FMA_DESIGN + ", 128-row tiles"),
+            ("fused_sdf_value_fp32", fma_src, k1, "float32",
+             FMA_DESIGN + ", 128-row tiles, the sdf column in its epilogue in sdf_column's "
+             "order")):
         records.append(at_256(name, source, replaces, dtype, design, neus_k["w256"][name],
                               neus_k["w512"][name]["ms"]))
     k3_neus = neus_k["k3"]

@@ -6,15 +6,17 @@
 //   _kernel (fused_mlp.py:136), reached through build_fused_hidden /
 //   build_fused_sdf: the value-only hidden chain of the SDF MLP, per layer
 //   z = h W + b (the skip layer adds x Wx, the concat(h, x)/sqrt(2) folded
-//   into split weights), h = softplus(100 z)/100. Three entries:
-//     nefii_sdf_hidden     fp32, on the FMA pipe (the layer loop of
-//                          sdf_mlp.cuh), at width 256 or 512;
-//     nefii_sdf_hidden_tc  bf16 operands, fp32 accumulation, h rounded to
-//                          bf16 after every layer, on the tensor cores
-//                          (sdf_mlp_tc.cuh: wgmma, bulk-copy weight ring);
-//     nefii_sdf_value      the same tensor-core kernel with an sdf epilogue:
-//                          sdf = h . w_last[:, 0] + b_last[0] in fp32, so the
-//                          [N, W] hidden state never reaches memory.
+//   into split weights), h = softplus(100 z)/100. Four entries:
+//     nefii_sdf_hidden      fp32, on the FMA pipe (sdf_mlp_fma.cuh: operands
+//                           from shared memory, bulk-copy weight ring), h;
+//     nefii_sdf_value_fp32  the same kernel with an sdf epilogue: the sdf
+//                           column summed in fused_mlp.sdf_column's order,
+//                           so the [N, W] hidden state never reaches memory;
+//     nefii_sdf_hidden_tc   bf16 operands, fp32 accumulation, h rounded to
+//                           bf16 after every layer, on the tensor cores
+//                           (sdf_mlp_tc.cuh: wgmma, bulk-copy weight ring);
+//     nefii_sdf_value       the same tensor-core kernel with an sdf epilogue:
+//                           sdf = h . w_last[:, 0] + b_last[0] in fp32.
 //   _kernel_fwd_bwd (fused_mlp.py:240), reached through
 //   build_fused_sdf_feature_grad: nefii_sdf_fwd_bwd, the same forward in
 //   fp32 accuracy, then the input-space backward seeded by the sdf column of
@@ -24,92 +26,55 @@
 //   are in sdf_mlp_split.cuh.
 //
 // Widths. Every kernel here is compiled for hidden widths 256 and 512: the
-// FMA kernel (FmaCfg, 32-row tiles at 512, 64-row at 256), the tensor-core
+// FMA kernel (FmaCfg: 64-row tiles at 512, 128-row at 256), the tensor-core
 // kernels K1 bf16 and K2 (TcCfg, SplitCfg). Each entry takes the packing's
 // width, launches that instantiation and refuses any other. A net runs at the
 // smallest compiled width that holds it (fused_mlp.py), so NeuS's 8x256 runs
 // unpadded in every kernel.
 //
-// What bounds the fp32 FMA kernels on this card. The 8x512 chain is ~3.7
-// MFLOP per point against ~160 B of input and 1-2 KB of output, so it is
-// compute-bound; the TPU kernel kept all ~7.5 MB of fp32 weights in VMEM,
-// which an SM (227 KB of shared memory) cannot. The design therefore keeps
-// only the block's activation tile on chip -- 32 rows x 512 features in fp32
-// (64 x 256 at width 256), 64 KB of shared memory -- and streams each layer's weights through L2
-// (they fit in its 50 MB many times over) and L1, where the four row groups
-// of a block share them. Every thread owns an 8x8 output tile and runs the
-// matmul as fp32 FMAs (64 FMAs per 16 bytes of weights and 32 bytes of
-// broadcast activations read), so the kernel is bound by the FP32 pipe, not
-// by memory: the JAX counterpart is fp32, and one TF32 or bf16 tensor-core
-// pass would change the numerics (K2's split bf16 keeps them, at three
-// products each). The bf16 design and its bound are in sdf_mlp_tc.cuh.
-//
-// All matmul work happens here, in sdf_mlp.cuh (the FMA layer loop),
-// sdf_mlp_tc.cuh and sdf_mlp_split.cuh (on the tensor-core building blocks
-// of tc_common.cuh); no library GEMM is called.
+// What bounds each kernel, and what its design does about it, is in its
+// header: sdf_mlp_fma.cuh (K1 fp32, the FP32 pipe), sdf_mlp_tc.cuh (K1 bf16)
+// and sdf_mlp_split.cuh (K2), the last two on the tensor-core building
+// blocks of tc_common.cuh. No library GEMM is called.
 
-#include "sdf_mlp.cuh"
+#include "sdf_mlp_fma.cuh"
 #include "sdf_mlp_split.cuh"
 #include "sdf_mlp_tc.cuh"
 
 namespace {
 
-// xs[c][r] = x[base + r][c] (zero past the last row), BM rows
-template <int BM>
-__device__ __forceinline__ void load_rows(float* xs, const float* __restrict__ x, int xc,
-                                          long long base, long long n_rows) {
-  for (int i = threadIdx.x; i < BM * xc; i += FMA_THREADS) {
-    const int r = i / xc, c = i - r * xc;
-    const long long row = base + r;
-    xs[c * BM + r] = row < n_rows ? x[row * xc + c] : 0.0f;
-  }
-}
-
-// out[base + r][c] = act[c][r], BM rows of W
-template <int W, int BM>
-__device__ __forceinline__ void store_rows(float* __restrict__ out, const float* act, long long base,
-                                           long long n_rows) {
-  for (int i = threadIdx.x; i < BM * W; i += FMA_THREADS) {
-    const int r = i / W, c = i - r * W;
-    const long long row = base + r;
-    if (row < n_rows) out[row * W + c] = act[c * BM + r];
-  }
-}
-
-template <int W>
-__global__ void __launch_bounds__(FMA_THREADS, 2)
-sdf_hidden_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
-                  const __grid_constant__ Plan plan,
-                  float* __restrict__ out, long long n_rows) {
-  constexpr int BM = FmaCfg<W>::BM;
-  extern __shared__ __align__(16) float smem[];
-  float* act = smem;            // [W][BM]
-  float* xs = smem + W * BM;    // [x_cols][BM]
-  const int tx = threadIdx.x % (W / TN), ty = threadIdx.x / (W / TN);
-  const int col0 = tx * TN, row0 = ty * TM;
-  const long long n_tiles = (n_rows + BM - 1) / BM;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long base = tile * BM;
-    load_rows<BM>(xs, x, plan.x_cols, base, n_rows);
-    __syncthreads();
-    for (int l = 0; l < plan.n; ++l)
-      forward_layer<W>(plan.l[l], l == 0 ? xs : act, xs, act, wbuf, col0, row0);
-    store_rows<W, BM>(out, act, base, n_rows);
-    __syncthreads();
-  }
-}
-
-template <int W>
-int launch_fma(const void* x, const void* wbuf, const Plan& plan, void* out, long long n_rows,
-               int grid, void* stream) {
-  const int smem = (W + plan.x_cols) * FmaCfg<W>::BM * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(sdf_hidden_kernel<W>,
+template <int W, bool SDF>
+int launch_fma_w(const void* x, const void* wbuf, const Plan& plan, const void* wlast,
+                 float b_last, int sdf_cols, void* out_h, void* out_sdf, long long n_rows,
+                 int grid, void* stream) {
+  const int smem = FmaCfg<W>::smem(plan.x_cols);
+  cudaError_t e = cudaFuncSetAttribute(sdf_fma_kernel<W, SDF>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  sdf_hidden_kernel<W><<<grid, FMA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  sdf_fma_kernel<W, SDF><<<grid, FMA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(wbuf), plan,
-      static_cast<float*>(out), n_rows);
+      static_cast<const float*>(wlast), b_last, sdf_cols, static_cast<float*>(out_h),
+      static_cast<float*>(out_sdf), n_rows);
   return (int)cudaGetLastError();
+}
+
+template <bool SDF>
+int launch_fma(const void* x, const void* wbuf, const long long* desc, int n_layers, int x_cols,
+               int width, const void* wlast, float b_last, int sdf_cols, void* out_h,
+               void* out_sdf, long long n_rows, int grid, void* stream) {
+  Plan plan;
+  if (!make_plan(desc, n_layers, x_cols, &plan, width) || x_cols > FMA_MAX_XC || grid <= 0 ||
+      n_rows <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (SDF && (sdf_cols < 1 || sdf_cols > width || (sdf_cols & (sdf_cols - 1))))
+    return (int)cudaErrorInvalidValue;
+  if (width == 512)
+    return launch_fma_w<512, SDF>(x, wbuf, plan, wlast, b_last, sdf_cols, out_h, out_sdf, n_rows,
+                                  grid, stream);
+  if (width == 256)
+    return launch_fma_w<256, SDF>(x, wbuf, plan, wlast, b_last, sdf_cols, out_h, out_sdf, n_rows,
+                                  grid, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int W, bool SDF>
@@ -169,9 +134,10 @@ const char* nefii_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// the FMA kernel's compiled widths (widths[2]), its rows a block at each
-// (block_rows[2]) and threads a block; the tensor-core kernels' rows a tile,
-// threads a block and compiled widths (tc_widths[2])
+// the FMA kernel's compiled widths (widths[2]), its rows a block tile at each
+// (block_rows[2]) and threads a block (consumers and the producer
+// warpgroup); the tensor-core kernels' rows a tile, threads a block and
+// compiled widths (tc_widths[2])
 int nefii_fused_mlp_config(int* widths, int* block_rows, int* threads, int* tc_block_rows,
                            int* tc_threads, int* tc_widths) {
   widths[0] = 256;
@@ -191,12 +157,19 @@ int nefii_fused_mlp_config(int* widths, int* block_rows, int* threads, int* tc_b
 int nefii_sdf_hidden(const void* x, const void* wbuf, const long long* desc, int n_layers,
                      int x_cols, int width, void* out, long long n_rows, int grid,
                      void* stream) {
-  Plan plan;
-  if (!make_plan(desc, n_layers, x_cols, &plan, width) || grid <= 0 || n_rows <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (width == 512) return launch_fma<512>(x, wbuf, plan, out, n_rows, grid, stream);
-  if (width == 256) return launch_fma<256>(x, wbuf, plan, out, n_rows, grid, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_fma<false>(x, wbuf, desc, n_layers, x_cols, width, nullptr, 0.0f, 1, out,
+                           nullptr, n_rows, grid, stream);
+}
+
+// sdf[n_rows] fp32 = the sdf column of the same kernel's h against wlast
+// (`width` floats, zero padded), summed as fused_mlp.sdf_column sums it: the
+// products zero padded to sdf_cols (a power of two), pairwise halves, then
+// + b_last.
+int nefii_sdf_value_fp32(const void* x, const void* wbuf, const long long* desc, int n_layers,
+                         int x_cols, int width, const void* wlast, float b_last, int sdf_cols,
+                         void* sdf, long long n_rows, int grid, void* stream) {
+  return launch_fma<true>(x, wbuf, desc, n_layers, x_cols, width, wlast, b_last, sdf_cols,
+                          nullptr, sdf, n_rows, grid, stream);
 }
 
 // out[n_rows][width] bf16 = hidden chain of x[n_rows][x_cols] bf16 on the

@@ -6,12 +6,15 @@ ctypes):
 
   * K1 replaces the Pallas `_kernel`: the value-only hidden chain of the SDF
     MLP, which answers every SDF query of the tracers (`build_fused_sdf`).
-    In fp32 it runs on the FMA pipe (`fused_hidden`). In bf16 (bf16
-    operands, fp32 accumulation, h rounded to bf16 after every layer) it runs
-    on the tensor cores (`csrc/sdf_mlp_tc.cuh`), with two entries:
-    `fused_hidden` returns h, and `fused_sdf_value` reduces h against the
-    sdf column of the final linear in the kernel and returns sdf [N], which
-    `build_fused_sdf` uses for CUDA tensors.
+    It has two entries in each dtype: `fused_hidden` returns h, and
+    `fused_sdf_value` reduces h against the sdf column of the final linear
+    in the kernel and returns sdf [N], which `build_fused_sdf` uses. In fp32
+    it runs on the FMA pipe (`csrc/sdf_mlp_fma.cuh`: both operands from
+    shared memory, the weights through a bulk-copy ring), its sdf column
+    summed in `sdf_column`'s order, so that a row's sdf is `sdf_column` of
+    the kernel's h bit for bit. In bf16 (bf16 operands, fp32 accumulation, h
+    rounded to bf16 after every layer) it runs on the tensor cores
+    (`csrc/sdf_mlp_tc.cuh`).
   * `fused_fwd_bwd` (K2) replaces the Pallas `_kernel_fwd_bwd`: the forward
     plus the input-space backward of the sdf column, fp32. It gives sdf,
     feature and normal at every shading point and secondary hit
@@ -30,14 +33,15 @@ own width. A width no kernel takes (above 512) is refused on the card.
 
 `prepare_weights` resolves weight norm, pads and folds the skip layer's
 1/sqrt(2) into split weights once per call, into one packed buffer that the
-kernels and the plain versions share; in bf16 it also packs K1's tensor-core
-chunks (`pack_tc`). K2 packs its split hi/lo records of both passes
-(`split_weights`) at its first launch and keeps them on the FusedWeights.
+kernels and the plain versions share (K1 fp32 streams its layers as they
+lie there); in bf16 it also packs K1's tensor-core chunks (`pack_tc`). K2
+packs its split hi/lo records of both passes (`split_weights`) at its first
+launch and keeps them on the FusedWeights.
 `network_weights` keeps one FusedWeights a network, dtype and width while
 the parameters do not change, so the closures, built at every forward, pack
-a frozen geometry once. The final linear (outside `fused_sdf_value`) and the
-positional encoding's backward stay outside the kernels, as in the JAX
-package.
+a frozen geometry once. The final linear (outside `fused_sdf_value`'s sdf
+column) and the positional encoding's backward stay outside the kernels, as
+in the JAX package.
 
 A wrapper given a CUDA tensor launches its kernel or raises; the plain
 version (`*_plain`) runs only for tensors on the CPU, and it is what the
@@ -58,17 +62,21 @@ import torch.nn.functional as F
 
 FMA_WIDTHS = (256, 512)   # widths the FMA K1 and K3 are compiled for (FmaCfg in csrc)
 TC_WIDTHS = (256, 512)    # widths the tensor-core K1 and K2 are compiled for
+# K1 fp32's two entries (the hidden state, the sdf), then the tensor-core kernels'
+FMA_KERNELS = ("fused_sdf_hidden", "fused_sdf_value_fp32")
 TC_KERNELS = ("fused_sdf_hidden_tc", "fused_sdf_value", "fused_sdf_fwd_bwd")
 # launches of each CUDA kernel, and of each kernel at each width
 # ("<kernel>@<width>"); a wrapper adds one where it launches, nowhere else
-LAUNCHES: Dict[str, int] = {"fused_sdf_hidden": 0, **{k: 0 for k in TC_KERNELS},
-                            **{f"fused_sdf_hidden@{w}": 0 for w in FMA_WIDTHS},
+LAUNCHES: Dict[str, int] = {**{k: 0 for k in FMA_KERNELS + TC_KERNELS},
+                            **{f"{k}@{w}": 0 for k in FMA_KERNELS for w in FMA_WIDTHS},
                             **{f"{k}@{w}": 0 for k in TC_KERNELS for w in TC_WIDTHS}}
 
-# resident blocks per SM of each design, and the tensor-core kernels' rows a
-# tile; the grids are persistent (csrc: FMA_THREADS' and TC_THREADS' launch
+# resident blocks per SM of each design, threads a block of the FMA K1 (256
+# consumers and a producer warpgroup), the embedding columns its x tile
+# holds, and the tensor-core kernels' rows a tile; the grids are persistent
+# (csrc: sdf_mlp_fma.cuh's FMA_THREADS and FMA_MAX_XC, TC_THREADS' launch
 # bounds, TC_BM)
-FMA_BLOCKS_PER_SM = 2
+FMA_BLOCKS_PER_SM, FMA_THREADS, FMA_MAX_XC = 1, 384, 64
 TC_BLOCK_ROWS, TC_BLOCKS_PER_SM = 64, 1
 TC_K = 64             # input rows of one tensor-core weight chunk (TC_BK)
 # K2's weight records (csrc/sdf_mlp_split.cuh): a record is SPLIT_REC bf16
@@ -353,8 +361,12 @@ def fused_hidden_plain(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
 
 def fused_sdf_value_plain(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     """K1 with the sdf column of the final linear, in plain PyTorch: the
-    hidden chain, then h[:, :real_width] . w_last[:, 0] + b_last[0] in fp32."""
+    hidden chain, then h[:, :real_width] . w_last[:, 0] + b_last[0] in fp32;
+    for an fp32 packing summed in sdf_column's fixed order (the FMA
+    kernel's)."""
     h = fused_hidden_plain(x, fw)[:, :fw.real_width].float()
+    if fw.dtype == torch.float32:
+        return sdf_column(h, fw.w_last[:, 0], fw.b_last[0])
     return (h @ fw.w_last[:, :1])[:, 0] + fw.b_last[0]
 
 
@@ -409,10 +421,10 @@ _SM_COUNT: Dict[int, int] = {}
 
 
 def fma_block_rows(width: int) -> int:
-    """Rows a block tile of the FMA K1 holds at `width`: its 256 threads own
-    8x8 outputs each, so 32 rows at 512 and 64 at 256 (FmaCfg in
-    csrc/sdf_mlp.cuh)."""
-    return 256 * 8 * 8 // width
+    """Rows a block tile of the FMA K1 holds at `width`: its 256 consumer
+    threads own 8x16 outputs each, so 64 rows at 512 and 128 at 256 (FmaCfg
+    in csrc/sdf_mlp_fma.cuh)."""
+    return 256 * 8 * 16 // width
 
 
 def _lib() -> ctypes.CDLL:
@@ -423,12 +435,13 @@ def _lib() -> ctypes.CDLL:
         vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         pll = ctypes.POINTER(ctypes.c_longlong)
         lib.nefii_sdf_hidden.argtypes = [vp, vp, pll, i, i, i, vp, ll, i, vp]
+        lib.nefii_sdf_value_fp32.argtypes = [vp, vp, pll, i, i, i, vp, f, i, vp, ll, i, vp]
         lib.nefii_sdf_hidden_tc.argtypes = [vp, vp, vp, pll, i, i, i, vp, ll, i, vp]
         lib.nefii_sdf_value.argtypes = [vp, vp, vp, pll, i, i, i, vp, f, vp, ll, i, vp]
         lib.nefii_sdf_fwd_bwd.argtypes = [vp, vp, vp, pll, i, i, i, vp, vp, vp, vp, i, ll, i,
                                           vp]
-        for fn in (lib.nefii_sdf_hidden, lib.nefii_sdf_hidden_tc, lib.nefii_sdf_value,
-                   lib.nefii_sdf_fwd_bwd):
+        for fn in (lib.nefii_sdf_hidden, lib.nefii_sdf_value_fp32, lib.nefii_sdf_hidden_tc,
+                   lib.nefii_sdf_value, lib.nefii_sdf_fwd_bwd):
             fn.restype = i
         lib.nefii_error_string.argtypes = [i]
         lib.nefii_error_string.restype = ctypes.c_char_p
@@ -437,13 +450,13 @@ def _lib() -> ctypes.CDLL:
         threads, tc_rows, tc_threads = i(), i(), i()
         lib.nefii_fused_mlp_config(widths, rows, ctypes.byref(threads), ctypes.byref(tc_rows),
                                    ctypes.byref(tc_threads), tc_widths)
-        got = (tuple(widths), tuple(rows), tc_rows.value, tuple(tc_widths))
-        want = (FMA_WIDTHS, tuple(fma_block_rows(w) for w in FMA_WIDTHS), TC_BLOCK_ROWS,
-                TC_WIDTHS)
+        got = (tuple(widths), tuple(rows), threads.value, tc_rows.value, tuple(tc_widths))
+        want = (FMA_WIDTHS, tuple(fma_block_rows(w) for w in FMA_WIDTHS), FMA_THREADS,
+                TC_BLOCK_ROWS, TC_WIDTHS)
         if got != want:
-            raise RuntimeError(f"fused_mlp library takes widths {got[0]} at rows {got[1]} "
-                               f"(FMA), rows {got[2]} and widths {got[3]} (tensor cores); the "
-                               f"wrapper expects {want}")
+            raise RuntimeError(f"fused_mlp library takes widths {got[0]} at rows {got[1]} and "
+                               f"{got[2]} threads (FMA), rows {got[3]} and widths {got[4]} "
+                               f"(tensor cores); the wrapper expects {want}")
         lib._nefii_typed = True
     return lib
 
@@ -478,6 +491,17 @@ def _check_cuda(x: torch.Tensor, fw: FusedWeights, name: str,
         raise ValueError(f"{name}: input and weights must be contiguous")
     if x.data_ptr() % 16 or fw.buf.data_ptr() % 16:
         raise ValueError(f"{name}: input and weights must be 16-byte aligned")
+
+
+def _check_fma(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
+    """What the FMA K1 takes beyond _check_cuda: fp32 and an embedding of at
+    most FMA_MAX_XC columns (its x tile)."""
+    _check_cuda(x, fw, name)
+    if fw.dtype != torch.float32:
+        raise ValueError(f"{name}: dtype {fw.dtype} is not supported")
+    if fw.x_cols > FMA_MAX_XC:
+        raise ValueError(f"{name}: the FMA kernel takes at most {FMA_MAX_XC} embedding "
+                         f"columns, this network has {fw.x_cols}")
 
 
 def _check_tc(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
@@ -518,9 +542,7 @@ def fused_hidden(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     if fw.dtype == torch.bfloat16:
         _check_tc(x, fw, "fused_hidden")
     else:
-        _check_cuda(x, fw, "fused_hidden")
-        if fw.dtype != torch.float32:
-            raise ValueError(f"fused_hidden: dtype {fw.dtype} is not supported")
+        _check_fma(x, fw, "fused_hidden")
     n = x.shape[0]
     out = torch.empty(n, fw.width, dtype=fw.dtype, device=x.device)
     if n == 0:
@@ -547,10 +569,15 @@ def fused_hidden(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
 
 def fused_sdf_value(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     """K1 with the sdf column of the final linear in its epilogue: embedded
-    points [N, x_cols] bf16 -> sdf [N] fp32, on the tensor cores."""
+    points [N, x_cols] in the working dtype -> sdf [N] fp32; in bf16 on the
+    tensor cores (TC_WIDTHS), in fp32 on the FMA pipe (FMA_WIDTHS), summed as
+    sdf_column sums (`fused_sdf_value_fp32` in LAUNCHES)."""
     if x.device.type == "cpu":
         return fused_sdf_value_plain(x, fw)
-    _check_tc(x, fw, "fused_sdf_value")
+    if fw.dtype == torch.bfloat16:
+        _check_tc(x, fw, "fused_sdf_value")
+    else:
+        _check_fma(x, fw, "fused_sdf_value")
     n = x.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
@@ -558,13 +585,21 @@ def fused_sdf_value(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     wlast = fw.wlast_col.to(x.device).contiguous()
     lib = _lib()
     desc = (ctypes.c_longlong * len(fw.desc))(*fw.desc)
-    err = lib.nefii_sdf_value(
-        x.data_ptr(), fw.tc.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols,
-        fw.width, wlast.data_ptr(), fw.b_sdf, out.data_ptr(), n,
-        _grid(n, x.device, tc_block_rows(fw.width), TC_BLOCKS_PER_SM),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if fw.dtype == torch.bfloat16:
+        err = lib.nefii_sdf_value(
+            x.data_ptr(), fw.tc.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols,
+            fw.width, wlast.data_ptr(), fw.b_sdf, out.data_ptr(), n,
+            _grid(n, x.device, tc_block_rows(fw.width), TC_BLOCKS_PER_SM), stream)
+        name = "fused_sdf_value"
+    else:
+        err = lib.nefii_sdf_value_fp32(
+            x.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, fw.width,
+            wlast.data_ptr(), fw.b_sdf, sdf_cols(fw.real_width), out.data_ptr(), n,
+            _grid(n, x.device, fma_block_rows(fw.width), FMA_BLOCKS_PER_SM), stream)
+        name = "fused_sdf_value_fp32"
     _raise_on(err, "fused_sdf_value", lib)
-    _count("fused_sdf_value", fw.width)
+    _count(name, fw.width)
     return out
 
 
@@ -649,14 +684,21 @@ def pe_backward(dx_emb: torch.Tensor, pts: torch.Tensor, multires: int) -> torch
     return dp
 
 
+def sdf_cols(k: int) -> int:
+    """The columns sdf_column sums k products over: k zero padded to a power
+    of two."""
+    return 1 << (k - 1).bit_length() if k > 1 else 1
+
+
 def sdf_column(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h [N,K] . w [K] + b, each row summed in one fixed order (pairwise
     halves of the zero-padded products). A matrix product's kernel, and with
     it its order of summation, may follow the rows' count; here a row's sdf
-    does not depend on the other rows of its batch."""
+    does not depend on the other rows of its batch. The FMA K1's sdf entry
+    sums in this order."""
     s = h * w
     k = s.shape[1]
-    p = 1 << (k - 1).bit_length() if k > 1 else 1
+    p = sdf_cols(k)
     if p != k:
         s = F.pad(s, (0, p - k))
     while p > 1:
@@ -666,18 +708,13 @@ def sdf_column(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 
 
 def sdf_closure(fw: FusedWeights):
-    """fn(pts [N,3]) -> sdf [N]: K1's hidden chain on `fw` + the sdf column
-    in fp32. In bf16 the column is reduced inside the tensor-core kernel
-    (fused_sdf_value); in fp32 after the FMA kernel, by sdf_column, so that a
-    ray's trace does not depend on the rays traced beside it (K3's near rays
-    are traced again alone)."""
+    """fn(pts [N,3]) -> sdf [N]: K1's hidden chain on `fw` with the sdf
+    column in its epilogue (fused_sdf_value). In fp32 the column is summed in
+    sdf_column's fixed order, so that a ray's trace does not depend on the
+    rays traced beside it (K3's near rays are traced again alone)."""
 
     def fn(pts: torch.Tensor) -> torch.Tensor:
-        x = embed_padded(pts, fw)
-        if fw.dtype == torch.bfloat16:
-            return fused_sdf_value(x, fw)
-        h = fused_hidden(x, fw)[:, :fw.real_width].float()
-        return sdf_column(h, fw.w_last[:, 0], fw.b_last[0])
+        return fused_sdf_value(embed_padded(pts, fw), fw)
 
     return fn
 

@@ -12,7 +12,9 @@ largest value (one bf16 rounding of h flipped by the order propagates); the
 input gradient within 1e-3 of its largest value.
 
 Every kernel (the FMA K1, the tensor-core K1 bf16 and K2, K3) is compiled
-for widths 256 and 512 and launches at the packing's width.
+for widths 256 and 512 and launches at the packing's width. The FMA K1's sdf
+entry sums its own h in fused_mlp.sdf_column's order: it equals sdf_column
+of the hidden entry's h bit for bit.
 """
 
 import dataclasses
@@ -109,8 +111,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                          fm.prepare_weights(net, torch.bfloat16))  # K2 is fp32 only
     with pytest.raises(ValueError):
         fm.fused_fwd_bwd(x, dataclasses.replace(fw, split=fm.split_weights(fw)[:-8]))  # cut
+    assert fm.fused_sdf_value(x[:0], fw).shape == (0,)  # K1 fp32's sdf entry, N = 0
     with pytest.raises(ValueError):
-        fm.fused_sdf_value(x, fw)  # the sdf entry is the bf16 tensor-core kernel
+        fm.fused_sdf_value(x.to(torch.bfloat16), fw)  # dtype differs from the weights
+    with pytest.raises(ValueError):
+        fm.fused_sdf_value(x[:, :-1], fw)  # wrong width
     assert all(n == 0 for n in fm.LAUNCHES.values())
 
 
@@ -205,13 +210,50 @@ def test_tensor_core_wrappers_refuse_what_the_kernel_does_not_take():
 # the primary tracer's conf and the secondary tracer's (confs/conf.conf:121-127)
 @torch.no_grad()
 def test_fp32_sdf_closure_rows_do_not_depend_on_the_batch():
-    """K1 fp32 and the fixed-order sdf column: the sdf of a point is the same
-    bit for bit in any batch, so that K3's near rays, traced again alone,
-    are traced as in the whole batch."""
+    """K1 fp32's sdf entry and its fixed-order sdf column: the sdf of a point
+    is the same bit for bit in any batch (of 1, 7, 500 or 777 rows in any
+    order), so that K3's near rays, traced again alone, are traced as in the
+    whole batch."""
     net, pts = _flagship()
     fn = fm.build_fused_sdf(net, torch.float32)
+    full = fn(pts)
     idx = torch.randperm(pts.shape[0], generator=torch.Generator().manual_seed(0))[:777].cuda()
-    assert torch.equal(fn(pts)[idx], fn(pts[idx]))
+    assert torch.equal(full[idx], fn(pts[idx]))
+    for rows in (slice(3, 4), slice(100, 107), slice(4000, 4500)):
+        assert torch.equal(full[rows], fn(pts[rows].contiguous()))
+
+
+FMA_SIZES = (1, 63, 64, 65, 127, 128, 129, 5000, 12_500)
+
+
+@pytest.mark.parametrize("width", [512, 256])
+@pytest.mark.parametrize("n", FMA_SIZES)
+@torch.no_grad()
+def test_fma_k1_entries_match_plain_and_sdf_column(n, width):
+    """K1 fp32's two entries at both widths (the flagship's 8x512, NeuS's
+    8x256), at ragged sizes around its 64- and 128-row tiles and at 12,500
+    rows (the near re-trace's size): the hidden entry within 1e-4 of the
+    plain version, the sdf entry within 1e-4 of its plain version and equal
+    bit for bit to sdf_column of the hidden entry's h; each launches once, at
+    the packing's width."""
+    net, _ = _flagship() if width == 512 else _neus()
+    fw = fm.network_weights(net, torch.float32, fm.FMA_WIDTHS)
+    assert fw.width == width
+    pts = torch.randn(n, 3, generator=torch.Generator(device="cuda").manual_seed(n),
+                      device="cuda") * 0.5
+    x = fm.embed_padded(pts, fw)
+    fm.reset_launch_counts()
+    h = fm.fused_hidden(x, fw)
+    sdf = fm.fused_sdf_value(x, fw)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_sdf_hidden"] == fm.LAUNCHES[f"fused_sdf_hidden@{width}"] == 1
+    assert fm.LAUNCHES["fused_sdf_value_fp32"] == fm.LAUNCHES[f"fused_sdf_value_fp32@{width}"] == 1
+    assert sum(v for k, v in fm.LAUNCHES.items() if "@" not in k) == 2
+    assert h.shape == (n, width) and sdf.shape == (n,) and sdf.dtype == torch.float32
+    assert bool(torch.isfinite(h).all() and torch.isfinite(sdf).all())
+    assert (h - fm.fused_hidden_plain(x, fw)).abs().max().item() <= 1e-4
+    assert (sdf - fm.fused_sdf_value_plain(x, fw)).abs().max().item() <= 1e-4
+    assert torch.equal(sdf, fm.sdf_column(h[:, :fw.real_width], fw.w_last[:, 0], fw.b_last[0]))
 
 
 K3_CONFS = {"primary": dict(line_step_iters=3, sphere_tracing_iters=10),
@@ -265,8 +307,9 @@ def test_k3_kernel_matches_plain(n, conf, width):
     out = ft.fused_sphere_trace(*rays, fw, tracer, stats=stats)
     torch.cuda.synchronize()
     assert ft.LAUNCHES["fused_sphere_trace"] == ft.LAUNCHES[f"fused_sphere_trace@{width}"] == 1
-    assert fm.LAUNCHES["fused_sdf_hidden"] == fm.LAUNCHES[f"fused_sdf_hidden@{width}"]
-    assert (fm.LAUNCHES["fused_sdf_hidden"] > 0) == (stats["n_near"] > 0)
+    retraced = fm.LAUNCHES["fused_sdf_value_fp32"]
+    assert retraced == fm.LAUNCHES[f"fused_sdf_value_fp32@{width}"]
+    assert (retraced > 0) == (stats["n_near"] > 0) and fm.LAUNCHES["fused_sdf_hidden"] == 0
     k1_unf, k1_hit, k1_err = ft.agreement(out, tracer._sphere_trace(fm.sdf_closure(fw), *rays))
     assert k1_unf == k1_hit == 0 and k1_err <= 1e-4
     ref = ft.fused_sphere_trace_plain(*rays, fw, tracer)
@@ -343,8 +386,9 @@ def test_kernels_take_a_256_wide_network():
     k1_fp32 = fm.LAUNCHES["fused_sdf_hidden"]
     stats = {}
     out = ft.fused_sphere_trace(*rays, fw, tracer, stats=stats)
-    # K3's near rays are traced again through K1 fp32, a launch an iteration
-    retraced = fm.LAUNCHES["fused_sdf_hidden"] - k1_fp32
+    # K3's near rays are traced again through K1 fp32's sdf entry, a launch
+    # an iteration
+    retraced = fm.LAUNCHES["fused_sdf_value_fp32"]
     assert (retraced > 0) == (stats["n_near"] > 0)
     ref = ft.fused_sphere_trace_plain(*rays, fw, tracer)
     agree = out[2] == ref[2]
@@ -356,7 +400,8 @@ def test_kernels_take_a_256_wide_network():
     assert k1_fp32 == fm.LAUNCHES["fused_sdf_fwd_bwd@256"] == fm.LAUNCHES["fused_sdf_fwd_bwd"] == 1
     assert fm.LAUNCHES["fused_sdf_hidden_tc@256"] == fm.LAUNCHES["fused_sdf_value@256"] == 1
     assert fm.LAUNCHES["fused_sdf_hidden_tc"] == fm.LAUNCHES["fused_sdf_value"] == 1
-    assert fm.LAUNCHES["fused_sdf_hidden@256"] == fm.LAUNCHES["fused_sdf_hidden"]
+    assert fm.LAUNCHES["fused_sdf_hidden@256"] == fm.LAUNCHES["fused_sdf_hidden"] == 1
+    assert fm.LAUNCHES["fused_sdf_value_fp32@256"] == fm.LAUNCHES["fused_sdf_value_fp32"]
     assert ft.LAUNCHES["fused_sphere_trace"] == ft.LAUNCHES["fused_sphere_trace@256"] == 1
     assert sum(v for k, v in {**fm.LAUNCHES, **ft.LAUNCHES}.items() if k.endswith("@512")) == 0
 
@@ -364,13 +409,14 @@ def test_kernels_take_a_256_wide_network():
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 5000, 262_144])
 @torch.no_grad()
 def test_fma_k1_at_width_256_matches_plain(n):
-    """The FMA K1 on NeuS's net at width 256 (64-row block tiles), at ragged
+    """The FMA K1 on NeuS's net at width 256 (128-row block tiles), at ragged
     sizes around its tile and at 262,144 points, against the fp32 plain
     version within 1e-4; it launches its width-256 instantiation, and the
-    sdf closure the tracers use on the same packing agrees too."""
+    sdf closure the tracers use on the same packing (its sdf entry) agrees
+    too."""
     net, _ = _neus()
     fw = fm.network_weights(net, torch.float32, fm.FMA_WIDTHS)
-    assert fw.width == 256 and fm.fma_block_rows(256) == 64
+    assert fw.width == 256 and fm.fma_block_rows(256) == 128
     pts = torch.randn(n, 3, generator=torch.Generator(device="cuda").manual_seed(n),
                       device="cuda") * 0.5
     x = fm.embed_padded(pts, fw)
@@ -378,8 +424,9 @@ def test_fma_k1_at_width_256_matches_plain(n):
     h = fm.fused_hidden(x, fw)
     sdf = fm.sdf_closure(fw)(pts)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES["fused_sdf_hidden@256"] == fm.LAUNCHES["fused_sdf_hidden"] == 2
-    assert fm.LAUNCHES["fused_sdf_hidden@512"] == 0
+    assert fm.LAUNCHES["fused_sdf_hidden@256"] == fm.LAUNCHES["fused_sdf_hidden"] == 1
+    assert fm.LAUNCHES["fused_sdf_value_fp32@256"] == fm.LAUNCHES["fused_sdf_value_fp32"] == 1
+    assert fm.LAUNCHES["fused_sdf_hidden@512"] == fm.LAUNCHES["fused_sdf_value_fp32@512"] == 0
     ref = fm.fused_hidden_plain(x, fw)
     assert h.shape == (n, 256) and bool(torch.isfinite(h).all())
     assert (h - ref).abs().max().item() <= 1e-4

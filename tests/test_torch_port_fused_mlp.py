@@ -521,9 +521,12 @@ def test_wrappers_cpu_plain_empty_and_other_devices_raise():
     assert h.shape == (0, fw.width) and h2.shape == (0, fw.width) and dx.shape == (0, fw.x_cols)
     fw16 = fm.prepare_weights(net, torch.bfloat16)
     assert fm.fused_sdf_value(torch.zeros(0, fw16.x_cols, dtype=torch.bfloat16), fw16).shape == (0,)
+    assert fm.fused_sdf_value(torch.zeros(0, fw.x_cols), fw).shape == (0,)  # K1 fp32's sdf entry
     meta = torch.empty(4, fw.x_cols, device="meta")
     with pytest.raises(ValueError):
         fm.fused_hidden(meta, fw)
+    with pytest.raises(ValueError):
+        fm.fused_sdf_value(meta, fw)
     with pytest.raises(ValueError):
         fm.fused_fwd_bwd(meta, fw)
     with pytest.raises(ValueError):
