@@ -68,7 +68,6 @@ from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from nefii_tpu_torch.models.implicit import ImplicitNetwork
@@ -82,6 +81,7 @@ from nefii_tpu_torch.ops.kernels.fused_trace import build_fused_sphere_trace
 from nefii_tpu_torch.ops.ray_tracing import RayTracer
 from nefii_tpu_torch.ops.sg import render_with_sg, safe_norm
 from nefii_tpu_torch.utils.camera import get_camera_params
+from nefii_tpu_torch.utils.telemetry import host_sync, span
 
 PT_RENDER_TYPES = {
     # the warped-SG prototype (ops/path_tracing.py pt_render_with_sg)
@@ -378,7 +378,7 @@ class IDRNetwork(nn.Module):
 
         sdf_fn = self._sdf_closure()
         imp = self.implicit_network
-        with torch.no_grad(), record_function("primary_trace"):
+        with torch.no_grad(), span("primary_trace"):
             # the trace, the points and the sdf carry no gradient
             trace = self.ray_tracer(sdf_fn, cam_loc, object_mask, ray_dirs, training=training,
                                     sphere_trace_fn=self._fused_trace_closure(self.ray_tracer),
@@ -400,7 +400,8 @@ class IDRNetwork(nn.Module):
                 eik_pts = torch.rand(N // 2, 3, generator=gen, device=points.device)
                 eik_pts = eik_pts * (2 * obs) - obs
             cam_flat = cam_loc[:, None, :].expand(batch_size, num_pixels, 3).reshape(-1, 3)
-            sel = surface_mask.nonzero()[:, 0]
+            with host_sync("pipeline.surface"):
+                sel = surface_mask.nonzero()[:, 0]
             n_eik = eik_pts.shape[0]
             if remat and torch.is_grad_enabled():
                 def region(fn, *a):
@@ -410,7 +411,7 @@ class IDRNetwork(nn.Module):
                     return fn(*a)
 
             def shade(diff_points, view):
-                with record_function("shading"):
+                with span("shading"):
                     return self.get_rbg_value(diff_points, view, gen, sdf_fn, value_only=False,
                                               **shade_kw)
 
@@ -433,8 +434,9 @@ class IDRNetwork(nn.Module):
         else:
             surface_mask = network_object_mask
             # shade the hit rays only; miss rays keep the defaults below
-            sel = surface_mask.nonzero()[:, 0]
-            with record_function("shading"):
+            with host_sync("pipeline.surface"):
+                sel = surface_mask.nonzero()[:, 0]
+            with span("shading"):
                 ret = self.get_rbg_value(points[sel], view_dirs[sel], gen, sdf_fn, **shade_kw)
         em = self.envmap_material_network
 
@@ -490,7 +492,7 @@ class IDRNetwork(nn.Module):
                     # the path tracer's rays: each pixel's point R times
                     pool_pts, pool_view = (x.repeat_interleave(R, 0) for x in (points, view_dirs))
                     pool_sel = (sel[:, None] * R + torch.arange(R, device=sel.device)).reshape(-1)
-                with torch.no_grad(), record_function("secondary_pool"):
+                with torch.no_grad(), span("secondary_pool"):
                     pool, n_evals = self._secondary_pool(
                         ret, pool_sel, pool_pts, pool_view, gen, sdf_fn, self._sfg_closure(),
                         secondary_limit, all_reduce=all_reduce,
@@ -537,8 +539,10 @@ class IDRNetwork(nn.Module):
             pool[k] = torch.full((S, N) + v.shape[2:], fill, dtype=v.dtype, device=v.device)
             pool[k][:, sel] = v
         miss = torch.ones(N, dtype=torch.bool, device=points.device)
-        miss[sel] = False
-        miss = miss.nonzero()[:, 0]
+        with host_sync("pool.upload"):  # the scalar False, copied to the device
+            miss[sel] = False
+        with host_sync("pool.misses"):
+            miss = miss.nonzero()[:, 0]
         hits = pool["secondary_mask"].reshape(S, N).sum(1)
         n_evals = 0
         if miss.numel() or all_reduce is not None:
@@ -551,8 +555,10 @@ class IDRNetwork(nn.Module):
                 trace = self.scene_fns(sdf_fn, sfg_fn).trace
             spec = self._render_spec()
             for s, name in enumerate(spec["strategies"]):
-                if s > 0 and int(hits[:s].sum()) >= limit:
-                    break
+                if s > 0:
+                    with host_sync("pool.hits"):
+                        if int(hits[:s].sum()) >= limit:
+                            break
                 if miss.numel():
                     if name == "brdf" and rough is None:
                         mat = em(pts, feats, normals, fake_roughness=fake_roughness,
@@ -571,7 +577,8 @@ class IDRNetwork(nn.Module):
                 if all_reduce is not None:
                     hits[s] = all_reduce(hits[s:s + 1])[0]
         # the strategies before the one whose hits reach the limit, and that one
-        keep = min(S, int((hits.cumsum(0) < limit).sum()) + 1)
+        with host_sync("pool.keep"):
+            keep = min(S, int((hits.cumsum(0) < limit).sum()) + 1)
         return {k: v[:keep] for k, v in pool.items()}, n_evals
 
     def _surface(self, points, view_dirs, sfg_fn):

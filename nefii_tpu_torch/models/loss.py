@@ -26,11 +26,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nefii_tpu_torch.utils.telemetry import host_sync
+
 AllReduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 def _reduce(pair: torch.Tensor, all_reduce: AllReduce) -> torch.Tensor:
     return all_reduce(pair) if all_reduce is not None else pair
+
+
+def _on(t: torch.Tensor, device) -> torch.Tensor:
+    """t on `device`: a copy from the host waits for the device's queue."""
+    if t.device == device:
+        return t
+    with host_sync("loss.upload"):
+        return t.to(device)
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor, all_reduce: AllReduce = None) -> torch.Tensor:
@@ -67,7 +77,7 @@ def _var_unbiased(x: torch.Tensor, dim: int) -> torch.Tensor:
 def _gauss_kernel_1d(size: int, sigma: float, device) -> torch.Tensor:
     coords = np.arange(size, dtype=np.float32) - size // 2
     g = np.exp(-(coords ** 2) / (2 * sigma ** 2))
-    return torch.as_tensor(g / g.sum(), dtype=torch.float32, device=device)
+    return _on(torch.as_tensor(g / g.sum(), dtype=torch.float32), torch.device(device))
 
 
 def _gaussian_filter(img: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
@@ -159,7 +169,8 @@ class IDRLoss:
         if grad_theta is None:
             return torch.zeros(())
         sq = (torch.linalg.norm(grad_theta, dim=1) - 1) ** 2
-        num, den = _reduce(torch.stack([sq.sum(), sq.new_tensor(float(sq.numel()))]), all_reduce)
+        n = _on(torch.tensor(float(sq.numel()), dtype=sq.dtype), sq.device)
+        num, den = _reduce(torch.stack([sq.sum(), n]), all_reduce)
         return num / den
 
     def get_mask_loss(self, sdf_output, net_mask, obj_mask, alpha=None, all_reduce=None):
@@ -169,9 +180,9 @@ class IDRLoss:
         z = obj_mask.to(x.dtype)
         # binary_cross_entropy_with_logits, summed over the masked set
         bce = torch.clamp(x, min=0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
+        n = _on(torch.tensor(float(obj_mask.shape[0]), dtype=x.dtype), x.device)
         total, n_total, n_mask = _reduce(torch.stack([
-            (bce * mask.to(x.dtype)).sum(), x.new_tensor(float(obj_mask.shape[0])),
-            mask.sum().to(x.dtype)]), all_reduce)
+            (bce * mask.to(x.dtype)).sum(), n, mask.sum().to(x.dtype)]), all_reduce)
         val = (1.0 / a) * total / n_total
         return torch.where(n_mask > 0, val, torch.zeros_like(val))
 
@@ -255,7 +266,7 @@ class IDRLoss:
             rgb_gt, net_mask, obj_mask, ground_truth.get("pixel_visible"), all_reduce)
         terms["background_rgb_loss"] = self.get_background_rgb_loss(sg_rgb, rgb_gt, net_mask,
                                                                     obj_mask, all_reduce)
-        terms = {k: v.to(idr_rgb.device) for k, v in terms.items()}
+        terms = {k: _on(v, idr_rgb.device) for k, v in terms.items()}
         loss = (self.idr_rgb_weight * terms["idr_rgb_loss"]
                 + self.sg_rgb_weight * terms["sg_rgb_loss"]
                 + self.eikonal_weight * terms["eikonal_loss"]

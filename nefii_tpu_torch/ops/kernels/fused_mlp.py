@@ -60,6 +60,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nefii_tpu_torch.utils.telemetry import host_sync
+
 FMA_WIDTHS = (256, 512)   # widths the FMA K1 and K3 are compiled for (FmaCfg in csrc)
 TC_WIDTHS = (256, 512)    # widths the tensor-core K1 and K2 are compiled for
 # K1 fp32's two entries (the hidden state, the sdf), then the tensor-core kernels'
@@ -229,10 +231,12 @@ def prepare_weights(network, dtype: torch.dtype = torch.float32,
     real_width = dims[-2]
     wlast_col = F.pad(w_last[:, 0], (0, width - real_width)).contiguous()
     b_last = last.b.detach().float()
+    with host_sync("kernels.pack"):
+        b_sdf = float(b_last[0])
     return FusedWeights(
         buf=buf, desc=desc, layers=layers, width=width, x_cols=x_cols, emb_dim=d_emb,
         real_width=real_width, w_last=w_last, b_last=b_last, wlast_col=wlast_col,
-        b_sdf=float(b_last[0]), multires=network.multires, d_in=network.d_in,
+        b_sdf=b_sdf, multires=network.multires, d_in=network.d_in,
         embed_fn=embed_fn,
         tc=torch.cat(tc_parts).to(torch.bfloat16).contiguous() if tc_parts else None,
     )

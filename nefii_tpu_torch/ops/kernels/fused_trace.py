@@ -60,6 +60,7 @@ from nefii_tpu_torch.ops.kernels.fused_mlp import (
     _softplus100, _split_mm, embed_padded, fused_hidden_plain, network_weights, pack_split,
     sdf_closure, split_group,
 )
+from nefii_tpu_torch.utils.telemetry import host_sync
 
 # launches of the CUDA kernel, and at each width ("fused_sphere_trace@256");
 # the wrapper adds one where it launches, nowhere else
@@ -380,7 +381,8 @@ def _trace_kernel(cam, dirs, mask_intersect, near, far, fw: FusedWeights, tracer
                            f"({lib.nefii_trace_error_string(err).decode()})")
     LAUNCHES["fused_sphere_trace"] += 1
     LAUNCHES[f"fused_sphere_trace@{fw.width}"] += 1
-    _, n_evals, empty, n_near = counters.tolist()
+    with host_sync("k3.counters"):
+        _, n_evals, empty, n_near = counters.tolist()
     if stats is not None:
         stats.update(evals=n_evals, empty_rows=empty, tiles=(n_evals + empty) // TC_BLOCK_ROWS)
     return acc_s, acc_e, unf, n_evals, near_ray, n_near

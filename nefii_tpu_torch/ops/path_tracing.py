@@ -43,7 +43,6 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from nefii_tpu_torch.models.sample_network import sample_network
@@ -51,6 +50,7 @@ from nefii_tpu_torch.ops import sampling
 from nefii_tpu_torch.ops.sampling import TINY_NUMBER
 from nefii_tpu_torch.ops.sg import safe_norm
 from nefii_tpu_torch.utils.camera import get_sphere_intersection
+from nefii_tpu_torch.utils.telemetry import host_sync, span
 
 
 class SceneFns(NamedTuple):
@@ -126,7 +126,8 @@ def visibility_and_indirect(scene: SceneFns, light_points, hit_mask, dists, wi, 
         n_evals += P
     else:
         visibility = 1 - hit_mask.float()
-    sel = hit_mask[:, 0].nonzero()[:, 0]
+    with host_sync("estimator.hits"):
+        sel = hit_mask[:, 0].nonzero()[:, 0]
     if sel.numel() == 0:
         return visibility, indirect, n_evals
     pts = light_points[sel]
@@ -244,7 +245,7 @@ def pt_render_core(
         trace_training = training and diff_geo
 
         def trace(dirs, n_strategies=1):
-            with torch.no_grad(), record_function("secondary_trace"):
+            with torch.no_grad(), span("secondary_trace"):
                 lp, hm, ds, ne = scene.trace(pts.repeat(n_strategies, 1), dirs, gen,
                                              trace_training, trace_steps01)
             n_evals[0] += ne
@@ -269,7 +270,7 @@ def pt_render_core(
         wi = wi_list[i]
         visible = indirect = None
         n_vis = 0
-        with record_function("secondary_shading"):
+        with span("secondary_shading"):
             if shadow == "hard":
                 visible = 1.0 - hm.float()
             elif shadow == "soft":

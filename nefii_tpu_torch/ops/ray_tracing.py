@@ -19,9 +19,9 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from nefii_tpu_torch.utils.camera import get_sphere_intersection
+from nefii_tpu_torch.utils.telemetry import host_sync, span
 
 
 def eval_chunked(sdf_fn: Callable, pts: torch.Tensor, chunk: Optional[int]) -> torch.Tensor:
@@ -87,7 +87,7 @@ class RayTracer:
         mask_intersect = mask_intersect.reshape(N)
         object_mask = object_mask.reshape(N)
 
-        with record_function("sphere_trace"):
+        with span("sphere_trace"):
             if sphere_trace_fn is not None:
                 acc_start, acc_end, unfinished_start, min_dis, max_dis, n_evals = sphere_trace_fn(
                     cam, dirs, mask_intersect, near, far)
@@ -100,10 +100,11 @@ class RayTracer:
 
         network_object_mask = acc_start < acc_end
         dists = acc_start.clone()
-        sel = unfinished_start.nonzero()[:, 0]
+        with host_sync("sampler.unfinished"):
+            sel = unfinished_start.nonzero()[:, 0]
         if sel.numel():
             # fallback sampler for the rays the tracer did not converge on
-            with record_function("ray_sampler"):
+            with span("ray_sampler"):
                 _, s_obj, s_dists, s_evals = self._ray_sampler_dense(
                     sdf_fn, cam[sel], dirs[sel], object_mask[sel], acc_start[sel], acc_end[sel],
                     training)
@@ -111,7 +112,7 @@ class RayTracer:
             dists[sel] = s_dists
             network_object_mask[sel] = s_obj
         if training:
-            with record_function("min_sdf_points"):
+            with span("min_sdf_points"):
                 dists, m_evals = self._miss_points(
                     sdf_fn, cam, dirs, object_mask, network_object_mask, unfinished_start,
                     mask_intersect, acc_start, min_dis, max_dis, dists, gen, steps01)
@@ -134,7 +135,8 @@ class RayTracer:
         min_dis = torch.where(network_object_mask & out_mask, acc_start, min_dis)
         if steps01 is None:
             steps01 = torch.rand(self.n_steps, generator=gen, device=cam.device)
-        sel = mask.nonzero()[:, 0]
+        with host_sync("tracer.miss_points"):
+            sel = mask.nonzero()[:, 0]
         if not sel.numel():
             return dists, 0
         dists = dists.clone()
@@ -156,8 +158,10 @@ class RayTracer:
     def _sdf_at(self, sdf_fn, cam, dirs, acc_s, acc_e, m_s, m_e):
         """SDF at the start points of the m_s rays and the end points of the
         m_e rays in one call; zero elsewhere. Returns (sd_s, sd_e, n_evaluated)."""
-        i_s = m_s.nonzero()[:, 0]
-        i_e = m_e.nonzero()[:, 0]
+        with host_sync("tracer.gather"):
+            i_s = m_s.nonzero()[:, 0]
+        with host_sync("tracer.gather"):
+            i_e = m_e.nonzero()[:, 0]
         pts = torch.cat([cam[i_s] + acc_s[i_s, None] * dirs[i_s],
                          cam[i_e] + acc_e[i_e, None] * dirs[i_e]])
         sd = eval_chunked(sdf_fn, pts, self.sdf_chunk) if pts.shape[0] else pts[:, 0]
@@ -181,7 +185,10 @@ class RayTracer:
 
         state = [it, curr_s, curr_e, unf_s, unf_e, acc_s, acc_e, n_ev]."""
         it, curr_s, curr_e, unf_s, unf_e, acc_s, acc_e, n_ev = state
-        while it < max_iter and bool((unf_s | unf_e).any()):
+        while it < max_iter:
+            with host_sync("tracer.live_any"):
+                if not bool((unf_s | unf_e).any()):
+                    break
             acc_s = acc_s + curr_s
             acc_e = acc_e - curr_e
             next_s, next_e, k = self._sdf_at(sdf_fn, cam, dirs, acc_s, acc_e, unf_s, unf_e)
@@ -190,8 +197,9 @@ class RayTracer:
             j = 0
             while j < self.line_step_iters:
                 np_s, np_e = next_s < 0, next_e < 0
-                if not bool((np_s | np_e).any()):
-                    break
+                with host_sync("tracer.crossed_any"):
+                    if not bool((np_s | np_e).any()):
+                        break
                 factor = (1.0 - self.line_search_step) * 2.0 ** (-j)
                 acc_s = torch.where(np_s, acc_s - factor * curr_s, acc_s)
                 acc_e = torch.where(np_e, acc_e + factor * curr_e, acc_e)
@@ -268,7 +276,10 @@ class RayTracer:
         work = (sdf_low > 0) & (sdf_high < 0) & (z_high > z_low)
         z_mid = (z_low + z_high) / 2.0
         i = 0
-        while i < self.n_rootfind_steps and bool(work.any()):
+        while i < self.n_rootfind_steps:
+            with host_sync("rootfind.any"):
+                if not bool(work.any()):
+                    break
             sdf_mid = eval_chunked(sdf_fn, cam + z_mid[:, None] * dirs, self.sdf_chunk)
             ind_low = sdf_mid > 0
             z_low = torch.where(ind_low, z_mid, z_low)
@@ -291,7 +302,10 @@ class RayTracer:
         work = (sdf_low > 0) & (sdf_high < 0) & (z_high > z_low)
         z_pred = predict(sdf_low, sdf_high, z_low, z_high)
         i = 0
-        while i < self.n_rootfind_steps and bool(work.any()):
+        while i < self.n_rootfind_steps:
+            with host_sync("rootfind.any"):
+                if not bool(work.any()):
+                    break
             sdf_mid = eval_chunked(sdf_fn, cam + z_pred[:, None] * dirs, self.sdf_chunk)
             ind_low, ind_high = sdf_mid > 0, sdf_mid < 0
             z_low = torch.where(ind_low, z_pred, z_low)

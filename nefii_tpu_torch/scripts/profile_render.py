@@ -5,8 +5,9 @@ Writes a cam_dict_norm.json-only split of 1 + PROFILE_STEPS views
 geometric init in the JAX layout, then renders each view through
 RenderRunner.render_view, without the EXR and PNG writes. The first view
 warms up; the next PROFILE_STEPS run under torch.profiler: StepProfiler
-(training/trainer.py) prints the device's busy time and idle share, the spans
-and the kernels a view, and writes summary.txt and trace.json into --out. The
+(training/trainer.py) prints the device's busy time and idle share, the idle
+after host syncs, the host syncs by site, the spans and the kernels a view,
+and writes summary.txt and trace.json into --out. The
 last line is a JSON summary of the profiled views.
 
     python -m nefii_tpu_torch.scripts.profile_render --out profile_render

@@ -5,8 +5,8 @@ checkpoint of the conf's seeded geometric init in the JAX layout, then trains
 four steps through nefii_tpu_torch.training.exp_runner.main with
 --freeze_geometry and a distillation step after each. Steps 1-3 run under
 torch.profiler: StepProfiler (training/trainer.py) prints the device's busy
-time and idle share, the spans and the kernels, and writes summary.txt and
-trace.json into --out. The last line is a JSON summary of the timed steps.
+time and idle share, the idle after host syncs, the host syncs by site, the
+spans and the kernels, and writes summary.txt and trace.json into --out. The last line is a JSON summary of the timed steps.
 
     python -m nefii_tpu_torch.scripts.profile_train --out profile_out
     python -m nefii_tpu_torch.scripts.profile_train --out profile_k1 --no_fused_trace

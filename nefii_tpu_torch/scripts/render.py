@@ -108,7 +108,8 @@ class RenderRunner:
         self.envmap_size = tuple(kwargs.get("envmap_size", (256, 512)))
         self.max_views = kwargs.get("max_views", -1)
         self.export_mesh_resolution = kwargs.get("export_mesh_resolution", 0)
-        # per view: seconds, pixels, rays, executed SDF evaluations, hit fraction
+        # per view: seconds, pixels, rays, executed SDF evaluations, hit fraction,
+        # host syncs (telemetry.host_sync)
         self.stats = []
 
     # ------------------------------------------------------------------
@@ -117,6 +118,8 @@ class RenderRunner:
         renders its slice of each chunk and gets the whole view)."""
         from nefii_tpu_torch.parallel import spmd
         from nefii_tpu_torch.utils import general as utils
+        from nefii_tpu_torch.utils import telemetry
+        from nefii_tpu_torch.utils.telemetry import host_sync
 
         ds = self.dataset
         ds.sampling_idx = None
@@ -135,27 +138,35 @@ class RenderRunner:
         dev = self.device
         evals = []
 
+        def upload(x, dtype=None):
+            with host_sync("render.upload"):
+                return torch.as_tensor(np.asarray(x, dtype), device=dev)
+
+        def fetch(t):
+            with host_sync("render.fetch"):
+                return t.cpu().numpy()
+
         def forward(chunk):
-            batch = {
-                "uv": torch.as_tensor(np.asarray(chunk["uv"], np.float32), device=dev),
-                "object_mask": torch.as_tensor(np.asarray(chunk["object_mask"]), device=dev),
-                "intrinsics": torch.as_tensor(np.asarray(chunk["intrinsics"], np.float32),
-                                              device=dev),
-                "pose": torch.as_tensor(np.asarray(chunk["pose"], np.float32), device=dev),
-            }
+            batch = {"uv": upload(chunk["uv"], np.float32),
+                     "object_mask": upload(chunk["object_mask"]),
+                     "intrinsics": upload(chunk["intrinsics"], np.float32),
+                     "pose": upload(chunk["pose"], np.float32)}
             out = spmd.eval_forward(self.model, batch, gen, OUTPUT_KEYS)
             evals.append(out["n_sdf_evals"])
-            return {k: out[k].cpu().numpy() for k in OUTPUT_KEYS}
+            return {k: fetch(out[k]) for k in OUTPUT_KEYS}
 
+        syncs = telemetry.sync_total()
         t0 = time.perf_counter()
         out = utils.chunked_forward(forward, model_input, total, n_pix)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            with host_sync("view_end"):
+                torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0
         out["gt"] = np.asarray(ground_truth["rgb"][0])
         self.stats.append(dict(
             view=img_idx, seconds=seconds, pixels=total, rays=total * rays_per_px,
-            sdf_evals=sum(evals), hit_fraction=float(out["network_object_mask"].mean())))
+            sdf_evals=sum(evals), hit_fraction=float(out["network_object_mask"].mean()),
+            host_syncs=telemetry.sync_total() - syncs))
         return out
 
     def write_view(self, img_idx: int, out):

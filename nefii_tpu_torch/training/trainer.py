@@ -61,6 +61,8 @@ Differences by design:
 
 from __future__ import annotations
 
+import bisect
+import json
 import os
 import shutil
 import sys
@@ -70,7 +72,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from nefii_tpu_torch.config import ConfigFactory, ConfigTree, get_class
 from nefii_tpu_torch.models.loss import IDRLoss
@@ -79,6 +80,8 @@ from nefii_tpu_torch.parallel import dist, spmd
 from nefii_tpu_torch.utils import checkpoints as ckpt
 from nefii_tpu_torch.utils import exr as exr_io
 from nefii_tpu_torch.utils import general as utils
+from nefii_tpu_torch.utils import telemetry
+from nefii_tpu_torch.utils.telemetry import host_sync, span
 
 def multistep_lr(lr: float, milestones, factor: float) -> Callable[[int], float]:
     """lr for the update that follows `count` earlier ones: scaled by
@@ -151,8 +154,10 @@ class AdamGroup:
         if not self.params:
             return
         count = torch.tensor(float(self.count))
-        bc1 = (1 - torch.pow(torch.tensor(self.B1), count)).to(self.mu.device)
-        bc2 = (1 - torch.pow(torch.tensor(self.B2), count)).to(self.mu.device)
+        with host_sync("adam.bias_correction"):
+            bc1 = (1 - torch.pow(torch.tensor(self.B1), count)).to(self.mu.device)
+        with host_sync("adam.bias_correction"):
+            bc2 = (1 - torch.pow(torch.tensor(self.B2), count)).to(self.mu.device)
         g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                        for p in self.params])
         self.mu = _fma(g, 1 - self.B1, self.mu * self.B1)
@@ -203,7 +208,8 @@ def secondary_batch(out: Dict, k_max: int, num_rays: int, multiple: int = 1):
     if "secondary_mask" not in out:
         return None
     mask = out["secondary_mask"].reshape(-1)
-    n_hit = int(mask.sum())
+    with host_sync("pool.count"):
+        n_hit = int(mask.sum())
     if n_hit < 1:
         return None
     order = torch.argsort((~mask).to(torch.int8), stable=True)[:min(k_max, n_hit)]
@@ -235,20 +241,94 @@ def distillation_loss(model, batch: Dict[str, torch.Tensor], gen: torch.Generato
 
 
 PROFILE_STEPS = 3
-# the spans of one training step (record_function names), outermost first
-SPANS = ("train.forward", "primary_trace", "sphere_trace", "ray_sampler", "min_sdf_points",
-         "shading", "secondary_trace", "secondary_shading", "secondary_pool", "train.loss",
-         "train.backward", "train.update", "train.secondary", "train.pairing")
+# chrome-trace categories of device work: kernels, copies and sets
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _union(iv):
+    """Sorted, disjoint union of (start, end) intervals."""
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_after_syncs(busy, sync_ends) -> float:
+    """The idle time between the busy intervals `busy` (sorted, disjoint)
+    spent in gaps that hold the host end of at least one host sync: the
+    device drained its queue while the host waited, then waited for the
+    next launch. A gap counts once however many syncs end in it."""
+    ends = sorted(sync_ends)
+    total = 0.0
+    for (_, g0), (g1, _) in zip(busy, busy[1:]):
+        i = bisect.bisect_left(ends, g0)
+        if i < len(ends) and ends[i] <= g1:
+            total += g1 - g0
+    return total
+
+
+def profile_summary(events, on_device: bool) -> List[str]:
+    """The summary lines of a chrome trace's complete events ("ph": "X"),
+    a step's average of each. Device work is told from annotations by its
+    category, so a span of any name is never counted as a kernel."""
+    steps, dev_ops, spans, extents = [], [], {}, {}
+    for e in events:
+        cat, name = e.get("cat"), e.get("name", "")
+        t0, dur = float(e.get("ts", 0)), float(e.get("dur", 0))
+        if cat in DEVICE_CATS:
+            dev_ops.append((t0, t0 + dur, name))
+        elif cat == "user_annotation":
+            if name.startswith("ProfilerStep"):
+                steps.append(dur)
+            else:
+                spans.setdefault(name, []).append((t0, t0 + dur))
+        elif cat == "gpu_user_annotation":
+            extents[name] = extents.get(name, 0.0) + dur
+    n = max(len(steps), 1)
+    wall = sum(steps) / 1e6
+    busy = _union([(a, b) for a, b, _ in dev_ops])
+    busy_s = sum(b - a for a, b in busy) / 1e6
+    syncs = {k[len(telemetry.SYNC_PREFIX):]: v for k, v in spans.items()
+             if k.startswith(telemetry.SYNC_PREFIX)}
+    n_syncs = sum(len(v) for v in syncs.values())
+    head = f"{n} steps: {wall / n:.3f} s wall a step, "
+    if on_device and wall > 0:
+        after = idle_after_syncs(busy, [b for v in syncs.values() for _, b in v]) / 1e6
+        head += (f"device busy {busy_s / n:.3f} s a step, idle {100 * (1 - busy_s / wall):.1f}%, "
+                 f"idle after a host sync {100 * after / wall:.1f}%")
+    else:
+        head += "no device (a CPU run)"
+    lines = [head, f"host syncs: {n_syncs / n:g} a step"]
+    for site, iv in sorted(syncs.items(), key=lambda kv: -len(kv[1]))[:10]:
+        lines.append(f"host sync {site}: {len(iv) / n:g} a step")
+    for name, iv in sorted(spans.items(), key=lambda kv: -sum(b - a for a, b in kv[1])):
+        if name.startswith(telemetry.SYNC_PREFIX):
+            continue
+        lines.append(f"span {name}: {len(iv) / n:g} calls, host "
+                     f"{sum(b - a for a, b in iv) / 1e6 / n:.3f} s, device timeline "
+                     f"{extents.get(name, 0.0) / 1e6 / n:.3f} s a step")
+    by_kernel = {}
+    for a, b, name in dev_ops:
+        c, t = by_kernel.get(name, (0, 0.0))
+        by_kernel[name] = (c + 1, t + b - a)
+    for name, (c, t) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]:
+        lines.append(f"kernel {name[:90]}: {c / n:g} launches, {t / 1e6 / n:.3f} s a step")
+    return lines
 
 
 class StepProfiler:
     """torch.profiler over training steps: the first step warms up and is not
     recorded, the next PROFILE_STEPS are. Then it writes `trace.json` (chrome
-    trace) and `summary.txt` into out_dir and prints the summary, a step's
-    average of: the wall time (ProfilerStep, which ends in the step's
-    synchronisation), the device's busy time (kernels, copies, sets) and idle
-    share, each span's host time and extent on the device timeline, and the
-    kernels by device time."""
+    trace) and `summary.txt` into out_dir and prints the summary
+    (`profile_summary`), a step's average of: the wall time (ProfilerStep,
+    which ends in the step's synchronisation), the device's busy time (the
+    union of its kernels, copies and sets), its idle share and the part of
+    it in gaps after a host sync, the host syncs by site (the ten most
+    frequent), each span's host time and extent on the device timeline, and
+    the kernels by device time."""
 
     def __init__(self, out_dir: str, device: torch.device):
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -272,28 +352,11 @@ class StepProfiler:
 
     def _write(self, prof) -> None:
         os.makedirs(self.out_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(self.out_dir, "trace.json"))
-        cpu, gpu = {}, {}  # key -> event; a span has a host and a device-timeline event
-        for e in prof.key_averages():
-            (gpu if e.device_type == torch.autograd.DeviceType.CUDA else cpu)[e.key] = e
-        steps = [e for k, e in cpu.items() if k.startswith("ProfilerStep")]
-        n = max(sum(e.count for e in steps), 1)
-        wall = sum(e.cpu_time_total for e in steps) / 1e6
-        # device work: kernels, copies and sets, not the annotations of the spans
-        kernels = [e for k, e in gpu.items() if k not in SPANS and not k.startswith("ProfilerStep")]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e6
-        lines = [f"{n} steps: {wall / n:.3f} s wall a step, " + (
-            f"device busy {busy / n:.3f} s a step, idle {100 * (1 - busy / wall):.1f}%"
-            if self.on_device else "no device (a CPU run)")]
-        for name in SPANS:
-            if name in cpu:
-                dev = gpu[name].device_time_total / 1e6 / n if name in gpu else 0.0
-                lines.append(f"span {name}: {cpu[name].count / n:g} calls, host "
-                             f"{cpu[name].cpu_time_total / 1e6 / n:.3f} s, device timeline "
-                             f"{dev:.3f} s a step")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-            lines.append(f"kernel {e.key[:90]}: {e.count / n:g} launches, "
-                         f"{e.self_device_time_total / 1e6 / n:.3f} s a step")
+        path = os.path.join(self.out_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        lines = profile_summary(events, self.on_device)
         with open(os.path.join(self.out_dir, "summary.txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
         for line in lines:
@@ -529,17 +592,18 @@ class IDRTrainRunner:
     def _device_inputs(self, model_input):
         """The batch on the device; with --train_cameras it has no pose (the
         step gathers it from pose_vecs by `pose_indices`)."""
-        dev = self.device
-        out = {
-            "uv": torch.as_tensor(np.asarray(model_input["uv"], np.float32), device=dev),
-            "object_mask": torch.as_tensor(np.asarray(model_input["object_mask"]), device=dev),
-            "intrinsics": torch.as_tensor(np.asarray(model_input["intrinsics"], np.float32),
-                                          device=dev),
-        }
+        out = {"uv": self._upload(model_input["uv"], np.float32),
+               "object_mask": self._upload(model_input["object_mask"]),
+               "intrinsics": self._upload(model_input["intrinsics"], np.float32)}
         if "pose" in model_input:
-            out["pose"] = torch.as_tensor(np.asarray(model_input["pose"], np.float32),
-                                          device=dev)
+            out["pose"] = self._upload(model_input["pose"], np.float32)
         return out
+
+    def _upload(self, x, dtype=None) -> torch.Tensor:
+        """x on the device: a copy from pageable host memory, which waits
+        for the device's queue."""
+        with host_sync("inputs.upload"):
+            return torch.as_tensor(np.asarray(x, dtype), device=self.device)
 
     def _append_paired_view(self, batch, gt, indices):
         """Cross-view pairing for the view-diff loss: trace the batch's pixels
@@ -583,19 +647,21 @@ class IDRTrainRunner:
             batch["pose"] = self.pose_vecs[batch.pop("pose_indices")]
         for group in optimizers:
             group.zero_grad()
-        with record_function("train.forward"):
+        with span("train.forward"):
             out = self.model.forward_with_uv(
                 batch, self.gen, training=True, freeze_geo=self.freeze_geo,
                 fake_roughness=fake_r, fake_specular=fake_s,
                 secondary_limit=self.secondary_batch_size if distil else 0, remat=self.remat,
                 all_reduce=self.all_reduce)
-        with record_function("train.loss"):
+        with span("train.loss"):
             ld = self.loss(out, gt, alpha=alpha, all_reduce=self.all_reduce)
-        if not np.isfinite(float(ld["loss"].detach())):
+        with host_sync("loss.finite"):
+            finite = np.isfinite(float(ld["loss"].detach()))
+        if not finite:
             return ld, out, False
-        with record_function("train.backward"):
+        with span("train.backward"):
             ld["loss"].backward()
-        with record_function("train.update"):
+        with span("train.update"):
             for group in optimizers:
                 spmd.all_reduce_grads(group.params)
                 group.step()
@@ -620,7 +686,7 @@ class IDRTrainRunner:
             batch = spmd.shard_batch(batch)
         for group in self.optimizers.values():
             group.zero_grad()
-        with record_function("train.secondary"):
+        with span("train.secondary"):
             loss = distillation_loss(self.model, batch, self.gen, freeze_geo=self.freeze_geo,
                                      fake_roughness=fake_r, fake_specular=fake_s, valid=valid,
                                      all_reduce=self.all_reduce)
@@ -629,12 +695,15 @@ class IDRTrainRunner:
                 spmd.all_reduce_grads(group.params)
                 group.step()
         if self.is_main and self.cur_iter % 50 == 0:
-            print(f"\tsecondary_num={K}/{n_hit}, secondary_loss = {float(loss.detach()):.6f}")
+            with host_sync("distil.log"):
+                loss = float(loss.detach())
+            print(f"\tsecondary_num={K}/{n_hit}, secondary_loss = {loss:.6f}")
         return K
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with host_sync("step_end"):
+                torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def run(self):
@@ -670,17 +739,17 @@ class IDRTrainRunner:
                                                              1) == 0:
                     self.vis("test", self.cur_iter)
 
+                syncs = telemetry.sync_total()
                 indices, model_input, ground_truth = self.train_dataset.collate(
                     [self.train_dataset[int(i)] for i in img_ids])
                 batch = self._device_inputs(model_input)
-                gt = {"rgb": torch.as_tensor(np.asarray(ground_truth["rgb"], np.float32),
-                                             device=self.device)}
+                gt = {"rgb": self._upload(ground_truth["rgb"], np.float32)}
                 if self.train_cameras:
-                    batch["pose_indices"] = torch.as_tensor(indices, device=self.device)
+                    batch["pose_indices"] = self._upload(indices)
                 pair_seconds = 0.0
                 if self.loss.view_diff_weight > 0:
                     t0 = time.perf_counter()
-                    with record_function("train.pairing"):
+                    with span("train.pairing"):
                         batch, gt = self._append_paired_view(batch, gt, indices)
                     self._sync()
                     pair_seconds = time.perf_counter() - t0
@@ -709,11 +778,14 @@ class IDRTrainRunner:
                     self._sync()
                     sec_seconds = time.perf_counter() - t1
                 del out
+                with host_sync("stats.loss"):
+                    loss, view_diff_loss = torch.stack(
+                        [loss_dict["loss"].detach(), loss_dict["view_diff_loss"].detach()]).tolist()
                 self.step_stats.append(dict(
-                    iter=self.cur_iter, seconds=seconds, rays=rays,
-                    loss=float(loss_dict["loss"].detach()), secondary_seconds=sec_seconds,
-                    secondary_points=n_distilled, pairing_seconds=pair_seconds,
-                    view_diff_loss=float(loss_dict["view_diff_loss"].detach())))
+                    iter=self.cur_iter, seconds=seconds, rays=rays, loss=loss,
+                    secondary_seconds=sec_seconds, secondary_points=n_distilled,
+                    pairing_seconds=pair_seconds, view_diff_loss=view_diff_loss,
+                    host_syncs=telemetry.sync_total() - syncs))
                 self.cur_iter += 1
                 if prof is not None:
                     prof.step()
@@ -724,7 +796,9 @@ class IDRTrainRunner:
         if not self.is_main:
             return
         it = self.cur_iter
-        vals = {k: float(v.detach()) for k, v in loss_dict.items()}
+        with host_sync("log.scalars"):
+            vals = dict(zip(loss_dict, torch.stack(
+                [v.detach() for v in loss_dict.values()]).tolist()))
         print(f"{self.expname} [{epoch}] ({it}): loss = {vals['loss']:.6f}, "
               f"idr_rgb = {vals['idr_rgb_loss']:.6f}, sg_rgb = {vals['sg_rgb_loss']:.6f}, "
               f"eikonal = {vals['eikonal_loss']:.6f}, mask = {vals['mask_loss']:.6f}, "

@@ -488,3 +488,167 @@ def test_two_gloo_ranks_on_one_card_step_as_one_process(tmp_path):
         assert got["distilled"]["K"] == one["distilled"]["K"] > 0
         for k in ("points", "ray_dirs"):
             np.testing.assert_allclose(got["distilled"][k], one["distilled"][k], rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# host syncs: every sync of the port's hot path lies in a telemetry.host_sync site
+# ---------------------------------------------------------------------------
+
+def _host_sync_blocks():
+    """{source file: [(first line, last line, site)]} of every `with
+    host_sync("<site>")` block in nefii_tpu_torch."""
+    import ast
+    import os
+
+    import nefii_tpu_torch
+
+    def site(expr):
+        f = getattr(expr, "func", None)
+        if (isinstance(f, ast.Name) and f.id == "host_sync") or (
+                isinstance(f, ast.Attribute) and f.attr == "host_sync"):
+            return expr.args[0].value
+        return None
+
+    blocks = {}
+    root = os.path.dirname(os.path.abspath(nefii_tpu_torch.__file__))
+    for d, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(d, name)
+                with open(path) as f:
+                    tree = ast.parse(f.read())
+                for node in ast.walk(tree):
+                    if isinstance(node, ast.With):
+                        for item in node.items:
+                            if site(item.context_expr):
+                                blocks.setdefault(path, []).append(
+                                    (node.lineno, node.end_lineno, site(item.context_expr)))
+    return root, blocks
+
+
+def _sync_warnings(fn):
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn") -> the Python
+    stack of each synchronising call it made."""
+    import traceback
+    import warnings
+
+    stacks = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stacks.append(traceback.extract_stack()[:-1])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return stacks
+
+
+def _check_sync_sites(fn, label):
+    """Every sync warning raised through nefii_tpu_torch comes from inside a
+    host_sync block, and each site raises as many as its counter adds. The
+    explicit synchronisations (`step_end`, `view_end`) may raise none:
+    whether torch.cuda.synchronize warns depends on the PyTorch version."""
+    import os
+
+    from nefii_tpu_torch.utils import telemetry
+
+    root, blocks = _host_sync_blocks()
+    before = telemetry.sync_counts()
+    stacks = _sync_warnings(fn)
+    after = telemetry.sync_counts()
+    delta = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+    warned, outside = {}, {}
+    for st in stacks:
+        frames = [f for f in st if os.path.abspath(f.filename).startswith(root + os.sep)]
+        if not frames:
+            continue
+        inner = [(b - a, site) for f in frames
+                 for a, b, site in blocks.get(os.path.abspath(f.filename), ()) if a <= f.lineno <= b]
+        if inner:
+            site = min(inner)[1]
+            warned[site] = warned.get(site, 0) + 1
+        else:
+            key = f"{os.path.relpath(frames[-1].filename, root)}:{frames[-1].lineno}"
+            outside[key] = outside.get(key, 0) + 1
+    print(f"[host syncs] {label}: {sum(warned.values()) + sum(outside.values())} sync warnings "
+          f"through the port, counters {sum(delta.values())}: {dict(sorted(delta.items()))}; "
+          f"warnings by site {dict(sorted(warned.items()))}; outside a site: {outside}",
+          flush=True)
+    assert not outside, f"{label}: syncs outside a host_sync site: {outside}"
+    explicit = ("step_end", "view_end")
+    for site in set(delta) | set(warned):
+        n = warned.get(site, 0)
+        assert n == delta.get(site, 0) or (site in explicit and n == 0), (label, site, n, delta)
+
+
+@pytest.mark.parametrize("cell", ["nefii", "neus", "neus_k3"])
+def test_every_sync_of_a_training_iteration_and_a_render_chunk_is_a_site(cell, tmp_path):
+    """One distillation iteration of each training cell's conf at its size
+    (2048 px x 64 rays, 1024 hits distilled), after one that warms up, the
+    NeuS one also through K3 (`use_fused_trace`), and for the flagship one
+    1024-px render chunk at 256 rays a pixel."""
+    import os
+
+    import numpy as np
+
+    from nefii_tpu_torch.config import ConfigFactory
+    from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
+    from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
+    from nefii_tpu_torch.parallel import spmd
+    from nefii_tpu_torch.scripts.render import OUTPUT_KEYS
+    from nefii_tpu_torch.training.trainer import IDRTrainRunner
+    from nefii_tpu_torch.utils import general as utils
+
+    _card()
+    name, level, gamma, wo_mask = {"nefii": ("conf.conf", 18, 1.0, False),
+                                   "neus": ("conf_neus.conf", 15, 2.2, True),
+                                   "neus_k3": ("conf_neus.conf", 15, 2.2, True)}[cell]
+    conf = ConfigFactory.parse_file(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "confs", name))
+    conf.put("model.use_fused_trace", cell.endswith("_k3"))
+    scene = write_sphere_scene(str(tmp_path / "scene"), 2, 512)
+    runner = IDRTrainRunner(conf=conf, data_split_dir=scene, freeze_geometry=True,
+                            exps_folder_name=str(tmp_path / "exps"), roughness_warmup=5000,
+                            secondary_train_interval=10, secondary_batch_size=1024,
+                            memory_capacity_level=level, gamma=gamma, wo_mask=wo_mask,
+                            device="cuda")
+    runner.cur_iter = 5000
+    runner._sample_pixels(0)
+    distilled = []
+
+    def iteration():
+        _, model_input, ground_truth = runner.train_dataset.collate([runner.train_dataset[0]])
+        batch = runner._device_inputs(model_input)
+        gt = {"rgb": runner._upload(ground_truth["rgb"], np.float32)}
+        _, out, finite = runner.train_step(batch, gt, False, False, runner._alpha(), True)
+        assert finite
+        runner._sync()
+        distilled.append(runner._train_with_secondary(out, False, False))
+        runner._sync()
+
+    iteration()
+    _check_sync_sites(iteration, f"{cell}.train")
+    print(f"[host syncs] {cell}.train: {distilled} hits distilled", flush=True)
+    if cell != "nefii":
+        return
+    ds = SceneDataset(1.0, scene, False)
+    ds.change_sampling_rays(256, np.random.default_rng(0))
+    idx, mi, gt = ds[0]
+    _, mi, _ = ds.collate([(idx, mi, gt)])
+    chunks = utils.split_input(mi, ds.total_pixels, 1024)
+    chunk = dict(chunks[len(chunks) // 2])  # the middle rows: the sphere fills them
+    chunk.pop("__valid__")
+    batch = {k: torch.as_tensor(np.asarray(v), device="cuda") for k, v in chunk.items()}
+    batch["uv"] = batch["uv"].float()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = runner.model.eval()
+    with torch.no_grad():
+        spmd.eval_forward(model, batch, gen, OUTPUT_KEYS)
+        _check_sync_sites(lambda: spmd.eval_forward(model, batch, gen, OUTPUT_KEYS),
+                          "nefii.render256 chunk")

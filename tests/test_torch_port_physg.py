@@ -465,6 +465,8 @@ def test_exp_runner_trains_physg_with_live_geometry(physg_trained):
     runner, _, _ = physg_trained
     assert [s["iter"] for s in runner.step_stats] == [0, 1]
     assert all(np.isfinite(s["loss"]) for s in runner.step_stats)
+    # the uploads, the tracer's reads, the loss's check: counted on the CPU too
+    assert all(s["host_syncs"] > 10 for s in runner.step_stats), runner.step_stats
     assert runner.model.render_type == "sg" and not runner.freeze_geo
     before = IDRNetwork.from_conf(parse_string(PHYSG_TRAIN).get_config("model"), seed=0)
     moved = {net: any(not torch.equal(p.detach(), q.detach()) for (n, p), q in

@@ -80,6 +80,8 @@ def test_render_cli_writes_finite_outputs(tmp_path):
         assert png.shape == (8, 8 * 6, 3)
         s = runner.stats[i]
         assert 0 < s["hit_fraction"] < 1 and s["sdf_evals"] > 0 and s["rays"] == 8 * 8 * 4
+        # four 16-px chunks: each uploads 4 inputs, fetches the outputs and traces
+        assert s["host_syncs"] > 4 * (4 + len(render.OUTPUT_KEYS))
     env = exr.read(str(out_dir / "envmap.exr"))
     assert env.shape[:2] == (256, 512) and np.isfinite(env).all() and env.max() > 0
     # the loaded weights are the JAX checkpoint's
@@ -101,6 +103,7 @@ def test_profile_render_script_profiles_three_views(tmp_path):
     assert all(0 < h < 1 for h in summary["hit_fraction"])
     text = (tmp_path / "prof" / "summary.txt").read_text()
     assert text.startswith("3 steps:") and "span primary_trace" in text
+    assert "\nhost syncs: " in text and "\nhost sync tracer.gather: " in text
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
 
 

@@ -681,6 +681,8 @@ def test_profile_script_profiles_three_steps(tmp_path):
                                   "--device", "cpu"])
     assert summary["use_fused_trace"] and len(summary["s_per_step"]) == 3
     assert summary["rays_per_step"] == 64 * 2
-    assert (tmp_path / "prof" / "summary.txt").read_text().startswith("3 steps:")
+    text = (tmp_path / "prof" / "summary.txt").read_text()
+    assert text.startswith("3 steps:") and "\nhost syncs: " in text
+    assert "\nhost sync inputs.upload: 5 a step\n" in text  # uv, masks, K, pose, rgb
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
     assert all(n == 0 for n in ft.LAUNCHES.values())  # the CPU runs the plain versions
