@@ -335,7 +335,7 @@ def test_lpips_export_matches_jax(tmp_path):
     torch.save(_random_lpips_torch_state(np.random.RandomState(7)), str(src))
     r = subprocess.run([sys.executable, "-m", "nefii_tpu_torch.utils.lpips",
                         "--export-from-torch", str(tmp_path / "port.npz"), str(src)],
-                       capture_output=True, text=True, cwd=ROOT)
+                       capture_output=True, text=True, cwd=ROOT, timeout=30)
     assert r.returncode == 0, r.stderr
     assert lpips_jax._export_main(["--export-from-torch", str(tmp_path / "jax.npz"),
                                    str(src)]) == 0

@@ -53,7 +53,7 @@ def test_every_script_is_shipped():
 @pytest.mark.parametrize("script", SCRIPTS)
 def test_script_parses(script):
     r = subprocess.run(["bash", "-n", os.path.join(WORKFLOWS, script)], capture_output=True,
-                       text=True)
+                       text=True, timeout=10)
     assert r.returncode == 0, r.stderr
 
 
