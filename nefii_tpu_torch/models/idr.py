@@ -419,17 +419,18 @@ class IDRNetwork(nn.Module):
                 sdf, _, grad = imp.sdf_feature_grad(p, value_only=False)
                 return sdf[n_eik:, None], grad
 
-            # two regions, each recomputed on its own in the backward under
-            # remat: one forward of the eikonal and traced points gives the
-            # attached sdf and the eikonal gradients
-            sdf_output, grad_theta = region(geometry, torch.cat([eik_pts.to(points), points]))
-            # IDR eq. 3 at the shaded rays: the traced points' values, with the
-            # implicit net's gradient as a value
-            surface_grad = grad_theta[n_eik:][sel].detach()
-            surface_output = sdf_output[sel]
-            diff_points = sample_network(surface_output, surface_output.detach(), surface_grad,
-                                         trace.dists[sel, None], cam_flat[sel],
-                                         ray_dirs_flat[sel])
+            with span("live_geometry"):
+                # two regions, each recomputed on its own in the backward under
+                # remat: one forward of the eikonal and traced points gives the
+                # attached sdf and the eikonal gradients
+                sdf_output, grad_theta = region(geometry, torch.cat([eik_pts.to(points), points]))
+                # IDR eq. 3 at the shaded rays: the traced points' values, with
+                # the implicit net's gradient as a value
+                surface_grad = grad_theta[n_eik:][sel].detach()
+                surface_output = sdf_output[sel]
+                diff_points = sample_network(surface_output, surface_output.detach(),
+                                             surface_grad, trace.dists[sel, None], cam_flat[sel],
+                                             ray_dirs_flat[sel])
             ret = region(shade, diff_points, -ray_dirs_flat[sel])
         else:
             surface_mask = network_object_mask
@@ -485,6 +486,10 @@ class IDRNetwork(nn.Module):
         if training:
             output["sdf_output"] = sdf_output
             output["grad_theta"] = grad_theta
+            # host-side sizes: the points through the live geometry (eikonal
+            # and traced) and the rays shaded at IDR eq. 3's points; 0 frozen
+            output["live_points"] = n_eik + N if live else 0
+            output["shaded_points"] = sel.numel() if live else 0
             if secondary_limit > 0 and "secondary_mask" in ret:
                 # the pool is values in both modes: K2 when use_fused_sdf
                 pool_pts, pool_view, pool_sel = points, view_dirs, sel
@@ -636,9 +641,10 @@ class IDRNetwork(nn.Module):
                  fake_specular=fake_specular)
         spec = self._render_spec()
         if spec is None:
-            sg_ret = render_with_sg(mat["sg_lgtSGs"], mat["sg_specular_reflectance"],
-                                    mat["sg_roughness"], mat["sg_diffuse_albedo"], normals,
-                                    view_dirs, blending_weights=mat["sg_blending_weights"])
+            with span("sg_render"):
+                sg_ret = render_with_sg(mat["sg_lgtSGs"], mat["sg_specular_reflectance"],
+                                        mat["sg_roughness"], mat["sg_diffuse_albedo"], normals,
+                                        view_dirs, blending_weights=mat["sg_blending_weights"])
             sg_ret["n_sdf_evals"] = 0
         else:
             R = multi_ray_R

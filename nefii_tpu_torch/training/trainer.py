@@ -492,7 +492,9 @@ class IDRTrainRunner:
             spmd.rank_seed(self.seed + 1, self.rank))
         # per training step: iteration, seconds, rays, loss, the seconds and
         # distilled hits of its secondary step (0 when none ran), the
-        # view-diff pairing's seconds (0 without it) and its loss term
+        # view-diff pairing's seconds (0 without it) and its loss term, the
+        # host syncs, and the points through the live geometry and the rays
+        # shaded at IDR eq. 3's points (0 with frozen geometry)
         self.step_stats: List[Dict] = []
 
     def _write_run_dir(self, conf, is_continue: bool) -> None:
@@ -777,6 +779,7 @@ class IDRTrainRunner:
                     n_distilled = self._train_with_secondary(out, fake_r, fake_s)
                     self._sync()
                     sec_seconds = time.perf_counter() - t1
+                live_points, shaded_points = out["live_points"], out["shaded_points"]
                 del out
                 with host_sync("stats.loss"):
                     loss, view_diff_loss = torch.stack(
@@ -785,7 +788,8 @@ class IDRTrainRunner:
                     iter=self.cur_iter, seconds=seconds, rays=rays, loss=loss,
                     secondary_seconds=sec_seconds, secondary_points=n_distilled,
                     pairing_seconds=pair_seconds, view_diff_loss=view_diff_loss,
-                    host_syncs=telemetry.sync_total() - syncs))
+                    host_syncs=telemetry.sync_total() - syncs, live_points=live_points,
+                    shaded_points=shaded_points))
                 self.cur_iter += 1
                 if prof is not None:
                     prof.step()
