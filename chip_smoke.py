@@ -353,7 +353,7 @@ def _check_k1_tc(tag, fw, pts):
     for n in RAGGED + (N_POINTS,):
         x = fm.embed_padded(pts[:n], fw)
         h = fm.fused_hidden(x, fw)
-        sdf = fm.fused_sdf_value(x, fw)
+        sdf = fm.fused_sdf_value(pts[:n], fw)  # the sdf entry encodes the points itself
         torch.cuda.synchronize()
         eh, sh = _check_bf16(f"[{tag}] K1 bf16 (tensor cores, width {fw.width}) at N={n}", h,
                              fm.fused_hidden_plain(x, fw))
@@ -424,7 +424,7 @@ def phase_kernels():
         errs_h, errs_s = _check_k1_tc("kernels", fw, pts)
         x = fm.embed_padded(pts, fw)
         ms_h = _time(lambda: fm.fused_hidden(x, fw), reps=10)
-        ms_s = _time(lambda: fm.fused_sdf_value(x, fw), reps=10)
+        ms_s = _time(lambda: fm.fused_sdf_value(pts, fw), reps=10)
         plain_h = _time(lambda: fm.fused_hidden_plain(x, fw))
         plain_s = _time(lambda: fm.fused_sdf_value_plain(x, fw))
         flops = N_POINTS * hidden_flops
@@ -433,8 +433,7 @@ def phase_kernels():
         l2_bytes = -(-N_POINTS // fm.TC_BLOCK_ROWS) * fw.tc.numel() * 2
         weights = fw.tc.numel() * 2
         bound_h = _bound(flops, N_POINTS * (fw.emb_dim + fw.real_width) * 2 + weights, "bf16")
-        bound_s = _bound(flops + N_POINTS * col_flops, N_POINTS * (fw.emb_dim * 2 + 4) + weights,
-                         "bf16")
+        bound_s = _bound(flops + N_POINTS * col_flops, N_POINTS * (3 * 4 + 4) + weights, "bf16")
         print(f"[kernels] K1 bf16 (tensor cores) N={N_POINTS}: hidden {ms_h:.3f} ms "
               f"({flops / ms_h / 1e9:.1f} TFLOP/s), fused_sdf_value {ms_s:.3f} ms "
               f"({flops / ms_s / 1e9:.1f} TFLOP/s); plain {plain_h:.3f} / {plain_s:.3f} ms; "
@@ -1836,7 +1835,7 @@ def _check_k1_fp32(tag, fw, pts):
     for n in RAGGED + (NEAR_POINTS, N_POINTS):
         x = fm.embed_padded(pts[:n], fw)
         h = fm.fused_hidden(x, fw)
-        sdf = fm.fused_sdf_value(x, fw)
+        sdf = fm.fused_sdf_value(pts[:n], fw)  # the sdf entry encodes the points itself
         torch.cuda.synchronize()
         err_h = (h - fm.fused_hidden_plain(x, fw)).abs().max().item()
         err_s = (sdf - fm.fused_sdf_value_plain(x, fw)).abs().max().item()
@@ -1871,18 +1870,20 @@ def _time_k1_fp32(tag, fw, pts, hidden_flops, col_flops, errs_h, errs_s, plain=T
         return fm.sdf_column(h, fw.w_last[:, 0], fw.b_last[0])
 
     out = []
-    for name, fn, plain_fn, errs, out_bytes, flops in (
-            ("hidden", fm.fused_hidden, fm.fused_hidden_plain, errs_h, 4 * fw.real_width,
-             hidden_flops),
-            ("sdf", fm.fused_sdf_value, fm.fused_sdf_value_plain, errs_s, 4,
+    # the hidden entry reads the embedded points, the sdf entry the points
+    for name, fn, plain_fn, errs, in_bytes, out_bytes, flops in (
+            ("hidden", fm.fused_hidden, fm.fused_hidden_plain, errs_h, 4 * fw.emb_dim,
+             4 * fw.real_width, hidden_flops),
+            ("sdf", fm.fused_sdf_value, fm.fused_sdf_value_plain, errs_s, 3 * 4, 4,
              hidden_flops + col_flops)):
         fig = dict(max_abs_err=max(errs), ragged=list(RAGGED))
         for n, key in ((N_POINTS, ""), (NEAR_POINTS, "near_")):
             x = fm.embed_padded(pts[:n], fw)
-            fig[key + "ms"] = _time(lambda: fn(x, fw), reps=5 if n == N_POINTS else 20)
+            inp = pts[:n] if name == "sdf" else x
+            fig[key + "ms"] = _time(lambda: fn(inp, fw), reps=5 if n == N_POINTS else 20)
             if plain:
                 fig[key + "plain_ms"] = _time(lambda: plain_fn(x, fw))
-            b = _bound(n * flops, n * (fw.emb_dim * 4 + out_bytes) + weights, "fp32")
+            b = _bound(n * flops, n * (in_bytes + out_bytes) + weights, "fp32")
             fig.update({key + k: v for k, v in b.items()})
             if name == "sdf":
                 fig[key + "two_step_ms"] = _time(lambda: two_step(x),
@@ -1967,9 +1968,9 @@ def phase_neus(card):
             # read and each output written once
             run = {
                 "fused_sdf_value": dict(
-                    max_abs_err=max(errs_s), ms=_time(lambda: fm.fused_sdf_value(x16, f16), 10),
+                    max_abs_err=max(errs_s), ms=_time(lambda: fm.fused_sdf_value(pts, f16), 10),
                     **_bound(N_POINTS * (hidden_flops + col_flops),
-                             N_POINTS * (f16.emb_dim * 2 + 4) + weights, "bf16")),
+                             N_POINTS * (3 * 4 + 4) + weights, "bf16")),
                 "fused_sdf_hidden_tc": dict(
                     max_abs_err=max(errs_h), ms=_time(lambda: fm.fused_hidden(x16, f16), 10),
                     **_bound(N_POINTS * hidden_flops,

@@ -9,14 +9,20 @@
 //   into split weights), h = softplus(100 z)/100. Four entries:
 //     nefii_sdf_hidden      fp32, on the FMA pipe (sdf_mlp_fma.cuh: operands
 //                           from shared memory, bulk-copy weight ring), h;
-//     nefii_sdf_value_fp32  the same kernel with an sdf epilogue: the sdf
-//                           column summed in fused_mlp.sdf_column's order,
-//                           so the [N, W] hidden state never reaches memory;
+//     nefii_sdf_value_fp32  the same kernel on points, which it encodes, with
+//                           an sdf epilogue: the sdf column summed in
+//                           fused_mlp.sdf_column's order, so the [N, W]
+//                           hidden state never reaches memory;
 //     nefii_sdf_hidden_tc   bf16 operands, fp32 accumulation, h rounded to
 //                           bf16 after every layer, on the tensor cores
 //                           (sdf_mlp_tc.cuh: wgmma, bulk-copy weight ring);
-//     nefii_sdf_value       the same tensor-core kernel with an sdf epilogue:
-//                           sdf = h . w_last[:, 0] + b_last[0] in fp32.
+//     nefii_sdf_value       the same tensor-core kernel on points, which it
+//                           encodes, with an sdf epilogue: sdf = h .
+//                           w_last[:, 0] + b_last[0] in fp32.
+//   The hidden entries take the embedded points [N][x_cols]; the sdf entries,
+//   which answer every SDF query of the tracers, take the points [N][3] fp32
+//   and compute the positional encoding in the prologue that fills their x
+//   tile (encode_rows, sdf_mlp.cuh), bit for bit fused_mlp.embed_padded.
 //   _kernel_fwd_bwd (fused_mlp.py:240), reached through
 //   build_fused_sdf_feature_grad: nefii_sdf_fwd_bwd, the same forward in
 //   fp32 accuracy, then the input-space backward seeded by the sdf column of
@@ -58,13 +64,20 @@ int launch_fma_w(const void* x, const void* wbuf, const Plan& plan, const void* 
   return (int)cudaGetLastError();
 }
 
+// the sdf entries' encoding: d_emb = 3 (1 + 2 multires) columns of x_cols
+bool set_d_emb(Plan* plan, int multires) {
+  if (multires < 0 || 3 * (1 + 2 * multires) > plan->x_cols) return false;
+  plan->d_emb = 3 * (1 + 2 * multires);
+  return true;
+}
+
 template <bool SDF>
 int launch_fma(const void* x, const void* wbuf, const long long* desc, int n_layers, int x_cols,
-               int width, const void* wlast, float b_last, int sdf_cols, void* out_h,
-               void* out_sdf, long long n_rows, int grid, void* stream) {
+               int width, int multires, const void* wlast, float b_last, int sdf_cols,
+               void* out_h, void* out_sdf, long long n_rows, int grid, void* stream) {
   Plan plan;
   if (!make_plan(desc, n_layers, x_cols, &plan, width) || x_cols > FMA_MAX_XC || grid <= 0 ||
-      n_rows <= 0)
+      n_rows <= 0 || (SDF && !set_d_emb(&plan, multires)))
     return (int)cudaErrorInvalidValue;
   if (SDF && (sdf_cols < 1 || sdf_cols > width || (sdf_cols & (sdf_cols - 1))))
     return (int)cudaErrorInvalidValue;
@@ -81,12 +94,14 @@ template <int W, bool SDF>
 int launch_tc_w(const void* x, const void* tc, const void* wbuf, const Plan& plan,
                 const void* wlast, float b_last, void* out_h, void* out_sdf, long long n_rows,
                 int grid, void* stream) {
+  // x: the embedded points (the hidden entry) or the points (the sdf entry)
   using C = TcCfg<W>;
   cudaError_t e = cudaFuncSetAttribute(sdf_tc_kernel<W, SDF>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   sdf_tc_kernel<W, SDF><<<grid, TC_THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(tc),
+      SDF ? nullptr : static_cast<const __nv_bfloat16*>(x),
+      SDF ? static_cast<const float*>(x) : nullptr, static_cast<const __nv_bfloat16*>(tc),
       static_cast<const __nv_bfloat16*>(wbuf), plan, static_cast<const float*>(wlast), b_last,
       static_cast<__nv_bfloat16*>(out_h), static_cast<float*>(out_sdf), n_rows);
   return (int)cudaGetLastError();
@@ -94,11 +109,11 @@ int launch_tc_w(const void* x, const void* tc, const void* wbuf, const Plan& pla
 
 template <bool SDF>
 int launch_tc(const void* x, const void* tc, const void* wbuf, const long long* desc,
-              int n_layers, int x_cols, int width, const void* wlast, float b_last, void* out_h,
-              void* out_sdf, long long n_rows, int grid, void* stream) {
+              int n_layers, int x_cols, int width, int multires, const void* wlast, float b_last,
+              void* out_h, void* out_sdf, long long n_rows, int grid, void* stream) {
   Plan plan;
   if (!make_plan(desc, n_layers, x_cols, &plan, width) || x_cols > TC_BK || grid <= 0 ||
-      n_rows <= 0)
+      n_rows <= 0 || (SDF && !set_d_emb(&plan, multires)))
     return (int)cudaErrorInvalidValue;
   if (width == 512)
     return launch_tc_w<512, SDF>(x, tc, wbuf, plan, wlast, b_last, out_h, out_sdf, n_rows, grid,
@@ -157,19 +172,20 @@ int nefii_fused_mlp_config(int* widths, int* block_rows, int* threads, int* tc_b
 int nefii_sdf_hidden(const void* x, const void* wbuf, const long long* desc, int n_layers,
                      int x_cols, int width, void* out, long long n_rows, int grid,
                      void* stream) {
-  return launch_fma<false>(x, wbuf, desc, n_layers, x_cols, width, nullptr, 0.0f, 1, out,
+  return launch_fma<false>(x, wbuf, desc, n_layers, x_cols, width, 0, nullptr, 0.0f, 1, out,
                            nullptr, n_rows, grid, stream);
 }
 
-// sdf[n_rows] fp32 = the sdf column of the same kernel's h against wlast
-// (`width` floats, zero padded), summed as fused_mlp.sdf_column sums it: the
-// products zero padded to sdf_cols (a power of two), pairwise halves, then
-// + b_last.
-int nefii_sdf_value_fp32(const void* x, const void* wbuf, const long long* desc, int n_layers,
-                         int x_cols, int width, const void* wlast, float b_last, int sdf_cols,
-                         void* sdf, long long n_rows, int grid, void* stream) {
-  return launch_fma<true>(x, wbuf, desc, n_layers, x_cols, width, wlast, b_last, sdf_cols,
-                          nullptr, sdf, n_rows, grid, stream);
+// sdf[n_rows] fp32 of the points pts[n_rows][3] fp32, encoded at `multires`
+// frequencies into x_cols columns: the sdf column of the same kernel's h
+// against wlast (`width` floats, zero padded), summed as fused_mlp.sdf_column
+// sums it: the products zero padded to sdf_cols (a power of two), pairwise
+// halves, then + b_last.
+int nefii_sdf_value_fp32(const void* pts, const void* wbuf, const long long* desc, int n_layers,
+                         int x_cols, int width, int multires, const void* wlast, float b_last,
+                         int sdf_cols, void* sdf, long long n_rows, int grid, void* stream) {
+  return launch_fma<true>(pts, wbuf, desc, n_layers, x_cols, width, multires, wlast, b_last,
+                          sdf_cols, nullptr, sdf, n_rows, grid, stream);
 }
 
 // out[n_rows][width] bf16 = hidden chain of x[n_rows][x_cols] bf16 on the
@@ -178,16 +194,18 @@ int nefii_sdf_value_fp32(const void* x, const void* wbuf, const long long* desc,
 int nefii_sdf_hidden_tc(const void* x, const void* tc, const void* wbuf, const long long* desc,
                         int n_layers, int x_cols, int width, void* out, long long n_rows,
                         int grid, void* stream) {
-  return launch_tc<false>(x, tc, wbuf, desc, n_layers, x_cols, width, nullptr, 0.0f, out,
+  return launch_tc<false>(x, tc, wbuf, desc, n_layers, x_cols, width, 0, nullptr, 0.0f, out,
                           nullptr, n_rows, grid, stream);
 }
 
-// sdf[n_rows] fp32 = (hidden chain of x) . wlast + b_last, the same kernel.
-int nefii_sdf_value(const void* x, const void* tc, const void* wbuf, const long long* desc,
-                    int n_layers, int x_cols, int width, const void* wlast, float b_last,
-                    void* sdf, long long n_rows, int grid, void* stream) {
-  return launch_tc<true>(x, tc, wbuf, desc, n_layers, x_cols, width, wlast, b_last, nullptr,
-                         sdf, n_rows, grid, stream);
+// sdf[n_rows] fp32 = (hidden chain of x) . wlast + b_last, the same kernel,
+// x the encoding (at `multires` frequencies, into x_cols columns) of the
+// points pts[n_rows][3] fp32.
+int nefii_sdf_value(const void* pts, const void* tc, const void* wbuf, const long long* desc,
+                    int n_layers, int x_cols, int width, int multires, const void* wlast,
+                    float b_last, void* sdf, long long n_rows, int grid, void* stream) {
+  return launch_tc<true>(pts, tc, wbuf, desc, n_layers, x_cols, width, multires, wlast, b_last,
+                         nullptr, sdf, n_rows, grid, stream);
 }
 
 // h_out[n_rows][width] (last hidden state) and dx_out[n_rows][x_cols]

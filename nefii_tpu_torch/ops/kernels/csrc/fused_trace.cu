@@ -51,7 +51,8 @@
 //     order, so camera rays stay coherent). A prefix sum over the warp gives
 //     each query its row; the slot lives in a per-block global scratch, so
 //     the ray logic holds no register of the consumers' hot loop.
-//   * the tile: the embedding of each row's point into the X tile (hi, lo),
+//   * the tile: the embedding of each row's point into the X tile (hi, lo;
+//     embed_value of sdf_mlp.cuh, the encoder of K1's sdf entries too),
 //     the forward chain (trace_gemm on K2's forward record layout, in fp16:
 //     trace_weights in fused_trace.py; a warpgroup's 64 x W/2 sums in fp32
 //     registers beside one 64x128 tensor-core partial), and the last layer's
@@ -270,22 +271,6 @@ __device__ __forceinline__ float4 point_at(const Slot& s, float t) {
   return make_float4(__fadd_rn(s.cam[0], __fmul_rn(t, s.dir[0])),
                      __fadd_rn(s.cam[1], __fmul_rn(t, s.dir[1])),
                      __fadd_rn(s.cam[2], __fmul_rn(t, s.dir[2])), 0.0f);
-}
-
-__device__ __forceinline__ float coord(const float4& p, int j) {
-  return j == 0 ? p.x : (j == 1 ? p.y : p.z);
-}
-
-// column c < d_emb of the positional encoding of p:
-// [p, sin(p), cos(p), sin(2p), cos(2p), ...], 3 columns each
-__device__ __forceinline__ float embed_value(const float4& p, int c) {
-  if (c < 3) return coord(p, c);
-  const int q = c - 3, k = q / 6;
-  int j = q % 6;
-  const bool use_cos = j >= 3;
-  if (use_cos) j -= 3;
-  const float a = __fmul_rn(coord(p, j), ldexpf(1.0f, k));
-  return use_cos ? cosf(a) : sinf(a);
 }
 
 // sum += A . B over n_slices k16 slices (rounded up to whole records, whose

@@ -63,6 +63,12 @@
 //     rounded (__fmul_rn, __fadd_rn: no contraction). A row's sdf is then
 //     sdf_column of the kernel's own h, bit for bit, whatever its batch; the
 //     [N, W] hidden state never reaches memory.
+//   * the SDF entry takes the points, [N][3] fp32, and encodes them into the
+//     x tile itself (encode_rows, sdf_mlp.cuh: embed_value, K3's encoder),
+//     the values fused_mlp.embed_padded gives bit for bit; the feature rows
+//     from d_emb on are zeroed once. The hidden entry, on no path, keeps the
+//     embedded input [N][x_cols]: the independent reference of the encoding
+//     on the card.
 
 #pragma once
 
@@ -181,8 +187,10 @@ __device__ __forceinline__ void fma_produce(uint32_t ring, uint32_t bars,
   }
 }
 
-// SDF = false: out_h[n_rows][W], the last hidden state.
-// SDF = true:  out_sdf[n_rows] = sdf_column(h[:, :real], wlast, b_last), the
+// SDF = false: x[n_rows][x_cols], the embedded points -> out_h[n_rows][W],
+//              the last hidden state.
+// SDF = true:  x = pts[n_rows][3], encoded here at plan.d_emb columns ->
+//              out_sdf[n_rows] = sdf_column(h[:, :real], wlast, b_last), the
 //              products zero padded to sdf_cols (a power of two <= W).
 // wbuf: the packed fp32 weights and biases (prepare_weights), plan: their
 // layers; wlast: the sdf column of the final linear, W floats, zero padded.
@@ -229,12 +237,22 @@ sdf_fma_kernel(const float* __restrict__ x, const float* __restrict__ wbuf,
   const int xc = plan.x_cols;
   Ring<FMA_STAGES> cur(bars);
   float acc[FMA_TM][FMA_TN];
+  if constexpr (SDF) {
+    // the encoding fills the feature rows below d_emb of every tile
+    for (int u = tid; u < BM * xc; u += FMA_CONSUMERS)
+      if (u / BM >= plan.d_emb) xs[fma_row<BM>(u / BM, u % BM)] = 0.0f;
+  }
 
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long base = tile * BM;
-    for (int u = tid; u < BM * xc; u += FMA_CONSUMERS) {
-      const int r = u / xc, c = u - r * xc;
-      xs[fma_row<BM>(c, r)] = base + r < n_rows ? x[(base + r) * xc + c] : 0.0f;
+    if constexpr (SDF) {
+      encode_rows<BM>(x + 3 * base, (int)min((long long)BM, n_rows - base), plan.d_emb, tid,
+                      FMA_CONSUMERS, [&](int r, int c, float v) { xs[fma_row<BM>(c, r)] = v; });
+    } else {
+      for (int u = tid; u < BM * xc; u += FMA_CONSUMERS) {
+        const int r = u / xc, c = u - r * xc;
+        xs[fma_row<BM>(c, r)] = base + r < n_rows ? x[(base + r) * xc + c] : 0.0f;
+      }
     }
     fma_sync();
 

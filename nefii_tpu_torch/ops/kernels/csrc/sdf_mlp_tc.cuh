@@ -35,6 +35,20 @@
 //     the 128-byte swizzled K-major layout that the descriptor names, as W/64
 //     [64][64] chunks; the 64 x 64 bf16 embedding tile (x, zero padded)
 //     beside it feeds layer 0 and the skip layer's x part.
+//   * the sdf entry takes the points, [N][3] fp32, and fills the embedding
+//     tile itself: each consumer thread of the tile encodes its share of the
+//     tile's rows (encode_rows, sdf_mlp.cuh: embed_value's arithmetic, the
+//     encoding K3 computes, rounded to bf16 as fused_mlp.embed_padded rounds
+//     it), so the tile holds what the embedded input held, bit for bit; the
+//     columns from d_emb on are zeroed once. The encoding sits on the
+//     critical path: at W = 512 between a tile's last epilogue and its next
+//     products, at W = 256 beside the other warpgroup's last products, which
+//     are shorter than an epilogue. So it waits on no load: each thread
+//     fetches its share of the next step's points (768 bytes a tile) into
+//     registers a whole step ahead and stages them in shared memory at the
+//     step's start; and a unit's six sinf/cosf run as independent chains (at
+//     multires 6, 18 a thread a tile at W = 256). The hidden entry, on no
+//     path, keeps the embedded input [N][x_cols] bf16.
 //   * one thread of a producer warpgroup (which gives its registers to the
 //     consumers with setmaxnreg) streams the weights through a ring of
 //     [W][64] chunks, 128 KB at either width (2 stages of 64 KB at 512, 4 of
@@ -85,7 +99,10 @@ struct TcCfg {
   static constexpr int ACT_OFF = RING_OFF + STAGES * CHUNK;
   static constexpr int X_OFF = ACT_OFF + TILES * ACT;
   static constexpr int RED_OFF = X_OFF + TILES * TC_TILE_BYTES;
-  static constexpr int BAR_OFF = RED_OFF + 2 * TC_BM * (int)sizeof(float);
+  static constexpr int PTS_OFF = RED_OFF + 2 * TC_BM * (int)sizeof(float);  // the sdf entry's
+  static constexpr int PTS = 3 * TC_BM;                   // floats of a tile's points
+  static constexpr int PTS_PER_THREAD = (PTS + TILE_THREADS - 1) / TILE_THREADS;
+  static constexpr int BAR_OFF = PTS_OFF + TILES * PTS * (int)sizeof(float);
   static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
   static_assert(SMEM <= 232448, "K1 needs more shared memory than a block may use");
 };
@@ -111,13 +128,16 @@ __device__ __forceinline__ void tile_sync(int t) {
     named_sync(2 + t, 128);
 }
 
-// SDF = false: out_h[n_rows][W] bf16, the last hidden state.
-// SDF = true:  out_sdf[n_rows] fp32 = h . wlast + b_last.
+// SDF = false: x[n_rows][x_cols] bf16, the embedded points ->
+//              out_h[n_rows][W] bf16, the last hidden state.
+// SDF = true:  pts[n_rows][3] fp32, encoded here at plan.d_emb columns ->
+//              out_sdf[n_rows] fp32 = h . wlast + b_last.
 // tc: the packed, swizzled [W][64] weight chunks of every layer in order
 // (h part, then x part); wbuf: the bf16 buffer the biases are read from.
 template <int W, bool SDF>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-sdf_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ tc,
+sdf_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ pts,
+              const __nv_bfloat16* __restrict__ tc,
               const __nv_bfloat16* __restrict__ wbuf, const __grid_constant__ Plan plan,
               const float* __restrict__ wlast, float b_last, __nv_bfloat16* __restrict__ out_h,
               float* __restrict__ out_sdf, long long n_rows) {
@@ -165,15 +185,49 @@ sdf_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restri
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
   Ring<C::STAGES> rg(bars);
+  // the sdf entry: this tile's points staged [64][3], and this thread's share
+  // of the next step's, fetched a step ahead
+  float* const pts_s = reinterpret_cast<float*>(sm + C::PTS_OFF) + t * C::PTS;
+  float pnext[C::PTS_PER_THREAD];
+  auto fetch = [&](long long step) {
+    const long long f0 = (step * C::TILES + t) * C::PTS;
+#pragma unroll
+    for (int i = 0; i < C::PTS_PER_THREAD; ++i) {
+      const int f = ttid + i * C::TILE_THREADS;
+      pnext[i] = (f < C::PTS && f0 + f < 3 * n_rows) ? __ldg(pts + f0 + f) : 0.0f;
+    }
+  };
+  if constexpr (SDF) {
+    // the encoding fills the columns below d_emb of every step's x tile
+    for (int u = ttid; u < TC_BM * TC_BK; u += C::TILE_THREADS)
+      if (u % TC_BK >= plan.d_emb)
+        *reinterpret_cast<__nv_bfloat16*>(xs_p + sw128(u / TC_BK, u % TC_BK)) =
+            __float2bfloat16_rn(0.0f);
+    fetch(blockIdx.x);
+  }
   for (long long step = blockIdx.x; step < n_steps; step += gridDim.x) {
     const long long row0 = (step * C::TILES + t) * TC_BM;
-    // x tile [64][64]: zero past x_cols and past the last row
-    for (int u = ttid; u < TC_BM * 8; u += C::TILE_THREADS) {
-      const int r = u / 8, g = u % 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (g * 8 < plan.x_cols && row0 + r < n_rows)
-        v = __ldg(reinterpret_cast<const uint4*>(x + (row0 + r) * plan.x_cols + g * 8));
-      *reinterpret_cast<uint4*>(xs_p + sw128(r, g * 8)) = v;
+    if constexpr (SDF) {
+#pragma unroll
+      for (int i = 0; i < C::PTS_PER_THREAD; ++i)
+        if (ttid + i * C::TILE_THREADS < C::PTS) pts_s[ttid + i * C::TILE_THREADS] = pnext[i];
+      tile_sync<W>(t);
+      if (step + gridDim.x < n_steps) fetch(step + gridDim.x);
+      // x tile [64][64]: the rows' points encoded, zero past the last row
+      encode_rows<TC_BM>(pts_s, (int)max(0LL, min((long long)TC_BM, n_rows - row0)), plan.d_emb,
+                         ttid, C::TILE_THREADS, [&](int r, int c, float v) {
+                           *reinterpret_cast<__nv_bfloat16*>(xs_p + sw128(r, c)) =
+                               __float2bfloat16_rn(v);
+                         });
+    } else {
+      // x tile [64][64]: zero past x_cols and past the last row
+      for (int u = ttid; u < TC_BM * 8; u += C::TILE_THREADS) {
+        const int r = u / 8, g = u % 8;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (g * 8 < plan.x_cols && row0 + r < n_rows)
+          v = __ldg(reinterpret_cast<const uint4*>(x + (row0 + r) * plan.x_cols + g * 8));
+        *reinterpret_cast<uint4*>(xs_p + sw128(r, g * 8)) = v;
+      }
     }
     fence_proxy_async();
     tile_sync<W>(t);

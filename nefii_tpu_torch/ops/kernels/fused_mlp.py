@@ -6,9 +6,12 @@ ctypes):
 
   * K1 replaces the Pallas `_kernel`: the value-only hidden chain of the SDF
     MLP, which answers every SDF query of the tracers (`build_fused_sdf`).
-    It has two entries in each dtype: `fused_hidden` returns h, and
-    `fused_sdf_value` reduces h against the sdf column of the final linear
-    in the kernel and returns sdf [N], which `build_fused_sdf` uses. In fp32
+    It has two entries in each dtype: `fused_hidden` takes the embedded
+    points and returns h; `fused_sdf_value` takes the points [N, 3], computes
+    their positional encoding in the kernel, in the prologue that fills its x
+    tile (bit for bit `embed_padded`), reduces h against the sdf column of
+    the final linear and returns sdf [N]: one launch a query of the tracers
+    (`build_fused_sdf`), with no embedding in memory. In fp32
     it runs on the FMA pipe (`csrc/sdf_mlp_fma.cuh`: both operands from
     shared memory, the weights through a bulk-copy ring), its sdf column
     summed in `sdf_column`'s order, so that a row's sdf is `sdf_column` of
@@ -40,8 +43,8 @@ launch and keeps them on the FusedWeights.
 `network_weights` keeps one FusedWeights a network, dtype and width while
 the parameters do not change, so the closures, built at every forward, pack
 a frozen geometry once. The final linear (outside `fused_sdf_value`'s sdf
-column) and the positional encoding's backward stay outside the kernels, as
-in the JAX package.
+column), K2's positional encoding and the encoding's backward stay outside
+the kernels, as in the JAX package.
 
 A wrapper given a CUDA tensor launches its kernel or raises; the plain
 version (`*_plain`) runs only for tensors on the CPU, and it is what the
@@ -439,9 +442,9 @@ def _lib() -> ctypes.CDLL:
         vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         pll = ctypes.POINTER(ctypes.c_longlong)
         lib.nefii_sdf_hidden.argtypes = [vp, vp, pll, i, i, i, vp, ll, i, vp]
-        lib.nefii_sdf_value_fp32.argtypes = [vp, vp, pll, i, i, i, vp, f, i, vp, ll, i, vp]
+        lib.nefii_sdf_value_fp32.argtypes = [vp, vp, pll, i, i, i, i, vp, f, i, vp, ll, i, vp]
         lib.nefii_sdf_hidden_tc.argtypes = [vp, vp, vp, pll, i, i, i, vp, ll, i, vp]
-        lib.nefii_sdf_value.argtypes = [vp, vp, vp, pll, i, i, i, vp, f, vp, ll, i, vp]
+        lib.nefii_sdf_value.argtypes = [vp, vp, vp, pll, i, i, i, i, vp, f, vp, ll, i, vp]
         lib.nefii_sdf_fwd_bwd.argtypes = [vp, vp, vp, pll, i, i, i, vp, vp, vp, vp, i, ll, i,
                                           vp]
         for fn in (lib.nefii_sdf_hidden, lib.nefii_sdf_value_fp32, lib.nefii_sdf_hidden_tc,
@@ -478,8 +481,20 @@ def tc_block_rows(width: int) -> int:
     return TC_BLOCK_ROWS * 512 // width
 
 
+def _check_points(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
+    """What an sdf entry takes on every device: points [N, d_in] fp32."""
+    if x.dim() != 2 or x.shape[1] != fw.d_in or x.dtype != torch.float32:
+        raise ValueError(f"{name}: input must be points [N, {fw.d_in}] float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+
+
 def _check_cuda(x: torch.Tensor, fw: FusedWeights, name: str,
-                widths=FMA_WIDTHS) -> None:
+                widths=FMA_WIDTHS, points: bool = False) -> None:
+    """What every kernel takes: the input on the weights' card, a compiled
+    width, both contiguous and aligned; the input the embedded points [N,
+    x_cols] in the weights' dtype, 16-byte aligned, or with `points` (the sdf
+    entries, _check_points) the points of three coordinates (the kernels
+    encode three), 4-byte aligned."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {x.device} are not supported")
     if fw.buf.device != x.device:
@@ -487,20 +502,23 @@ def _check_cuda(x: torch.Tensor, fw: FusedWeights, name: str,
     if fw.width not in widths:
         raise ValueError(f"{name}: the CUDA kernel takes hidden widths {widths}, "
                          f"this packing has {fw.width}")
-    if x.dim() != 2 or x.shape[1] != fw.x_cols:
+    if not points and (x.dim() != 2 or x.shape[1] != fw.x_cols):
         raise ValueError(f"{name}: input must be [N, {fw.x_cols}], got {tuple(x.shape)}")
-    if x.dtype != fw.dtype:
+    if not points and x.dtype != fw.dtype:
         raise ValueError(f"{name}: input is {x.dtype}, weights are {fw.dtype}")
+    if points and fw.d_in != 3:
+        raise ValueError(f"{name}: the kernels encode 3 coordinates, this network takes "
+                         f"{fw.d_in}")
     if not x.is_contiguous() or not fw.buf.is_contiguous():
         raise ValueError(f"{name}: input and weights must be contiguous")
-    if x.data_ptr() % 16 or fw.buf.data_ptr() % 16:
-        raise ValueError(f"{name}: input and weights must be 16-byte aligned")
+    if x.data_ptr() % (4 if points else 16) or fw.buf.data_ptr() % 16:
+        raise ValueError(f"{name}: input and weights must be aligned")
 
 
-def _check_fma(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
+def _check_fma(x: torch.Tensor, fw: FusedWeights, name: str, points: bool = False) -> None:
     """What the FMA K1 takes beyond _check_cuda: fp32 and an embedding of at
     most FMA_MAX_XC columns (its x tile)."""
-    _check_cuda(x, fw, name)
+    _check_cuda(x, fw, name, points=points)
     if fw.dtype != torch.float32:
         raise ValueError(f"{name}: dtype {fw.dtype} is not supported")
     if fw.x_cols > FMA_MAX_XC:
@@ -508,11 +526,11 @@ def _check_fma(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
                          f"columns, this network has {fw.x_cols}")
 
 
-def _check_tc(x: torch.Tensor, fw: FusedWeights, name: str) -> None:
-    """What the tensor-core kernel takes beyond _check_cuda: bf16, an
+def _check_tc(x: torch.Tensor, fw: FusedWeights, name: str, points: bool = False) -> None:
+    """What the tensor-core kernel takes beyond _check_cuda: bf16 weights, an
     embedding of at most one chunk, and its packed chunks on the device,
     whole, contiguous and 16-byte aligned (the bulk copies' alignment)."""
-    _check_cuda(x, fw, name, TC_WIDTHS)
+    _check_cuda(x, fw, name, TC_WIDTHS, points)
     if fw.dtype != torch.bfloat16:
         raise ValueError(f"{name}: the tensor-core kernel is bf16 only, weights are {fw.dtype}")
     if fw.x_cols > TC_K:
@@ -572,16 +590,18 @@ def fused_hidden(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
 
 
 def fused_sdf_value(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
-    """K1 with the sdf column of the final linear in its epilogue: embedded
-    points [N, x_cols] in the working dtype -> sdf [N] fp32; in bf16 on the
-    tensor cores (TC_WIDTHS), in fp32 on the FMA pipe (FMA_WIDTHS), summed as
-    sdf_column sums (`fused_sdf_value_fp32` in LAUNCHES)."""
+    """K1 with the positional encoding in its prologue and the sdf column of
+    the final linear in its epilogue: points [N, 3] fp32, contiguous -> sdf
+    [N] fp32, the sdf of embed_padded(x, fw); in bf16 on the tensor cores
+    (TC_WIDTHS), in fp32 on the FMA pipe (FMA_WIDTHS), summed as sdf_column
+    sums (`fused_sdf_value_fp32` in LAUNCHES)."""
+    _check_points(x, fw, "fused_sdf_value")
     if x.device.type == "cpu":
-        return fused_sdf_value_plain(x, fw)
+        return fused_sdf_value_plain(embed_padded(x, fw), fw)
     if fw.dtype == torch.bfloat16:
-        _check_tc(x, fw, "fused_sdf_value")
+        _check_tc(x, fw, "fused_sdf_value", points=True)
     else:
-        _check_fma(x, fw, "fused_sdf_value")
+        _check_fma(x, fw, "fused_sdf_value", points=True)
     n = x.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
@@ -593,13 +613,13 @@ def fused_sdf_value(x: torch.Tensor, fw: FusedWeights) -> torch.Tensor:
     if fw.dtype == torch.bfloat16:
         err = lib.nefii_sdf_value(
             x.data_ptr(), fw.tc.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols,
-            fw.width, wlast.data_ptr(), fw.b_sdf, out.data_ptr(), n,
+            fw.width, fw.multires, wlast.data_ptr(), fw.b_sdf, out.data_ptr(), n,
             _grid(n, x.device, tc_block_rows(fw.width), TC_BLOCKS_PER_SM), stream)
         name = "fused_sdf_value"
     else:
         err = lib.nefii_sdf_value_fp32(
             x.data_ptr(), fw.buf.data_ptr(), desc, len(fw.layers), fw.x_cols, fw.width,
-            wlast.data_ptr(), fw.b_sdf, sdf_cols(fw.real_width), out.data_ptr(), n,
+            fw.multires, wlast.data_ptr(), fw.b_sdf, sdf_cols(fw.real_width), out.data_ptr(), n,
             _grid(n, x.device, fma_block_rows(fw.width), FMA_BLOCKS_PER_SM), stream)
         name = "fused_sdf_value_fp32"
     _raise_on(err, "fused_sdf_value", lib)
@@ -712,13 +732,14 @@ def sdf_column(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 
 
 def sdf_closure(fw: FusedWeights):
-    """fn(pts [N,3]) -> sdf [N]: K1's hidden chain on `fw` with the sdf
-    column in its epilogue (fused_sdf_value). In fp32 the column is summed in
-    sdf_column's fixed order, so that a ray's trace does not depend on the
-    rays traced beside it (K3's near rays are traced again alone)."""
+    """fn(pts [N,3]) -> sdf [N]: one launch of K1 on `fw`, the encoding in
+    its prologue and the sdf column in its epilogue (fused_sdf_value, looked
+    up at each call). In fp32 the column is summed in sdf_column's fixed
+    order, so that a ray's trace does not depend on the rays traced beside it
+    (K3's near rays are traced again alone)."""
 
     def fn(pts: torch.Tensor) -> torch.Tensor:
-        return fused_sdf_value(embed_padded(pts, fw), fw)
+        return fused_sdf_value(pts.float().contiguous(), fw)
 
     return fn
 

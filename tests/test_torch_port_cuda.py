@@ -12,9 +12,12 @@ largest value (one bf16 rounding of h flipped by the order propagates); the
 input gradient within 1e-3 of its largest value.
 
 Every kernel (the FMA K1, the tensor-core K1 bf16 and K2, K3) is compiled
-for widths 256 and 512 and launches at the packing's width. The FMA K1's sdf
-entry sums its own h in fused_mlp.sdf_column's order: it equals sdf_column
-of the hidden entry's h bit for bit.
+for widths 256 and 512 and launches at the packing's width. K1's sdf entries
+take the points [N, 3] and encode them in the kernel; the hidden entries take
+fused_mlp.embed_padded of them. The FMA K1's sdf entry sums its own h in
+fused_mlp.sdf_column's order: on points it equals sdf_column of the hidden
+entry's h on their embedding bit for bit, which pins the kernels' encoder to
+embed_padded.
 """
 
 import dataclasses
@@ -111,11 +114,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                          fm.prepare_weights(net, torch.bfloat16))  # K2 is fp32 only
     with pytest.raises(ValueError):
         fm.fused_fwd_bwd(x, dataclasses.replace(fw, split=fm.split_weights(fw)[:-8]))  # cut
-    assert fm.fused_sdf_value(x[:0], fw).shape == (0,)  # K1 fp32's sdf entry, N = 0
+    assert fm.fused_sdf_value(pts[:0], fw).shape == (0,)  # K1 fp32's sdf entry, N = 0
     with pytest.raises(ValueError):
-        fm.fused_sdf_value(x.to(torch.bfloat16), fw)  # dtype differs from the weights
+        fm.fused_sdf_value(pts.to(torch.bfloat16), fw)  # points in another dtype than fp32
     with pytest.raises(ValueError):
-        fm.fused_sdf_value(x[:, :-1], fw)  # wrong width
+        fm.fused_sdf_value(x, fw)  # the embedded points: the sdf entry takes the points
     assert all(n == 0 for n in fm.LAUNCHES.values())
 
 
@@ -131,7 +134,7 @@ def test_tensor_core_k1_and_sdf_value_match_plain(n):
     x = fm.embed_padded(pts, fw)
     fm.reset_launch_counts()
     h = fm.fused_hidden(x, fw).float()
-    sdf = fm.fused_sdf_value(x, fw)
+    sdf = fm.fused_sdf_value(pts, fw)
     sdf_built = fm.build_fused_sdf(net, torch.bfloat16)(pts)
     torch.cuda.synchronize()
     assert fm.LAUNCHES["fused_sdf_hidden_tc"] == 1 and fm.LAUNCHES["fused_sdf_value"] == 2
@@ -172,20 +175,26 @@ def test_tensor_core_wrappers_refuse_what_the_kernel_does_not_take():
     misaligned = flat[1:].view(x.shape)  # 2 bytes past a 16-byte boundary
     misaligned.copy_(x)
     fm.reset_launch_counts()
-    for fn in (fm.fused_hidden, fm.fused_sdf_value):
-        assert fn(x[:0], fw).shape[0] == 0  # N = 0: no launch
+    # the hidden entry takes the embedded points, the sdf entry the points
+    for fn, inp in ((fm.fused_hidden, lambda f: fm.embed_padded(pts, f)),
+                    (fm.fused_sdf_value, lambda f: pts)):
+        assert fn(inp(fw)[:0], fw).shape[0] == 0  # N = 0: no launch
         for bad in (fw_wide, fw_between):
             with pytest.raises(ValueError):
-                fn(fm.embed_padded(pts, bad), bad)  # no instantiation takes it
+                fn(inp(bad), bad)  # no instantiation takes it
         with pytest.raises(ValueError):
-            fn(misaligned, fw)
+            fn(inp(fw).t().contiguous().t(), fw)  # not contiguous
+    with pytest.raises(ValueError):
+        fm.fused_hidden(misaligned, fw)
+    with pytest.raises(ValueError):
+        fm.fused_hidden(x.float(), fw)  # an fp32 input to the bf16 kernel
+    for bad in (x, x.float(), pts.to(torch.bfloat16)):
         with pytest.raises(ValueError):
-            fn(x.t().contiguous().t(), fw)  # not contiguous
-        with pytest.raises(ValueError):
-            fn(x.float(), fw)  # an fp32 input to the bf16 kernel
+            fm.fused_sdf_value(bad, fw)  # anything but the points in fp32
     assert all(n == 0 for n in fm.LAUNCHES.values())
-    for fn in (fm.fused_hidden, fm.fused_sdf_value):
-        assert fn(fm.embed_padded(pts, fw_narrow), fw_narrow).shape[0] == pts.shape[0]
+    for fn, inp in ((fm.fused_hidden, fm.embed_padded(pts, fw_narrow)),
+                    (fm.fused_sdf_value, pts)):
+        assert fn(inp, fw_narrow).shape[0] == pts.shape[0]
     torch.cuda.synchronize()
     assert fm.LAUNCHES["fused_sdf_hidden_tc@256"] == fm.LAUNCHES["fused_sdf_value@256"] == 1
     f32_narrow = fm.prepare_weights(narrow, torch.float32, width=256)
@@ -244,7 +253,7 @@ def test_fma_k1_entries_match_plain_and_sdf_column(n, width):
     x = fm.embed_padded(pts, fw)
     fm.reset_launch_counts()
     h = fm.fused_hidden(x, fw)
-    sdf = fm.fused_sdf_value(x, fw)
+    sdf = fm.fused_sdf_value(pts, fw)
     torch.cuda.synchronize()
     assert fm.LAUNCHES["fused_sdf_hidden"] == fm.LAUNCHES[f"fused_sdf_hidden@{width}"] == 1
     assert fm.LAUNCHES["fused_sdf_value_fp32"] == fm.LAUNCHES[f"fused_sdf_value_fp32@{width}"] == 1
@@ -254,6 +263,85 @@ def test_fma_k1_entries_match_plain_and_sdf_column(n, width):
     assert (h - fm.fused_hidden_plain(x, fw)).abs().max().item() <= 1e-4
     assert (sdf - fm.fused_sdf_value_plain(x, fw)).abs().max().item() <= 1e-4
     assert torch.equal(sdf, fm.sdf_column(h[:, :fw.real_width], fw.w_last[:, 0], fw.b_last[0]))
+
+
+def _ball(n, seed, radius=1.5):
+    """n points uniform in the ball of `radius` (every frequency of the
+    encoding wraps several times there), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = torch.randn(n, 3, generator=g, device="cuda")
+    r = torch.rand(n, 1, generator=g, device="cuda") ** (1.0 / 3.0) * radius
+    return (d / d.norm(dim=1, keepdim=True) * r).contiguous()
+
+
+SDF_ENTRY_SIZES = (262_144 + 37, 500, 7, 1)  # a ragged last tile at either tile height
+
+
+@pytest.mark.parametrize("width", [512, 256])
+@torch.no_grad()
+def test_fp32_sdf_entry_on_points_is_the_hidden_entry_on_their_embedding(width):
+    """K1 fp32's sdf entry, which encodes its points in the kernel, against
+    sdf_column of K1 fp32's hidden entry on embed_padded of the same points
+    (the encoding in PyTorch on the card): equal bit for bit, at both widths,
+    on 262,181 points with |p| up to 1.5 and on batches of 500, 7 and 1 of
+    them (every row as in the whole batch). The kernel's encoder is so the
+    embedder's, value for value."""
+    net, _ = _flagship() if width == 512 else _neus()
+    fw = fm.network_weights(net, torch.float32, fm.FMA_WIDTHS)
+    assert fw.width == width and fw.multires == 6
+    pts = _ball(SDF_ENTRY_SIZES[0], seed=width)
+    h = fm.fused_hidden(fm.embed_padded(pts, fw), fw)
+    want = fm.sdf_column(h[:, :fw.real_width], fw.w_last[:, 0], fw.b_last[0])
+    fm.reset_launch_counts()
+    for n in SDF_ENTRY_SIZES:
+        rows = slice(1000, 1000 + n) if n < pts.shape[0] else slice(None)
+        got = fm.fused_sdf_value(pts[rows].contiguous(), fw)
+        assert torch.equal(got, want[rows]), (n, int((got != want[rows]).sum()))
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES[f"fused_sdf_value_fp32@{width}"] == len(SDF_ENTRY_SIZES)
+
+
+@pytest.mark.parametrize("width", [512, 256])
+@torch.no_grad()
+def test_bf16_sdf_entry_on_points_matches_plain(width):
+    """K1 bf16's sdf entry on points against its plain version on
+    embed_padded of them, within 1e-2 of the largest value (the file's K1 bf16
+    tolerance), at both widths, on 262,181 points with |p| up to 1.5 and on
+    batches of 500, 7 and 1; the rows of a smaller batch equal the whole
+    batch's bit for bit (a wgmma row's sums do not depend on the others)."""
+    net, _ = _flagship() if width == 512 else _neus()
+    fw = fm.network_weights(net, torch.bfloat16, fm.TC_WIDTHS)
+    assert fw.width == width
+    pts = _ball(SDF_ENTRY_SIZES[0], seed=width + 1)
+    ref = fm.fused_sdf_value_plain(fm.embed_padded(pts, fw), fw)
+    fm.reset_launch_counts()
+    full = fm.fused_sdf_value(pts, fw)
+    assert (full - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    for n in SDF_ENTRY_SIZES[1:]:
+        rows = slice(1000, 1000 + n)
+        assert torch.equal(fm.fused_sdf_value(pts[rows].contiguous(), fw), full[rows])
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES[f"fused_sdf_value@{width}"] == len(SDF_ENTRY_SIZES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@torch.no_grad()
+def test_sdf_closure_is_one_kernel(dtype):
+    """One call of the sdf closure the tracers use launches exactly one CUDA
+    kernel, K1's sdf entry: the encoding runs in it, not in PyTorch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    net, pts = _flagship()
+    fn = fm.build_fused_sdf(net, dtype)
+    fn(pts)  # built and packed
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(pts)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel = "sdf_tc_kernel" if dtype == torch.bfloat16 else "sdf_fma_kernel"
+    assert len(kernels) == 1 and kernel in kernels[0], kernels
 
 
 K3_CONFS = {"primary": dict(line_step_iters=3, sphere_tracing_iters=10),
@@ -379,7 +467,7 @@ def test_kernels_take_a_256_wide_network():
     assert fw16.width == 256
     x16 = fm.embed_padded(pts, fw16)
     for got, ref in ((fm.fused_hidden(x16, fw16), fm.fused_hidden_plain(x16, fw16)),
-                     (fm.fused_sdf_value(x16, fw16), fm.fused_sdf_value_plain(x16, fw16))):
+                     (fm.fused_sdf_value(pts, fw16), fm.fused_sdf_value_plain(x16, fw16))):
         assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max()
     tracer = RayTracer(**K3_CONFS["primary"])
     rays = _k3_rays(5000)

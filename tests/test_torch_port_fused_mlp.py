@@ -115,12 +115,47 @@ def test_sdf_value_plain_matches_pallas(dtype):
         pt = torch.from_numpy(pts)
         sdf_t = fm.build_fused_sdf(net, tdtype)(pt).numpy()
         fw = fm.prepare_weights(net, tdtype)
-        value = fm.fused_sdf_value(fm.embed_padded(pt, fw), fw).numpy()
+        value = fm.fused_sdf_value(pt, fw).numpy()
     assert all(n == 0 for n in fm.LAUNCHES.values())
     assert sdf_t.dtype == value.dtype == np.float32
     tol = FP32_TOL if dtype == "float32" else BF16_REL * np.abs(sdf_j).max()
     np.testing.assert_allclose(sdf_t, sdf_j, atol=tol)
     np.testing.assert_allclose(value, sdf_j, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["flagship-8x512", "neus-8x256", "tiny-no-pe"])
+@torch.no_grad()
+def test_sdf_entry_on_points_is_the_sdf_of_their_embedding(name, dtype):
+    """The sdf entry takes the points [N, 3] fp32 and encodes them itself:
+    its value is that of its plain version on embed_padded of the points,
+    bit for bit, at both kernel widths (the flagship's 512, NeuS's 256), in
+    both dtypes and without an encoding (multires 0); so is the sdf closure's,
+    which launches nothing on the CPU."""
+    _, _, net = _nets(name)
+    fw = fm.prepare_weights(net, getattr(torch, dtype))
+    pts = torch.from_numpy(_pts(333, seed=9)) * 3.0  # |p| up to ~4: every frequency wraps
+    want = fm.fused_sdf_value_plain(fm.embed_padded(pts, fw), fw)
+    fm.reset_launch_counts()
+    assert want.dtype == torch.float32 and torch.equal(fm.fused_sdf_value(pts, fw), want)
+    assert torch.equal(fm.sdf_closure(fw)(pts), want)
+    assert torch.equal(fm.sdf_closure(fw)(pts.double()), want)  # the closure takes fp32 of any
+    assert all(n == 0 for n in fm.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sdf_entry_refuses_an_embedded_input(dtype):
+    """The sdf entry has one contract, points [N, 3] fp32, on every device:
+    the embedded points [N, x_cols] (in the packing's dtype or in fp32), the
+    points in another dtype, or of another width, raise ValueError."""
+    _, _, net = _nets("flagship-8x512")
+    fw = fm.prepare_weights(net, getattr(torch, dtype))
+    pts = torch.from_numpy(_pts(20))
+    x = fm.embed_padded(pts, fw)
+    for bad in (x, x.float(), pts.to(fw.dtype) if dtype == "bfloat16" else pts.double(),
+                pts[:, :2].contiguous(), pts[None]):
+        with pytest.raises(ValueError):
+            fm.fused_sdf_value(bad, fw)
 
 
 def test_tensor_core_chunks_pack_every_layer():
@@ -363,7 +398,7 @@ def test_neus_net_at_width_256_matches_pallas(kernel):
             sdf = fm.sdf_closure(fw)(pt).numpy()
             if kernel == "k1_bf16":
                 tol_h, tol_s = BF16_REL * np.abs(h_j).max(), BF16_REL * np.abs(sdf_j).max()
-                np.testing.assert_allclose(fm.fused_sdf_value(x, fw).numpy(), sdf_j, atol=tol_s)
+                np.testing.assert_allclose(fm.fused_sdf_value(pt, fw).numpy(), sdf_j, atol=tol_s)
             else:
                 tol_h = tol_s = K1_FP32_256_TOL
             np.testing.assert_allclose(h[:, :256], h_j[:, :256], atol=tol_h)
@@ -520,17 +555,19 @@ def test_wrappers_cpu_plain_empty_and_other_devices_raise():
     h2, dx = fm.fused_fwd_bwd(torch.zeros(0, fw.x_cols), fw)
     assert h.shape == (0, fw.width) and h2.shape == (0, fw.width) and dx.shape == (0, fw.x_cols)
     fw16 = fm.prepare_weights(net, torch.bfloat16)
-    assert fm.fused_sdf_value(torch.zeros(0, fw16.x_cols, dtype=torch.bfloat16), fw16).shape == (0,)
-    assert fm.fused_sdf_value(torch.zeros(0, fw.x_cols), fw).shape == (0,)  # K1 fp32's sdf entry
+    # the sdf entries take points
+    assert fm.fused_sdf_value(torch.zeros(0, 3), fw16).shape == (0,)
+    assert fm.fused_sdf_value(torch.zeros(0, 3), fw).shape == (0,)  # K1 fp32's sdf entry
     meta = torch.empty(4, fw.x_cols, device="meta")
+    meta_pts = torch.empty(4, 3, device="meta")
     with pytest.raises(ValueError):
         fm.fused_hidden(meta, fw)
     with pytest.raises(ValueError):
-        fm.fused_sdf_value(meta, fw)
+        fm.fused_sdf_value(meta_pts, fw)
     with pytest.raises(ValueError):
         fm.fused_fwd_bwd(meta, fw)
     with pytest.raises(ValueError):
-        fm.fused_sdf_value(meta.to(torch.bfloat16), fw16)
+        fm.fused_sdf_value(meta_pts, fw16)
     assert all(n == 0 for n in fm.LAUNCHES.values())
 
 

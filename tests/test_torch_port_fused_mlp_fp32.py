@@ -74,11 +74,12 @@ def test_fp32_sdf_entry_is_the_sdf_column_of_the_hidden_chain(name):
     launches nothing."""
     net = _net(name)
     fw = fm.prepare_weights(net)
-    x = fm.embed_padded(torch.from_numpy(_pts()), fw)
+    pts = torch.from_numpy(_pts())
+    x = fm.embed_padded(pts, fw)
     want = fm.sdf_column(fm.fused_hidden_plain(x, fw)[:, :fw.real_width],
                          fw.w_last[:, 0], fw.b_last[0])
     fm.reset_launch_counts()
-    for got in (fm.fused_sdf_value_plain(x, fw), fm.fused_sdf_value(x, fw)):
+    for got in (fm.fused_sdf_value_plain(x, fw), fm.fused_sdf_value(pts, fw)):
         assert got.dtype == torch.float32 and torch.equal(got, want)
     assert all(n == 0 for n in fm.LAUNCHES.values())
     assert fm.sdf_cols(fw.real_width) == fw.real_width <= fw.width
@@ -96,7 +97,7 @@ def test_fp32_sdf_entry_matches_pallas(name):
                                            dtype=jnp.float32)(pts))
     fw = fm.prepare_weights(net)
     pt = torch.from_numpy(pts)
-    value = fm.fused_sdf_value(fm.embed_padded(pt, fw), fw).numpy()
+    value = fm.fused_sdf_value(pt, fw).numpy()
     np.testing.assert_allclose(value, sdf_j, rtol=0, atol=JAX_TOL)
     np.testing.assert_allclose(fm.sdf_closure(fw)(pt).numpy(), sdf_j, rtol=0, atol=JAX_TOL)
 
@@ -112,11 +113,11 @@ def test_fp32_sdf_entry_rows_do_not_depend_on_the_batch(name):
     tests/test_torch_port_cuda.py holds on the card at 1, 7 and 500 rows.)"""
     net = _net(name)
     fw = fm.prepare_weights(net)
-    x = fm.embed_padded(torch.from_numpy(_pts(700, seed=6)), fw)
-    full = fm.fused_sdf_value(x, fw)
+    pts = torch.from_numpy(_pts(700, seed=6))
+    full = fm.fused_sdf_value(pts, fw)
     for rows in (slice(100, 107), slice(150, 650)):
-        assert torch.equal(fm.fused_sdf_value(x[rows].contiguous(), fw), full[rows])
-    h = fm.fused_hidden_plain(x, fw)[:, :fw.real_width]
+        assert torch.equal(fm.fused_sdf_value(pts[rows].contiguous(), fw), full[rows])
+    h = fm.fused_hidden_plain(fm.embed_padded(pts, fw), fw)[:, :fw.real_width]
     for r in (3, 699):
         assert torch.equal(fm.sdf_column(h[r:r + 1], fw.w_last[:, 0], fw.b_last[0]),
                            full[r:r + 1])
