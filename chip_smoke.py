@@ -6,38 +6,27 @@ Phases, each of which raises on failure (exit code != 0):
 1. device: require CUDA; print `nvidia-smi --query-gpu=name,power.limit`.
 2. build: compile the kernel sources of csrc/ with nvcc, one process each,
    all started together.
-3. kernels: on the full-width confs/conf.conf SDF net (8x512, skip at 4,
-   multires 6), run K1 fp32 on the FMA pipe and K1 bf16 on the tensor cores
-   (each with both entries: the hidden state, and the sdf of
-   fused_sdf_value) and K2 (fp32 accuracy on the tensor cores in split bf16)
-   at 262,144 points and at 1, 63, 64, 65 and 5000 points (K1 fp32 also at
-   12,500, the near re-trace's size), and hold each against its plain
-   PyTorch version on the same inputs, in the working type (K2 also against
-   its split-bf16 plain version, to tell the scheme's error from the
-   kernel's; K1 fp32's sdf entry also against sdf_column of its own hidden
-   entry's h, bit for bit); time them with CUDA events (K1 fp32's entries
-   at 262,144 and 12,500 points, beside the hidden entry plus sdf_column
-   that the sdf closure ran before), and print the tensor-core kernels'
-   TFLOP/s and the L2 weight bytes a call requests by their design
-   (computed, not measured).
+3. kernels: K1 bf16 on the tensor cores and K1 fp32 on the FMA pipe (each
+   with both entries: the hidden state, and the sdf of fused_sdf_value) and
+   K2 (fp32 accuracy on the tensor cores in split bf16), held to
+   kernel_gates.py's gates against their plain PyTorch versions (the card
+   tests' gates) and timed with CUDA events at 262,144 points (K1 fp32 also
+   at 12,500, the near re-trace's size, and its sdf entry beside the hidden
+   entry plus sdf_column, the route the sdf closure took before it) beside
+   the plain versions and their bounds (portbench/flops.py's peaks), on the
+   full-width confs/conf.conf SDF net (8x512, skip at 4, multires 6) and on
+   NeuS's 8x256 net (confs/conf_neus.conf) at width 256 and padded to 512.
 4. trace-kernel: K3, the whole sphere trace (split fp16 on the tensor cores
    over a pool of live rays, its near rays traced again in fp32 through K1
    fp32), on 262,144 rays of one 512x512 view of the seeded-init sphere
    (camera rays and random pixels in random order under the primary tracer,
-   the random pixels under the secondary tracer): no ray's unfinished or hit
-   flag may differ from the K1-fp32 trace's (the re-trace's arithmetic);
-   against its fp32 plain version (cuBLAS) the ends within 1e-4, and the
-   flags that differ are printed beside those of the K1-fp32 trace against
-   it. The kernel alone (without the re-trace) agrees with the fp32 plain
-   version on 99.9% of the flags, its ends within 1e-4; at most 10% of the
-   rays are near, and at most 2 + 5% of the near flags differ from the
-   split-fp16 plain version's. Prints the near share, K3's time with and
-   without the re-trace, and the worst split-fp16 sdf error at the rays'
-   points, which NEAR_DELTA must cover twice over (also on the nets of
-   phases 12 and 13, NeuS's on its 256 packing). The gathered tracer through
-   K1 fp32 is timed beside them, and its count of the evaluations the rays
-   need gives K3's bounds and must match the kernel's count. Prints the
-   tiles' fill.
+   the random pixels under the secondary tracer; NeuS's net at 256 on the
+   camera and random rays, and padded to 512): held to
+   kernel_gates.check_k3 on a whole view (the card tests' gates), then its
+   time with and without the re-trace, its plain version's, and the
+   gathered tracer's through K1 fp32, whose count of the evaluations the
+   rays need gives K3's bound; the near share, the tiles' fill and the hit
+   fraction.
 5. reference: a 16x16-ray render of confs/conf.conf (trace switched to fp32)
    through the kernels on the card against the same render through the plain
    versions on the CPU, on what no Monte-Carlo sample touches (hit mask,
@@ -84,14 +73,8 @@ Phases, each of which raises on failure (exit code != 0):
    (it serves the value-only secondary-hit pool); prints s/step and
    max_memory_allocated of each run.
 12. neus: confs/conf_neus.conf (NeuS's 8x256 SDF net), which the card's
-   closures pack at width 256 for every kernel: K1 fp32, K1 bf16 (both
-   entries) and K2 at 256 against their plain versions at 1, 63, 64, 65,
-   5000 and 262,144 points (K1 fp32 also at 12,500) under phase 3's gates,
-   and K3 at 256 on phase
-   4's camera and random rays under its gates (no flag differing from the
-   K1-fp32 trace at 256, NEAR_DELTA NEAR_MARGIN times the split-fp16 sdf
-   error on the 256 packing); each timed beside the net padded to 512, with
-   its bound at the real width. Then a NeuS .pth imported with
+   closures pack at width 256 for every kernel (phases 3 and 4 time them
+   there): a NeuS .pth imported with
    --geometry_neus and 2 frozen steps with the workflow's flags through
    exp_runner.main, as shipped and with use_fused_trace, and a 128x128 view
    at 16 rays of the checkpoint through render.main with fused_sdf_dtype =
@@ -115,9 +98,9 @@ Phases, each of which raises on failure (exit code != 0):
    resolution 300 and checks its radius; loads the Step-1 checkpoint into
    Step 2 (exp_runner --geometry) and checks the implicit parameters; and
    holds LPIPS-alex with seeded weights on the card against the CPU. K3
-   on the fitted net: the trace phase's camera and random rays, no flag
-   differing from the K1-fp32 trace's, at most 10% of them near, and the
-   worst split-fp16 sdf error at their points twice inside NEAR_DELTA.
+   on the fitted net: the trace phase's camera and random rays against the
+   K1-fp32 trace and the near rays' gates (kernel_gates.check_k3_k1 and
+   check_k3_near).
 14. cameras-reference: the unfrozen-reference step with the pose a [1,7]
    quaternion + translation that trains: every loss term within rel 1e-5
    and every group's gradient, the pose's included, within a relative L2 of
@@ -212,14 +195,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_POINTS = 262_144
-# tolerances of kernel vs plain version, in the working type:
-#  fp32: the two differ only in summation order (FMA chain vs cuBLAS), ~1e-6
-#        relative per layer over 8 layers of 512-long dot products; K2's
-#        split bf16 drops ~2^-16 of each product, ~1e-5 over the chain
-#  bf16: h is rounded to bf16 after every layer; an order difference can flip
-#        one rounding (2^-8 relative) and it propagates: the JAX package's
-#        bf16 bound of 1e-2 relative (fused_mlp.py:177-179)
-TOL = {"fp32_abs": 1e-4, "bf16_rel": 1e-2, "grad_rel": 1e-3}
 
 
 def _sh(cmd):
@@ -276,18 +251,6 @@ def _model_conf(replace=()):
     return parse_string(_conf_text(replace))
 
 
-def _flagship_net(device):
-    import torch
-
-    from nefii_tpu_torch.models.implicit import ImplicitNetwork
-
-    conf = _model_conf().get_config("model")
-    net = ImplicitNetwork(feature_vector_size=conf.get_int("feature_vector_size"),
-                          device=device, **conf.get_config("implicit_network").as_plain_dict())
-    net.reset_parameters(torch.Generator(device=device).manual_seed(0))
-    return net
-
-
 def _time(fn, reps=5):
     import torch
 
@@ -302,471 +265,211 @@ def _time(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-# H100 SXM published peaks (dense): FP32 outside the tensor cores, bf16 tensor
-# cores, HBM3 bandwidth. A kernel's bound is the larger of its operations over
-# the peak of their type and the bytes it must move over the memory rate.
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
-PEAK_BYTES = 3.35e12
-
-
-def _bound(flops, nbytes, kind):
-    t_ops, t_bytes = flops / PEAK_FLOPS[kind], nbytes / PEAK_BYTES
-    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
-
-
-def _chain_flops(net):
-    """Multiply-add operations per point of the SDF net's hidden chain (real,
-    unpadded widths), and of its sdf column."""
-    hidden = sum(2 * L.d_in * L.d_out for L in net.layers[:-1])
-    return hidden, 2 * net.layers[-1].d_in
-
-
-RAGGED = (1, 63, 64, 65, 5000)
-# rows of one call of K3's near re-trace: the ~4.77% of phase 12's N_POINTS
-# camera rays that K3 flags near on NeuS's net, fewer as rays finish
+# rows of one call of K3's near re-trace: the ~4.77% of the N_POINTS camera
+# rays that K3 flags near on NeuS's net, fewer as rays finish
 NEAR_POINTS = 12_500
 
 
-def _check_bf16(name, got, ref):
-    """max |got - ref| and max |ref|; raises unless within TOL['bf16_rel'] of
-    the largest value and finite."""
+def _time_entries(tag, net, width, pts, card, plain=True):
+    """K1 bf16 and K1 fp32 (each with its hidden entry and its sdf entry) and
+    K2 on `net` packed at `width`, held to kernel_gates' gates at N_POINTS
+    (K1 fp32 also at NEAR_POINTS), then timed there with CUDA events beside
+    their plain versions (`plain`) and their bounds at the net's real width:
+    each input read and each output written once, the packed weights once a
+    launch (portbench/flops.py). K1 fp32's sdf entry is also timed beside the
+    hidden entry plus sdf_column, the route the sdf closure took before it.
+    -> {record name: figures, the gates' worst errors among them}"""
     import torch
 
-    err = (got.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
-    if not err <= TOL["bf16_rel"] * scale or not bool(torch.isfinite(got.float()).all()):
-        raise RuntimeError(f"{name} disagrees with its plain version: {err:.3e} "
-                           f"(max {scale:.3e})")
-    return err, scale
-
-
-def _check_k1_tc(tag, fw, pts):
-    """K1 bf16 on the tensor cores, the hidden entry and the sdf entry, on
-    the packing `fw` at RAGGED sizes and N_POINTS against the plain versions
-    (TOL, raises). -> (hidden errors, sdf errors) by size."""
-    import torch
-
+    import kernel_gates as kg
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
+    from portbench import flops as pf
 
-    errs_h, errs_s = [], []
-    for n in RAGGED + (N_POINTS,):
-        x = fm.embed_padded(pts[:n], fw)
-        h = fm.fused_hidden(x, fw)
-        sdf = fm.fused_sdf_value(pts[:n], fw)  # the sdf entry encodes the points itself
-        torch.cuda.synchronize()
-        eh, sh = _check_bf16(f"[{tag}] K1 bf16 (tensor cores, width {fw.width}) at N={n}", h,
-                             fm.fused_hidden_plain(x, fw))
-        es, ss = _check_bf16(f"[{tag}] fused_sdf_value (width {fw.width}) at N={n}", sdf,
-                             fm.fused_sdf_value_plain(x, fw))
-        errs_h.append(eh)
-        errs_s.append(es)
-        print(f"[{tag}] K1 bf16 (tensor cores, width {fw.width}) N={n}: hidden "
-              f"max_abs_err={eh:.3e} (max|h|={sh:.3e}); fused_sdf_value max_abs_err={es:.3e} "
-              f"(max|sdf|={ss:.3e})", flush=True)
-    return errs_h, errs_s
+    hidden, col = pf.chain_flops([(L.d_in, L.d_out) for L in net.layers])
+    f16, f32 = (fm.prepare_weights(net, dt, width) for dt in (torch.bfloat16, torch.float32))
+    x16, x32 = fm.embed_padded(pts, f16), fm.embed_padded(pts, f32)
+    tc, fma, split = f16.tc.numel() * 2, f32.buf.numel() * 4, fm.split_weights(f32).numel() * 2
+    h16, h32 = (f16.emb_dim + f16.real_width) * 2, (f32.emb_dim + f32.real_width) * 4
 
+    def two_step(n):
+        h = fm.fused_hidden(x32[:n], f32)[:, :f32.real_width]
+        return fm.sdf_column(h, f32.w_last[:, 0], f32.b_last[0])
 
-def _check_k2(tag, fw, pts):
-    """K2 (split bf16 on the tensor cores) on the fp32 packing `fw` at RAGGED
-    sizes and N_POINTS against the fp32 plain version (TOL, raises) and,
-    printed beside, against its split-bf16 plain version. -> the errors by
-    size."""
-    import torch
+    errs = {}
+    for (hid, val), f, x in ((("fused_sdf_hidden_tc", "fused_sdf_value"), f16, x16),
+                             (("fused_sdf_hidden", "fused_sdf_value_fp32"), f32, x32)):
+        for n, key in ((N_POINTS, ""), (NEAR_POINTS, "near_"))[:2 if f is f32 else 1]:
+            err = kg.check_k1(f, x[:n], fm.fused_hidden(x[:n], f), fm.fused_sdf_value(pts[:n], f))
+            errs.setdefault(hid, {})[key + "max_abs_err"] = err["h"]
+            errs.setdefault(val, {})[key + "max_abs_err"] = err["sdf"]
+    err = kg.check_k2(f32, x32, *fm.fused_fwd_bwd(x32, f32))
+    errs["fused_sdf_fwd_bwd"] = {"max_abs_err": err["h"], "dx_max_abs_err": err["dx"]}
 
-    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
-
-    errs = []
-    for n in RAGGED + (N_POINTS,):
-        x = fm.embed_padded(pts[:n], fw)
-        h, dx = fm.fused_fwd_bwd(x, fw)
-        torch.cuda.synchronize()
-        h_ref, dx_ref = fm.fused_fwd_bwd_plain(x, fw)
-        h_sp, dx_sp = fm.fused_fwd_bwd_split_plain(x, fw)
-        err_h = (h - h_ref).abs().max().item()
-        err_dx = (dx - dx_ref).abs().max().item()
-        dx_scale = dx_ref.abs().max().item()
-        sp_h = (h - h_sp).abs().max().item()
-        sp_dx = (dx - dx_sp).abs().max().item()
-        scheme = max((h_sp - h_ref).abs().max().item(), (dx_sp - dx_ref).abs().max().item())
-        print(f"[{tag}] K2 (split bf16, tensor cores, width {fw.width}) N={n}: against fp32 "
-              f"plain h max_abs_err={err_h:.3e} dx max_abs_err={err_dx:.3e} "
-              f"(max|dx|={dx_scale:.3e}); against the split plain version h {sp_h:.3e} dx "
-              f"{sp_dx:.3e}; the split scheme itself {scheme:.3e}", flush=True)
-        if (not err_h <= TOL["fp32_abs"] or not err_dx <= TOL["grad_rel"] * dx_scale
-                or not bool(torch.isfinite(h).all() and torch.isfinite(dx).all())):
-            raise RuntimeError(f"[{tag}] K2 at width {fw.width} disagrees with its plain version "
-                               f"at N={n}: h {err_h:.3e} dx {err_dx:.3e}")
-        errs.append(max(err_h, err_dx))
-    return errs
-
-
-def phase_kernels():
-    import torch
-
-    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
-
-    dev = torch.device("cuda", 0)
-    net = _flagship_net(dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    pts = torch.randn(N_POINTS, 3, generator=gen, device=dev) * 0.5
-    hidden_flops, col_flops = _chain_flops(net)
+    # record: (kernel, plain version, operations a row, bytes a row, weight
+    # bytes, peak); K2 runs the forward and the input-gradient chain, three
+    # bf16 products a multiply-add
+    entries = {
+        "fused_sdf_hidden_tc": (lambda n: fm.fused_hidden(x16[:n], f16),
+                                lambda n: fm.fused_hidden_plain(x16[:n], f16),
+                                hidden, h16, tc, "bf16"),
+        "fused_sdf_value": (lambda n: fm.fused_sdf_value(pts[:n], f16),
+                            lambda n: fm.fused_sdf_value_plain(x16[:n], f16),
+                            hidden + col, 3 * 4 + 4, tc, "bf16"),
+        "fused_sdf_hidden": (lambda n: fm.fused_hidden(x32[:n], f32),
+                             lambda n: fm.fused_hidden_plain(x32[:n], f32),
+                             hidden, h32, fma, "fp32"),
+        "fused_sdf_value_fp32": (lambda n: fm.fused_sdf_value(pts[:n], f32),
+                                 lambda n: fm.fused_sdf_value_plain(x32[:n], f32),
+                                 hidden + col, 3 * 4 + 4, fma, "fp32"),
+        "fused_sdf_fwd_bwd": (lambda n: fm.fused_fwd_bwd(x32[:n], f32),
+                              lambda n: fm.fused_fwd_bwd_plain(x32[:n], f32),
+                              2 * hidden * 3, (2 * f32.emb_dim + f32.real_width) * 4, split,
+                              "bf16"),
+    }
     res = {}
-    with torch.no_grad():
-        # K1 fp32, the FMA pipe: the hidden entry and the sdf entry
-        fw = fm.prepare_weights(net, torch.float32)
-        errs_h, errs_s = _check_k1_fp32("kernels", fw, pts)
-        res["k1_fp32"], res["k1_fp32_sdf"] = _time_k1_fp32("kernels", fw, pts, hidden_flops,
-                                                            col_flops, errs_h, errs_s)
-
-        # K1 bf16 on the tensor cores: the hidden entry and the sdf entry
-        fw = fm.prepare_weights(net, torch.bfloat16)
-        errs_h, errs_s = _check_k1_tc("kernels", fw, pts)
-        x = fm.embed_padded(pts, fw)
-        ms_h = _time(lambda: fm.fused_hidden(x, fw), reps=10)
-        ms_s = _time(lambda: fm.fused_sdf_value(pts, fw), reps=10)
-        plain_h = _time(lambda: fm.fused_hidden_plain(x, fw))
-        plain_s = _time(lambda: fm.fused_sdf_value_plain(x, fw))
-        flops = N_POINTS * hidden_flops
-        # computed from the design, not measured: every 64-row tile requests
-        # every packed weight chunk from L2
-        l2_bytes = -(-N_POINTS // fm.TC_BLOCK_ROWS) * fw.tc.numel() * 2
-        weights = fw.tc.numel() * 2
-        bound_h = _bound(flops, N_POINTS * (fw.emb_dim + fw.real_width) * 2 + weights, "bf16")
-        bound_s = _bound(flops + N_POINTS * col_flops, N_POINTS * (3 * 4 + 4) + weights, "bf16")
-        print(f"[kernels] K1 bf16 (tensor cores) N={N_POINTS}: hidden {ms_h:.3f} ms "
-              f"({flops / ms_h / 1e9:.1f} TFLOP/s), fused_sdf_value {ms_s:.3f} ms "
-              f"({flops / ms_s / 1e9:.1f} TFLOP/s); plain {plain_h:.3f} / {plain_s:.3f} ms; "
-              f"bound {bound_h['bound_ms']:.3f} / {bound_s['bound_ms']:.3f} ms "
-              f"({bound_h['bound_by']}); fp32 FMA K1 {res['k1_fp32']['ms']:.3f} ms, its sdf "
-              f"entry {res['k1_fp32_sdf']['ms']:.3f} ms; L2 weight "
-              f"bytes requested a call, computed from the design: {l2_bytes / 1e9:.3f} GB "
-              f"({l2_bytes / ms_s / 1e9:.3f} TB/s requested in the sdf entry)", flush=True)
-        tc = dict(fma_fp32_ms=res["k1_fp32"]["ms"], ragged=list(RAGGED))
-        res["k1_tc"] = dict(max_abs_err=max(errs_h), ms=ms_h, plain_ms=plain_h, **bound_h, **tc)
-        res["sdf_value"] = dict(max_abs_err=max(errs_s), ms=ms_s, plain_ms=plain_s, **bound_s, **tc)
-
-        # K2 on the tensor cores in split bf16, against the fp32 plain version
-        # (TOL) and, printed beside, against its split-bf16 plain version
-        fw = fm.prepare_weights(net, torch.float32)
-        errs = _check_k2("kernels", fw, pts)
-        x = fm.embed_padded(pts, fw)
-        ms = _time(lambda: fm.fused_fwd_bwd(x, fw), reps=10)
-        plain_ms = _time(lambda: fm.fused_fwd_bwd_plain(x, fw))
-        # forward chain plus the input-gradient chain, which repeats its
-        # products: three bf16 products per multiply-add on the tensor cores;
-        # the fp32 FMA pipe's bound for the same work beside it
-        records = fm.split_weights(fw).numel() * 2
-        nbytes = N_POINTS * (2 * fw.emb_dim + fw.real_width) * 4 + records
-        bound = _bound(N_POINTS * 2 * hidden_flops * 3, nbytes, "bf16")
-        fma = _bound(N_POINTS * 2 * hidden_flops, nbytes, "fp32")
-        # computed from the design, not measured: every 64-row tile requests
-        # every record of both passes from L2
-        l2_bytes = -(-N_POINTS // fm.TC_BLOCK_ROWS) * records
-        tflops = N_POINTS * 2 * hidden_flops * 3 / ms / 1e9
-        print(f"[kernels] K2 (split bf16, tensor cores) N={N_POINTS}: kernel {ms:.3f} ms "
-              f"({tflops:.1f} bf16 TFLOP/s), plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} "
-              f"ms ({bound['bound_by']}, three bf16 products a multiply-add), FP32-pipe bound "
-              f"{fma['bound_ms']:.3f} ms; L2 weight bytes requested a call, computed from the "
-              f"design: {l2_bytes / 1e9:.3f} GB ({l2_bytes / ms / 1e9:.3f} TB/s requested)",
-              flush=True)
-        res["k2"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, **bound,
-                         ragged=list(RAGGED))
+    for name, (fn, plain_fn, ops, row_bytes, weights, kind) in entries.items():
+        fig = res[name] = errs[name]
+        for n, key in ((N_POINTS, ""), (NEAR_POINTS, "near_"))[:2 if kind == "fp32" else 1]:
+            fig[key + "ms"] = _time(lambda: fn(n), reps=10 if n == N_POINTS else 20)
+            if plain:
+                fig[key + "plain_ms"] = _time(lambda: plain_fn(n))
+            bound = pf.bound_s(n * ops, n * row_bytes + weights, kind)
+            fig[key + "bound_ms"] = bound * 1e3
+            fig[key + "bound_by"] = ("bytes" if bound > pf.bound_s(n * ops, 0, kind)
+                                     else "operations")
+            if name == "fused_sdf_value_fp32":
+                fig[key + "two_step_ms"] = _time(lambda: two_step(n), reps=10)
+        print(f"[{tag}] {name} at width {width}: {json.dumps(fig)} [{card}]", flush=True)
+    k2_fp32 = pf.bound_s(N_POINTS * 2 * hidden, N_POINTS * entries["fused_sdf_fwd_bwd"][3] + split,
+                         "fp32")
+    print(f"[{tag}] K2's bound on the FP32 pipe at width {width}: {k2_fp32 * 1e3} ms", flush=True)
     return res
 
 
-TRACE_RES = 512
-# K3 on the card (split fp16, its near rays traced again in fp32 through K1
-# fp32) against the fp32 traces of the same rays: the gathered tracer on K1
-# fp32, whose arithmetic the re-trace shares, must decide every ray's
-# unfinished and hit flags as K3 does; the fp32 plain version (cuBLAS) sums
-# in another order, which moves ends by less than TRACE_TOL["abs"] and may
-# decide a stop test within fp32 rounding of the threshold otherwise, as it
-# does against the K1-fp32 trace itself (both counts printed). The kernel
-# alone (before the re-trace) against the fp32 plain version: 99.9% of the
-# rays' unfinished and of their hit flags agree, the ends within "abs". Its
-# near flags against the split-fp16 plain version's: at most 2 + 5% of the
-# near rays differ (a sum at the edge of NEAR_DELTA falls either side), and
-# at most 10% of the rays are near. Its own count of evaluations within 1%
-# of the plain version's live queries.
-TRACE_TOL = {"flags_differ": 0, "agree": 0.999, "abs": 1e-4, "evals_rel": 0.01,
-             "near_differ": (2, 0.05), "near_share": 0.10}
-# NEAR_DELTA must cover the worst |split fp16 sdf - fp32 sdf| seen here at
-# least this many times over
-NEAR_MARGIN = 2.0
-
-
-def _trace_rays(tracer, device):
-    """N_POINTS rays through one TRACE_RES^2 view of the seeded-init sphere:
-    the camera rays of the view in scan order (coherent tiles) and random
-    pixels of it in random order (incoherent, like a training batch).
-    -> {name: (cam, dirs, mask_intersect, near, far)}"""
-    import numpy as np
+def phase_kernels(card):
+    """Phase 3 (module docstring): the flagship net at 512, NeuS's net at 256
+    and padded to 512."""
     import torch
 
-    from nefii_tpu_torch.datasets.scene_dataset import SceneDataset
-    from nefii_tpu_torch.utils.camera import get_camera_params, get_sphere_intersection
+    import kernel_gates as kg
 
-    with tempfile.TemporaryDirectory() as d:
-        ds = SceneDataset(1.0, SceneDataset.write_camera_only_split(
-            d, 1, TRACE_RES, focal=1.25 * TRACE_RES), False)
-        _, inp, _ = ds.collate([ds[0]])
-    uv_grid = inp["uv"][0]
-    uv_rand = np.random.default_rng(0).random((N_POINTS, 2)).astype(np.float32) * TRACE_RES
-    sets = {}
-    for name, uv in (("camera", uv_grid), ("random", uv_rand)):
-        dirs, cam_loc = get_camera_params(
-            torch.as_tensor(uv[None], device=device),
-            torch.as_tensor(inp["pose"], device=device),
-            torch.as_tensor(inp["intrinsics"], device=device))
-        si, mi = get_sphere_intersection(cam_loc, dirs, r=tracer.object_bounding_sphere)
-        n = dirs.shape[1]
-        sets[name] = (cam_loc.expand(n, 3).contiguous(), dirs[0].contiguous(), mi.reshape(n),
-                      si[..., 0].reshape(n).contiguous(), si[..., 1].reshape(n).contiguous())
-    return sets
+    dev = torch.device("cuda", 0)
+    pts = torch.randn(N_POINTS, 3, generator=torch.Generator(device=dev).manual_seed(1),
+                      device=dev) * 0.5
+    neus = kg.sdf_net("conf_neus.conf", dev, kg.NEUS_SEED)
+    with torch.no_grad():
+        return {"w512": _time_entries("kernels", kg.sdf_net("conf.conf", dev), 512, pts, card),
+                "w256": _time_entries("kernels neus", neus, 256, pts, card),
+                "w256_padded": _time_entries("kernels neus padded", neus, 512, pts, card,
+                                             plain=False)}
 
 
-def _conf_tracer(secondary=False):
-    """The primary tracer of confs/conf.conf, or its secondary tracer (the
-    secondary_ray_tracer block over the primary's settings, as IDRNetwork
-    builds it)."""
-    from nefii_tpu_torch.models.idr import _dense_tracer_conf
-    from nefii_tpu_torch.ops.ray_tracing import RayTracer
-
-    conf = _model_conf().get_config("model")
-    tc = _dense_tracer_conf(conf.get_config("ray_tracer").as_plain_dict())
-    if secondary:
-        tc = {**tc, **_dense_tracer_conf(conf.get_config("secondary_ray_tracer").as_plain_dict())}
-    return RayTracer(**tc)
-
-
-def _split_sdf_error(fw, rays, ref):
-    """The worst |split fp16 sdf - fp32 sdf| (the plain versions of K3's chain
-    and of the fp32 chain) at the points where the rays' decisions fall: each
-    ray's first points (near, far), its fp32 trace's ends and their midpoint."""
-    import torch
-
-    from nefii_tpu_torch.ops.kernels import fused_trace as ft
-
-    cam, dirs, mi, near, far = rays
-    worst = 0.0
-    for t in (near, far, ref[0], ref[1], 0.5 * (ref[0] + ref[1])):
-        pts = (cam + t[:, None] * dirs)[mi]
-        for i in range(0, pts.shape[0], 65536):
-            p = pts[i:i + 65536]
-            err = (ft._sdf_plain(p, fw, split=True) - ft._sdf_plain(p, fw)).abs().max()
-            worst = max(worst, float(err))
-    return worst
-
-
-def _k3_case(tag, name, fw, tr, rays, sdf_k1, flops, card, fp32_pair=False):
-    """K3 on the packing `fw` on `rays` under the tracer `tr`: against the
-    K1-fp32 trace `sdf_k1` (on the same packing, whose arithmetic the
-    re-trace shares) and its fp32 plain version, and its split-fp16 plain
-    version (the scheme's own error beside the kernel's), with and without
-    the fp32 re-trace of its near rays (their share, the flags against the
-    split plain version's, the time of both), within TRACE_TOL (raises).
-    The gathered tracer through K1 fp32 is timed beside them; its count is
-    the evaluations the rays need, which gives K3's bounds (`flops`
-    multiply-add operations a point) and which the kernel's count must
-    match. -> the figures, the worst split-fp16 sdf error at the rays'
-    points among them.
-
-    The rays on which the two fp32 traces (the K1-fp32 trace and the plain
-    version, two orders of summation) disagree, on a flag or by more than
-    TRACE_TOL["abs"] on an end, are counted. With `fp32_pair` (phase 12's
-    NeuS net, where the two fp32 orders move the exit end of a few hit rays
-    by a line-search back-step, ~4e-4, at either width) at most
-    (1 - TRACE_TOL["agree"]) of the rays may be such, and the ends are held
-    against the plain version on the others, the kernel alone's also only
-    off its near rays (which it does not decide as fp32 does, by design);
-    K3 stays held to the K1-fp32 trace within TRACE_TOL["abs"] on every
-    ray."""
-    import torch
-
+def _time_k3(tag, name, net, fw, tracer, rays, card, fp32_pair=False):
+    """K3 on `rays` under `tracer`, held to kernel_gates.check_k3 on a whole
+    view (`fp32_pair` as there), then timed with CUDA events with the fp32
+    re-trace of its near rays and without it (the kernel alone), beside its
+    fp32 plain version and the gathered tracer through K1 fp32, whose count
+    of evaluations is what the rays need. K3's bound: those evaluations of
+    `net`'s chain and sdf column, three fp16 products a multiply-add on the
+    tensor cores, and the rays' bytes (the FP32 pipe's printed beside it).
+    -> the figures, the gates' among them"""
+    import kernel_gates as kg
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
+    from portbench import flops as pf
 
-    stats, raw_stats = {}, {}
-    out = ft.fused_sphere_trace(*rays, fw, tr, stats=stats)
-    *raw, raw_near, _ = ft._trace_kernel(*rays, fw, tr, stats=raw_stats)
-    torch.cuda.synchronize()
-    ref = ft.fused_sphere_trace_plain(*rays, fw, tr)
-    *split_raw, split_near = ft._trace_plain(*rays, fw, tr, split=True)
-    sdf_err = _split_sdf_error(fw, rays, ref)
-    k1 = tr._sphere_trace(sdf_k1, *rays)
+    sdf_k1 = fm.sdf_closure(fw)
+    stats = {}
+    out = ft.fused_sphere_trace(*rays, fw, tracer, stats=stats)
+    k1 = tracer._sphere_trace(sdf_k1, *rays)
+    gates = kg.check_k3(fw, tracer, rays, out, stats, k1, view=True, fp32_pair=fp32_pair)
     needed = int(k1[3])
-    k1_unf, k1_hit, k1_err = ft.agreement(out, k1)
-    unf_d, hit_d, err = ft.agreement(out, ref)
-    base_unf, base_hit, base_err = ft.agreement(k1, ref)
-    raw_unf, raw_hit, raw_err = ft.agreement(raw, ref)
-    sp_unf, sp_hit, sp_err = ft.agreement(raw, split_raw)
-    sc_unf, sc_hit, sc_err = ft.agreement(split_raw, ref)
-    n_near, n = stats["n_near"], rays[0].shape[0]
-    pair = ((k1[2] == ref[2]) & ((k1[0] < k1[1]) == (ref[0] < ref[1]))
-            & (torch.maximum((k1[0] - ref[0]).abs(), (k1[1] - ref[1]).abs())
-               <= TRACE_TOL["abs"]))
-    fp32_split = int((~pair).sum())
-    if fp32_pair:
-        def ends_err(a, keep):
-            return ft.agreement(*(tuple(t[keep] for t in x[:3]) for x in (a, ref)))[2]
-
-        err, raw_err = ends_err(out, pair), ends_err(raw, pair & ~raw_near)
-    near_differ = int((stats["near"] != split_near).sum())
-    near_allowed = TRACE_TOL["near_differ"][0] + TRACE_TOL["near_differ"][1] * int(
-        split_near.sum())
-    evals_rel = abs(raw[3] - ref[3]) / ref[3]
-    needed_rel = abs(raw[3] - needed) / needed
-    hits = float((out[0] < out[1]).float().mean())
-    ms = _time(lambda: ft.fused_sphere_trace(*rays, fw, tr), reps=3)
-    raw_ms = _time(lambda: ft._trace_kernel(*rays, fw, tr), reps=3)
-    plain_ms = _time(lambda: ft.fused_sphere_trace_plain(*rays, fw, tr), reps=1)
-    gathered_ms = _time(lambda: tr._sphere_trace(sdf_k1, *rays), reps=1)
-    rows = raw_stats["tiles"] * fm.TC_BLOCK_ROWS
-    fill, waste = raw[3] / rows, raw_stats["empty_rows"] / rows
-    # the work the rays need, three fp16 products a multiply-add on
-    # the tensor cores (bf16's rate); the FP32 pipe's bound beside it
-    rec_bytes = ft.forward_records(fw) * fm.SPLIT_REC * 2
-    nbytes = n * (8 * 4 + 1) + n * (2 * 4 + 1) + rec_bytes
-    bound = _bound(needed * flops * 3, nbytes, "bf16")
-    fp32 = _bound(needed * flops, nbytes, "fp32")
-    # computed from the design, not measured: every tile requests every
-    # forward record from L2
-    l2_bytes = raw_stats["tiles"] * rec_bytes
-    print(f"[{tag}] K3 {name} rays (sphere_tracing_iters {tr.sphere_tracing_iters}, "
-          f"line_step_iters {tr.line_step_iters}): N={n} hit fraction {hits:.3f}; near rays "
-          f"{n_near} ({n_near / n:.4%}; flags differing from the split plain version's "
-          f"{near_differ}, at most {near_allowed:.0f}), re-traced in fp32 with "
-          f"{stats['retrace_evals']} evaluations; "
-          f"rays whose unfinished / hit flag differs and max_abs_err: K3 against the "
-          f"K1-fp32 trace {k1_unf} / {k1_hit} / {k1_err:.3e}; against the fp32 plain "
-          f"version: K3 {unf_d} / {hit_d} / {err:.3e}, the K1-fp32 trace {base_unf} / "
-          f"{base_hit} / {base_err:.3e}, the kernel alone (no re-trace) {raw_unf} / "
-          f"{raw_hit} / {raw_err:.3e}{' (ends off its near rays)' if fp32_pair else ''}; the "
-          f"two fp32 traces disagree on {fp32_split} rays"
-          f"{', left out of the ends against the plain version' if fp32_pair else ''}; the "
-          f"kernel alone against the split-fp16 "
-          f"plain version: {sp_unf} / {sp_hit} / {sp_err:.3e}; the split-fp16 scheme itself "
-          f"against fp32: {sc_unf} / {sc_hit} / {sc_err:.3e}; worst |split fp16 sdf - fp32 "
-          f"sdf| at the rays' points {sdf_err:.3e}; evals kernel {raw[3]} "
-          f"({raw[3] / n:.2f}/ray) plain {ref[3]} ({evals_rel:.2e} rel) needed {needed} "
-          f"({needed / n:.2f}/ray, {needed_rel:.2e} rel); tiles {raw_stats['tiles']}, fill "
-          f"{fill:.4f}, empty rows {raw_stats['empty_rows']} ({waste:.2%}); K3 with the "
-          f"re-trace {ms:.3f} ms, the kernel alone {raw_ms:.3f} ms, plain {plain_ms:.3f} "
-          f"ms, gathered K1-fp32 tracer {gathered_ms:.3f} ms; bound "
-          f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, split fp16), FP32-pipe bound "
-          f"{fp32['bound_ms']:.3f} ms; L2 weight bytes requested, computed from the "
-          f"design: {l2_bytes / 1e9:.3f} GB ({l2_bytes / raw_ms / 1e9:.3f} TB/s) [{card}]",
-          flush=True)
-    bad = ((out[2] != ref[2]) | ((out[0] < out[1]) != (ref[0] < ref[1])) |
-           (out[2] != k1[2]) | ((out[0] < out[1]) != (k1[0] < k1[1]))).nonzero()
-    for i in bad[:8, 0].tolist():
-        print(f"[{tag}] {name} ray {i} differs: near {bool(stats['near'][i])}; "
-              + "; ".join(f"{what} {float(t[0][i]):.7f} {float(t[1][i]):.7f} "
-                          f"{bool(t[2][i])}" for what, t in (
-                              ("kernel alone", raw), ("K3", out), ("K1-fp32 trace", k1),
-                              ("fp32 plain", ref))), flush=True)
-    if (k1_unf + k1_hit > TRACE_TOL["flags_differ"] or not err <= TRACE_TOL["abs"]
-            or not k1_err <= TRACE_TOL["abs"]
-            or evals_rel > TRACE_TOL["evals_rel"] or needed_rel > TRACE_TOL["evals_rel"]):
-        raise RuntimeError(f"[{tag}] K3 disagrees with its plain version on the {name} rays")
-    if (max(raw_unf, raw_hit) > (1 - TRACE_TOL["agree"]) * n
-            or not raw_err <= TRACE_TOL["abs"]):
-        raise RuntimeError(f"[{tag}] K3's kernel alone disagrees with the fp32 plain version on "
-                           f"the {name} rays")
-    if fp32_pair and fp32_split > (1 - TRACE_TOL["agree"]) * n:
-        raise RuntimeError(f"[{tag}] the two fp32 traces disagree on {fp32_split} of the {name} "
-                           f"rays")
-    if near_differ > near_allowed or n_near > TRACE_TOL["near_share"] * n:
-        raise RuntimeError(f"[{tag}] K3 flags {n_near} of the {name} rays near, {near_differ} "
-                           f"otherwise than the split plain version")
-    return dict(max_abs_err=err, ms=ms, kernel_alone_ms=raw_ms, plain_ms=plain_ms,
-                gathered_ms=gathered_ms, evals_executed=raw[3], evals_needed=needed,
-                     evals_plain=ref[3], retrace_evals=stats["retrace_evals"],
-                     near_rays=n_near, near_share=n_near / n,
-                     near_flags_vs_split_plain=near_differ, tiles=raw_stats["tiles"],
-                     fill=fill, waste=waste, hit_fraction=hits,
-                     flags_differ_k1_fp32=k1_unf + k1_hit, flags_differ=unf_d + hit_d,
-                     k1_fp32_flags_differ=base_unf + base_hit,
-                     kernel_alone_flags_differ=raw_unf + raw_hit,
-                     kernel_alone_max_abs_err=raw_err, split_scheme_err=sc_err,
-                fp32_traces_disagree=fp32_split,
-                     err_vs_split_plain=sp_err, split_sdf_err=sdf_err, **bound)
+    n, rows = rays[0].shape[0], stats["tiles"] * fm.TC_BLOCK_ROWS
+    ops = needed * sum(pf.chain_flops([(L.d_in, L.d_out) for L in net.layers]))
+    nbytes = n * (8 * 4 + 1) + n * (2 * 4 + 1) + ft.forward_records(fw) * fm.SPLIT_REC * 2
+    bound = pf.bound_s(ops * 3, nbytes, "bf16")
+    fig = dict(
+        ms=_time(lambda: ft.fused_sphere_trace(*rays, fw, tracer), reps=3),
+        kernel_alone_ms=_time(lambda: ft._trace_kernel(*rays, fw, tracer), reps=3),
+        plain_ms=_time(lambda: ft.fused_sphere_trace_plain(*rays, fw, tracer), reps=1),
+        gathered_ms=_time(lambda: tracer._sphere_trace(sdf_k1, *rays), reps=1),
+        bound_ms=bound * 1e3,
+        bound_by="bytes" if bound > pf.bound_s(ops * 3, 0, "bf16") else "operations",
+        evals_executed=stats["evals"], evals_needed=needed, retrace_evals=stats["retrace_evals"],
+        near_rays=stats["n_near"], near_share=stats["n_near"] / n, tiles=stats["tiles"],
+        fill=stats["evals"] / rows, waste=stats["empty_rows"] / rows,
+        hit_fraction=float((out[0] < out[1]).float().mean()), **gates)
+    print(f"[{tag}] K3 {name} rays at width {fw.width} (sphere_tracing_iters "
+          f"{tracer.sphere_tracing_iters}, line_step_iters {tracer.line_step_iters}), N={n}: "
+          f"{json.dumps(fig)}; FP32-pipe bound {pf.bound_s(ops, nbytes, 'fp32') * 1e3} ms "
+          f"[{card}]", flush=True)
+    return fig
 
 
 def phase_trace_kernel(card):
-    """K3 at full width on N_POINTS rays (_k3_case): camera and random rays
-    under the primary tracer, random rays under the secondary tracer. The
-    worst split-fp16 sdf error at the rays' points must lie NEAR_MARGIN
-    times inside NEAR_DELTA."""
+    """Phase 4 (module docstring)."""
     import torch
 
+    import kernel_gates as kg
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
 
     dev = torch.device("cuda", 0)
-    net = _flagship_net(dev)
-    tracer, secondary = _conf_tracer(), _conf_tracer(secondary=True)
-    fw = fm.prepare_weights(net, torch.float32)
-    sdf_k1 = fm.build_fused_sdf(net, torch.float32)
-    hidden_flops, col_flops = _chain_flops(net)
-    sets = _trace_rays(tracer, dev)
-    cases = (("camera", tracer, sets["camera"]), ("random", tracer, sets["random"]),
-             ("random_secondary", secondary, sets["random"]))
-    res = {}
-    worst_sdf = 0.0
+    tracer = kg.conf_tracer()
+    sets = kg.trace_rays(tracer, dev)
+    res = {"w512": {}, "w256": {}}
     with torch.no_grad():
-        for name, tr, rays in cases:
-            res[name] = _k3_case("trace-kernel", name, fw, tr, rays, sdf_k1,
-                                 hidden_flops + col_flops, card)
-            worst_sdf = max(worst_sdf, res[name]["split_sdf_err"])
-    print(f"[trace-kernel] worst |split fp16 sdf - fp32 sdf| over the three ray sets "
-          f"{worst_sdf:.3e}; NEAR_DELTA {ft.NEAR_DELTA:.3e} ({ft.NEAR_DELTA / worst_sdf:.2f} times "
-          f"it; at least {NEAR_MARGIN} required)", flush=True)
-    if ft.NEAR_DELTA < NEAR_MARGIN * worst_sdf:
-        raise RuntimeError("NEAR_DELTA does not cover the split fp16 sdf error")
-    res["worst_split_sdf_err"] = worst_sdf
+        net = kg.sdf_net("conf.conf", dev)
+        fw = fm.prepare_weights(net, torch.float32, 512)
+        for name, tr, rays in (("camera", tracer, sets["camera"]),
+                               ("random", tracer, sets["random"]),
+                               ("random_secondary", kg.conf_tracer(secondary=True),
+                                sets["random"])):
+            res["w512"][name] = _time_k3("trace-kernel", name, net, fw, tr, rays, card)
+        neus = kg.sdf_net("conf_neus.conf", dev, kg.NEUS_SEED)
+        fw, padded = (fm.prepare_weights(neus, torch.float32, w) for w in (256, 512))
+        for name in ("camera", "random"):
+            rays = sets[name]
+            fig = res["w256"][name] = _time_k3("trace-kernel neus", name, neus, fw, tracer, rays,
+                                               card, fp32_pair=True)
+            fig["padded_512_ms"] = _time(lambda: ft.fused_sphere_trace(*rays, padded, tracer),
+                                         reps=3)
+            fig["padded_512_kernel_alone_ms"] = _time(
+                lambda: ft._trace_kernel(*rays, padded, tracer), reps=3)
+            print(f"[trace-kernel neus] K3 {name} rays on the 512 packing: {fig['padded_512_ms']} "
+                  f"ms, the kernel alone {fig['padded_512_kernel_alone_ms']} ms [{card}]",
+                  flush=True)
     return res
 
 
 def _k3_on_net(tag, net, card):
-    """K3 with its re-trace on a trained or other net than the trace phase's
-    seeded init: the camera and random rays of _trace_rays under the
-    primary tracer, on the packing the model's closures use on the card
-    (packing_width). No ray's flags may differ from the K1-fp32 trace's on
-    it, at most TRACE_TOL["near_share"] of the rays may be near, and the
-    worst split-fp16 sdf error at the rays' points must lie NEAR_MARGIN
-    times inside NEAR_DELTA. -> the figures."""
+    """K3 with its re-trace on a trained net: the camera and random rays of
+    kernel_gates.trace_rays under the primary tracer, on the packing the
+    model's closures use on the card (packing_width), held to the K1-fp32
+    trace (kernel_gates.check_k3_k1) and to the near rays' gates
+    (check_k3_near). -> the figures"""
     import torch
 
+    import kernel_gates as kg
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
 
-    tracer = _conf_tracer()
+    tracer = kg.conf_tracer()
     fw = fm.network_weights(net, torch.float32, fm.FMA_WIDTHS)
     sdf_k1 = fm.build_fused_sdf(net, torch.float32)
     res = {}
     with torch.no_grad():
-        for name, rays in _trace_rays(tracer, torch.device("cuda", 0)).items():
+        for name, rays in kg.trace_rays(tracer, torch.device("cuda", 0)).items():
             stats = {}
             out = ft.fused_sphere_trace(*rays, fw, tracer, stats=stats)
             k1 = tracer._sphere_trace(sdf_k1, *rays)
-            unf, hit, err = ft.agreement(out, k1)
-            sdf_err = _split_sdf_error(fw, rays, k1)
-            n = rays[0].shape[0]
-            hits = float((out[0] < out[1]).float().mean())
-            print(f"[{tag}] K3 on {name} rays: N={n} hit fraction {hits:.3f}; near rays "
-                  f"{stats['n_near']} ({stats['n_near'] / n:.4%}); against the K1-fp32 trace "
-                  f"{unf} / {hit} rays whose unfinished / hit flag differs, max_abs_err "
-                  f"{err:.3e}; worst |split fp16 sdf - fp32 sdf| at the rays' points "
-                  f"{sdf_err:.3e}, NEAR_DELTA {ft.NEAR_DELTA / sdf_err:.2f} times it [{card}]",
-                  flush=True)
-            if (unf + hit > TRACE_TOL["flags_differ"] or not err <= TRACE_TOL["abs"]
-                    or stats["n_near"] > TRACE_TOL["near_share"] * n
-                    or ft.NEAR_DELTA < NEAR_MARGIN * sdf_err):
-                raise RuntimeError(f"[{tag}] K3 on this net fails the trace phase's gates")
-            res[name] = dict(near_share=stats["n_near"] / n, flags_differ_k1_fp32=unf + hit,
-                             max_abs_err_k1_fp32=err, split_sdf_err=sdf_err, hit_fraction=hits)
+            fig = res[name] = dict(near_share=stats["n_near"] / rays[0].shape[0],
+                                   hit_fraction=float((out[0] < out[1]).float().mean()))
+            fig["max_abs_err_k1_fp32"] = kg.check_k3_k1(out, k1)
+            fig["split_sdf_err"] = kg.check_k3_near(fw, rays, stats, k1)
+            print(f"[{tag}] K3 on {name} rays: {json.dumps(fig)}; NEAR_DELTA "
+                  f"{ft.NEAR_DELTA / fig['split_sdf_err']:.2f} times the split-fp16 sdf error "
+                  f"[{card}]", flush=True)
     return res
 
 
@@ -1034,11 +737,11 @@ class _ReplayTraces:
         self.module.fused_sphere_trace = self.real
 
 
-def _rays_that_differ(a, b):
+def _rays_that_differ(a, b, ends=1e-4):
     """Indices of the rays whose unfinished flag or hit differs between two
     traces' (acc_start, acc_end, unfinished), or an end by more than
-    TRACE_TOL['abs']."""
-    far = ((a[0] - b[0]).abs() > TRACE_TOL["abs"]) | ((a[1] - b[1]).abs() > TRACE_TOL["abs"])
+    `ends`."""
+    far = ((a[0] - b[0]).abs() > ends) | ((a[1] - b[1]).abs() > ends)
     return ((a[2] != b[2]) | ((a[0] < a[1]) != (b[0] < b[1])) | far).nonzero()[:, 0].tolist()
 
 
@@ -1808,6 +1511,7 @@ def phase_fast_multi_ray(card):
 
 
 NEUS_VIEWS = 2          # 2 steps: one epoch, iterations 0-1
+NEUS_RENDER_RAYS = 16
 
 
 def _neus_state(imp):
@@ -1821,109 +1525,18 @@ def _neus_state(imp):
     return {"sdf_network_fine": state}
 
 
-def _check_k1_fp32(tag, fw, pts):
-    """K1 fp32 on the FMA pipe, both entries, on the packing `fw` at RAGGED
-    sizes, NEAR_POINTS and N_POINTS against their plain versions (TOL,
-    raises); the sdf entry must equal sdf_column of the hidden entry's h bit
-    for bit (the order its epilogue sums in). -> (hidden errors, sdf errors)
-    by size."""
-    import torch
-
-    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
-
-    errs_h, errs_s = [], []
-    for n in RAGGED + (NEAR_POINTS, N_POINTS):
-        x = fm.embed_padded(pts[:n], fw)
-        h = fm.fused_hidden(x, fw)
-        sdf = fm.fused_sdf_value(pts[:n], fw)  # the sdf entry encodes the points itself
-        torch.cuda.synchronize()
-        err_h = (h - fm.fused_hidden_plain(x, fw)).abs().max().item()
-        err_s = (sdf - fm.fused_sdf_value_plain(x, fw)).abs().max().item()
-        same = torch.equal(sdf, fm.sdf_column(h[:, :fw.real_width], fw.w_last[:, 0],
-                                              fw.b_last[0]))
-        print(f"[{tag}] K1 fp32 (FMA, width {fw.width}) N={n}: hidden max_abs_err={err_h:.3e}, "
-              f"sdf entry max_abs_err={err_s:.3e}, sdf entry equal to sdf_column of the "
-              f"hidden entry's h bit for bit: {same}", flush=True)
-        if (not err_h <= TOL["fp32_abs"] or not err_s <= TOL["fp32_abs"] or not same
-                or not bool(torch.isfinite(h).all() and torch.isfinite(sdf).all())):
-            raise RuntimeError(f"[{tag}] K1 fp32 at width {fw.width} disagrees with its plain "
-                               f"version or its own h at N={n}: hidden {err_h:.3e}, sdf "
-                               f"{err_s:.3e}, sdf_column of h {same}")
-        errs_h.append(err_h)
-        errs_s.append(err_s)
-    return errs_h, errs_s
-
-
-def _time_k1_fp32(tag, fw, pts, hidden_flops, col_flops, errs_h, errs_s, plain=True):
-    """K1 fp32's two entries timed at N_POINTS and NEAR_POINTS beside their
-    bounds at the net's real width (each input read and each output written
-    once: the sdf entry writes no [N, W] h, and does the sdf column's
-    products), their plain versions' times (`plain`) and the two-step route
-    the sdf closure took before the sdf entry (the hidden entry, then
-    sdf_column in tensor ops). -> (hidden figures, sdf figures)"""
-    from nefii_tpu_torch.ops.kernels import fused_mlp as fm
-
-    weights = fw.buf.numel() * 4
-
-    def two_step(x):
-        h = fm.fused_hidden(x, fw)[:, :fw.real_width]
-        return fm.sdf_column(h, fw.w_last[:, 0], fw.b_last[0])
-
-    out = []
-    # the hidden entry reads the embedded points, the sdf entry the points
-    for name, fn, plain_fn, errs, in_bytes, out_bytes, flops in (
-            ("hidden", fm.fused_hidden, fm.fused_hidden_plain, errs_h, 4 * fw.emb_dim,
-             4 * fw.real_width, hidden_flops),
-            ("sdf", fm.fused_sdf_value, fm.fused_sdf_value_plain, errs_s, 3 * 4, 4,
-             hidden_flops + col_flops)):
-        fig = dict(max_abs_err=max(errs), ragged=list(RAGGED))
-        for n, key in ((N_POINTS, ""), (NEAR_POINTS, "near_")):
-            x = fm.embed_padded(pts[:n], fw)
-            inp = pts[:n] if name == "sdf" else x
-            fig[key + "ms"] = _time(lambda: fn(inp, fw), reps=5 if n == N_POINTS else 20)
-            if plain:
-                fig[key + "plain_ms"] = _time(lambda: plain_fn(x, fw))
-            b = _bound(n * flops, n * (in_bytes + out_bytes) + weights, "fp32")
-            fig.update({key + k: v for k, v in b.items()})
-            if name == "sdf":
-                fig[key + "two_step_ms"] = _time(lambda: two_step(x),
-                                                 reps=5 if n == N_POINTS else 20)
-        fig["near_points"] = NEAR_POINTS
-        out.append(fig)
-        print(f"[{tag}] K1 fp32 (FMA, width {fw.width}) {name} entry: N={N_POINTS} "
-              f"{fig['ms']:.3f} ms (bound {fig['bound_ms']:.3f} ms, {fig['bound_by']}, "
-              f"{fig['bound_ms'] / fig['ms']:.1%}"
-              + (f"; plain {fig['plain_ms']:.3f} ms" if plain else "")
-              + (f"; hidden entry + sdf_column {fig['two_step_ms']:.3f} ms" if name == "sdf"
-                 else "")
-              + f"), N={NEAR_POINTS} {fig['near_ms']:.3f} ms (bound {fig['near_bound_ms']:.3f} "
-              f"ms" + (f"; plain {fig['near_plain_ms']:.3f} ms" if plain else "")
-              + (f"; hidden entry + sdf_column {fig['near_two_step_ms']:.3f} ms"
-                 if name == "sdf" else "") + ")", flush=True)
-    return out[0], out[1]
-
-
-NEUS_RENDER_RAYS = 16
-
 
 def phase_neus(card):
     """The workflow without masks (workflows/run_s2_womask.sh):
     confs/conf_neus.conf, whose SDF net is NeuS's 8x256 (skip at 4, multires
     6, 256 features) with use_fused_sdf, bf16 trace. On the card the model's
     closures pack it at 256 for every kernel (fused_mlp.packing_width): K1
-    fp32 and bf16, K2, K3. Each kernel on the 256 packing against its plain
-    version under phase 3's gates (K1 fp32 and bf16, both entries, and K2 at
-    RAGGED sizes and N_POINTS points) and phase 4's (K3 on the camera and
-    random rays of _trace_rays under the primary tracer, TRACE_TOL, no flag
-    differing from the K1-fp32 trace on the same packing, the worst
-    split-fp16 sdf error NEAR_MARGIN times inside NEAR_DELTA); each timed
-    beside the net padded to 512 (the padded run of earlier versions), with
-    its bound at the real width. Then a NeuS `.pth` (the seeded net's
-    `sdf_network_fine`) imported through exp_runner.main --geometry_neus with
-    the workflow's flags (frozen geometry, --wo_mask, --gamma 2.2, a
-    distillation step after each of 2 steps of 2048 px x 64 rays), as
-    shipped and with use_fused_trace (K3 in the traces), and one 128x128
-    view at 16 rays of its checkpoint through render.main with
+    fp32 and bf16, K2, K3; phases 3 and 4 time them there. A NeuS `.pth`
+    (the seeded net's `sdf_network_fine`) imported through exp_runner.main
+    --geometry_neus with the workflow's flags (frozen geometry, --wo_mask,
+    --gamma 2.2, a distillation step after each of 2 steps of 2048 px x 64
+    rays), as shipped and with use_fused_trace (K3 in the traces), and one
+    128x128 view at 16 rays of its checkpoint through render.main with
     fused_sdf_dtype = float32 (K1 fp32 in the traces). Checks the imported
     weights bit for bit, finite losses and EXRs, a frozen geometry, and
     launches at width 256 and at no other (the per-width counts of
@@ -1932,98 +1545,18 @@ def phase_neus(card):
     import numpy as np
     import torch
 
-    from nefii_tpu_torch.config import parse_string
+    import kernel_gates as kg
     from nefii_tpu_torch.datasets.synthetic import write_sphere_scene
-    from nefii_tpu_torch.models.idr import IDRNetwork
     from nefii_tpu_torch.ops.kernels import fused_mlp as fm
     from nefii_tpu_torch.ops.kernels import fused_trace as ft
     from nefii_tpu_torch.scripts import render
     from nefii_tpu_torch.training import exp_runner
 
-    text = _conf_text(NO_VIS, name="conf_neus.conf")
-    mconf = parse_string(text).get_config("model")
-    src = IDRNetwork.from_conf(mconf, device="cuda", seed=7)
-    imp = src.implicit_network
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    pts = torch.randn(N_POINTS, 3, generator=gen, device="cuda") * 0.5
+    imp = kg.sdf_net("conf_neus.conf", "cuda", kg.NEUS_SEED)
     width = fm.packing_width(imp, fm.TC_WIDTHS)
     if (width, fm.packing_width(imp, fm.FMA_WIDTHS)) != (256, 256):
         raise RuntimeError(f"NeuS packing widths: {width} (tensor cores), "
                            f"{fm.packing_width(imp, fm.FMA_WIDTHS)} (FMA K1, K3)")
-    hidden_flops, col_flops = _chain_flops(imp)
-    res = {}
-    with torch.no_grad():
-        for w in fm.TC_WIDTHS:
-            f16 = fm.prepare_weights(imp, torch.bfloat16, w)
-            f32 = fm.prepare_weights(imp, torch.float32, w)
-            if (f32.width, f32.real_width) != (w, 256):
-                raise RuntimeError(f"NeuS packing: width {f32.width}, real {f32.real_width}")
-            errs_h, errs_s = _check_k1_tc("neus", f16, pts)
-            errs_k2 = _check_k2("neus", f32, pts)
-            errs_k1 = _check_k1_fp32("neus", f32, pts)
-            x16, x32 = fm.embed_padded(pts, f16), fm.embed_padded(pts, f32)
-            weights, records = f16.tc.numel() * 2, fm.split_weights(f32).numel() * 2
-            # bounds at the real width: the net's own products, each input
-            # read and each output written once
-            run = {
-                "fused_sdf_value": dict(
-                    max_abs_err=max(errs_s), ms=_time(lambda: fm.fused_sdf_value(pts, f16), 10),
-                    **_bound(N_POINTS * (hidden_flops + col_flops),
-                             N_POINTS * (3 * 4 + 4) + weights, "bf16")),
-                "fused_sdf_hidden_tc": dict(
-                    max_abs_err=max(errs_h), ms=_time(lambda: fm.fused_hidden(x16, f16), 10),
-                    **_bound(N_POINTS * hidden_flops,
-                             N_POINTS * (f16.emb_dim + f16.real_width) * 2 + weights, "bf16")),
-                "fused_sdf_fwd_bwd": dict(
-                    max_abs_err=max(errs_k2), ms=_time(lambda: fm.fused_fwd_bwd(x32, f32), 10),
-                    **_bound(N_POINTS * 2 * hidden_flops * 3,
-                             N_POINTS * (2 * f32.emb_dim + f32.real_width) * 4 + records,
-                             "bf16")),
-            }
-            run["fused_sdf_hidden"], run["fused_sdf_value_fp32"] = _time_k1_fp32(
-                f"neus width {w}", f32, pts, hidden_flops, col_flops, *errs_k1, plain=w == width)
-            if w == width:
-                run["fused_sdf_value"]["plain_ms"] = _time(
-                    lambda: fm.fused_sdf_value_plain(x16, f16))
-                run["fused_sdf_hidden_tc"]["plain_ms"] = _time(
-                    lambda: fm.fused_hidden_plain(x16, f16))
-                run["fused_sdf_fwd_bwd"]["plain_ms"] = _time(
-                    lambda: fm.fused_fwd_bwd_plain(x32, f32))
-            res[f"w{w}"] = run
-            print(f"[neus] width {w}{' (padded)' if w > width else ''}, N={N_POINTS}: "
-                  + "; ".join(f"{k} {v['ms']:.3f} ms (bound at the real width {v['bound_ms']:.3f} "
-                              f"ms, {v['bound_ms'] / v['ms']:.1%})" for k, v in run.items())
-                  + f"; K2 streams {records // 2 // fm.SPLIT_REC} records a tile, K1 "
-                  f"{weights // 2 // (fm.TC_K * w)} chunks a step [{card}]", flush=True)
-        # K3 on the packing the model's closures use (256), held to the
-        # K1-fp32 trace on it; the 512 packing timed beside it
-        tracer = _conf_tracer()
-        fw = fm.network_weights(imp, torch.float32, fm.FMA_WIDTHS)
-        fw512 = fm.prepare_weights(imp, torch.float32, 512)
-        sdf_k1 = fm.build_fused_sdf(imp, torch.float32)
-        k3 = {}
-        for name, rays in _trace_rays(tracer, dev).items():
-            r = _k3_case("neus", name, fw, tracer, rays, sdf_k1, hidden_flops + col_flops, card,
-                         fp32_pair=True)
-            r["padded_512_ms"] = _time(lambda: ft.fused_sphere_trace(*rays, fw512, tracer),
-                                       reps=3)
-            r["padded_512_kernel_alone_ms"] = _time(
-                lambda: ft._trace_kernel(*rays, fw512, tracer), reps=3)
-            print(f"[neus] K3 {name} rays at width {fw.width}: {r['ms']:.3f} ms, the kernel alone "
-                  f"{r['kernel_alone_ms']:.3f} ms; on the 512 packing {r['padded_512_ms']:.3f} "
-                  f"ms, the kernel alone {r['padded_512_kernel_alone_ms']:.3f} ms [{card}]",
-                  flush=True)
-            k3[name] = r
-    worst = max(r["split_sdf_err"] for r in k3.values())
-    print(f"[neus] worst |split fp16 sdf - fp32 sdf| on the width-{fw.width} packing "
-          f"{worst:.3e}; NEAR_DELTA {ft.NEAR_DELTA:.3e} ({ft.NEAR_DELTA / worst:.2f} times it; "
-          f"at least {NEAR_MARGIN} required)", flush=True)
-    if ft.NEAR_DELTA < NEAR_MARGIN * worst:
-        raise RuntimeError("[neus] NEAR_DELTA does not cover the split fp16 sdf error")
-    res["k3"] = k3
-    print(f"[neus] 8x256 SDF net: {res} [{card}]", flush=True)
-
     runs = {}
     with tempfile.TemporaryDirectory() as d:
         pth = os.path.join(d, "neus.pth")
@@ -2111,8 +1644,8 @@ def phase_neus(card):
     runs["neus-fp32"] = dict(s_per_view=[st["seconds"] for st in rr.stats],
                              max_memory_allocated=peak, launches=launches)
     total = {k: sum(r["launches"][k] for r in runs.values()) for k in launches}
-    return dict(kernels=res, runs={k: {n: v for n, v in r.items() if n != "launches"}
-                                   for k, r in runs.items()},
+    return dict(runs={k: {n: v for n, v in r.items() if n != "launches"}
+                      for k, r in runs.items()},
                 run_launches={k: r["launches"] for k, r in runs.items()}, launches=total)
 
 
@@ -3240,7 +2773,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    kern = phase_kernels()
+    kern = phase_kernels(card)
     trace = phase_trace_kernel(card)
     ref = phase_reference()
     train_ref = phase_train_reference()
@@ -3298,19 +2831,20 @@ def main():
         dict(name="fused_sdf_hidden_tc", route="cuda", source=tc_src, replaces=k1,
              launches=launches["fused_sdf_hidden_tc"], **paths("fused_sdf_hidden_tc"),
              render_launches=render_launches["fused_sdf_hidden_tc"], dtype="bfloat16",
-             design="wgmma m64n256k16, bulk-copy weight ring", library_ms=None, **kern["k1_tc"]),
+             design="wgmma m64n256k16, bulk-copy weight ring", library_ms=None,
+             **kern["w512"]["fused_sdf_hidden_tc"]),
         dict(name="fused_sdf_value", route="cuda", source=tc_src, replaces=k1,
              launches=launches["fused_sdf_value"], **paths("fused_sdf_value"),
              render_launches=render_launches["fused_sdf_value"], dtype="bfloat16",
              design="the tensor-core K1 with the sdf column in its epilogue", library_ms=None,
-             **kern["sdf_value"]),
+             **kern["w512"]["fused_sdf_value"]),
         *(dict(name=name, route="cuda", source=fma_src, replaces=k1,
                launches=launches[name], **paths(name), render_launches=render_launches[name],
                reference_launches=ref_launches[name], dtype="float32", design=design,
-               library_ms=None, **kern[key])
-          for name, key, design in (
-              ("fused_sdf_hidden", "k1_fp32", FMA_DESIGN + ", 64-row tiles"),
-              ("fused_sdf_value_fp32", "k1_fp32_sdf",
+               library_ms=None, **kern["w512"][name])
+          for name, design in (
+              ("fused_sdf_hidden", FMA_DESIGN + ", 64-row tiles"),
+              ("fused_sdf_value_fp32",
                FMA_DESIGN + ", 64-row tiles, the sdf column in its epilogue in sdf_column's "
                "order"))),
         dict(name="fused_sdf_fwd_bwd", route="cuda",
@@ -3319,7 +2853,7 @@ def main():
              launches=launches["fused_sdf_fwd_bwd"], **paths("fused_sdf_fwd_bwd"),
              render_launches=render_launches["fused_sdf_fwd_bwd"], dtype="float32",
              design="split bf16 (hi.hi + lo.hi + hi.lo) on wgmma m64n256k16, bulk-copy "
-                    "weight ring", library_ms=None, **kern["k2"]),
+                    "weight ring", library_ms=None, **kern["w512"]["fused_sdf_fwd_bwd"]),
         dict(name="fused_sphere_trace", route="cuda",
              source=trace_src, replaces="nefii_tpu/ops/pallas/fused_trace.py:81",
              launches=launches["fused_sphere_trace"], **paths("fused_sphere_trace"),
@@ -3327,28 +2861,24 @@ def main():
              design="split fp16 (hi.hi + lo.hi + hi.lo, weights scaled by 2^s per layer) on "
                     "wgmma m64n256k16 over a refilled pool of 32 live rays a block, bulk-copy "
                     "weight ring", library_ms=None,
-             **{k: trace["camera"][k] for k in ("max_abs_err", "ms", "kernel_alone_ms",
-                                                "plain_ms", "bound_ms", "bound_by", "fill",
-                                                "waste", "evals_needed", "evals_executed",
-                                                "near_share", "retrace_evals")},
-             random_rays=trace["random"], random_rays_secondary_conf=trace["random_secondary"]),
+             **trace["w512"]["camera"], random_rays=trace["w512"]["random"],
+             random_rays_secondary_conf=trace["w512"]["random_secondary"]),
     ]
     # the width-256 instantiations (phase 12's path): launches from the NeuS
     # runs (those of the other paths beside them), times, plain times and
     # bounds on NeuS's net at 256, the padded 512 packing's time beside them
     for rec in records:
         rec["width"] = 512
-    neus_k = neus["kernels"]
     split_src = "nefii_tpu_torch/ops/kernels/csrc/sdf_mlp_split.cuh"
 
-    def at_256(name, source, replaces, dtype, design, figures, padded_ms):
+    def at_256(name, source, replaces, dtype, design, figures):
         key = f"{name}@256"
         return dict(
             name=key, route="cuda", source=source, replaces=replaces,
             launches=live["neus_launches"][key],
             **{k: v.get(key, 0) for k, v in live.items() if k != "neus_launches"},
             dtype=dtype, design=design, width=256, net="confs/conf_neus.conf 8x256",
-            padded_512_ms=padded_ms, library_ms=None, **figures)
+            library_ms=None, **figures)
 
     for name, source, replaces, dtype, design in (
             ("fused_sdf_hidden_tc", tc_src, k1, "bfloat16",
@@ -3361,18 +2891,14 @@ def main():
             ("fused_sdf_value_fp32", fma_src, k1, "float32",
              FMA_DESIGN + ", 128-row tiles, the sdf column in its epilogue in sdf_column's "
              "order")):
-        records.append(at_256(name, source, replaces, dtype, design, neus_k["w256"][name],
-                              neus_k["w512"][name]["ms"]))
-    k3_neus = neus_k["k3"]
+        records.append(at_256(name, source, replaces, dtype, design, dict(
+            kern["w256"][name], padded_512_ms=kern["w256_padded"][name]["ms"])))
+    k3_neus = trace["w256"]
     records.append(at_256(
         "fused_sphere_trace", trace_src, "nefii_tpu/ops/pallas/fused_trace.py:81", "float32",
         "split fp16 on wgmma m64n128k16, two k16 slices a record, over a refilled pool of 32 "
         "live rays a block, bulk-copy weight ring",
-        dict({k: k3_neus["camera"][k] for k in (
-            "max_abs_err", "ms", "kernel_alone_ms", "plain_ms", "bound_ms", "bound_by", "fill",
-            "waste", "evals_needed", "evals_executed", "near_share", "retrace_evals",
-            "padded_512_kernel_alone_ms")}, random_rays=k3_neus["random"]),
-        k3_neus["camera"]["padded_512_ms"]))
+        dict(k3_neus["camera"], random_rays=k3_neus["random"])))
     left = _live_children()
     if left:
         raise RuntimeError(f"processes started by this run still run at its end: {left}")

@@ -72,14 +72,14 @@ POOL_SLOTS = 32   # rays in a block's pool (TR_SLOTS in csrc/fused_trace.cu)
 # crossing test (acc_start < acc_end) of the split-fp16 trace whose values lie
 # within NEAR_DELTA of its threshold (of each other) is near: the ray is
 # traced again in fp32. NEAR_DELTA is 5 times the worst |split-fp16 sdf -
-# fp32 sdf| that chip_smoke.py's trace phase measured (8.345e-7, on an H100,
-# over its camera, random and secondary-conf ray sets of the flagship net at
-# their points near, far, the fp32 trace's ends and their midpoint), rounded
-# up; the phase fails unless NEAR_DELTA covers its measurement twice over.
-# chip_smoke.py holds it on two more nets, the Step-1 fit of its geometry
-# phase (8.345e-7 again) and NeuS's 8x256 net (1.073e-6 on its 512 packing
-# and again on its 256 packing, the one it runs at), and fails where a ray's
-# flags differ from the K1-fp32 trace's on any of them.
+# fp32 sdf| measured on an H100 (8.345e-7) over 262,144 camera, random and
+# secondary-conf rays of one 512x512 view of the flagship net's seeded init,
+# at their points near, far, the fp32 trace's ends and their midpoint,
+# rounded up. The card test test_k3_on_a_view_matches_plain
+# (tests/test_torch_port_cuda.py, through kernel_gates.check_k3_near) fails
+# unless NEAR_DELTA covers that error twice over, there and on NeuS's 8x256
+# net at its 256 packing (1.073e-6), or where a ray's flags differ from the
+# K1-fp32 trace's; chip_smoke.py's phases 4 and 13 hold the same.
 # It is a constant: a geometry with larger activations is not measured.
 NEAR_DELTA = 4.2e-6
 
